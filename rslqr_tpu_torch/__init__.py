@@ -1,0 +1,36 @@
+"""rslqr_tpu_torch: the rsLQR solver in PyTorch, with hand-written CUDA
+kernels for the NVIDIA H100.
+
+A port of ``rslqr_tpu`` (which stays the reference): the batched
+element-major rsLQR solve, the Riccati oracle, and the problem helpers.
+The four sweep kernels (``ops/schur.py``, ``csrc/schur_kernels.cu``) run on
+CUDA tensors; their plain PyTorch versions run on CPU tensors.
+"""
+
+from .config import SolveOptions
+from .problem import (
+    LQRProblem,
+    batch_problems,
+    double_integrator_problem,
+    kkt_residual,
+    objective,
+    pack_solution,
+    perturb_problem,
+    problem_from_arrays,
+    problem_from_numpy,
+    random_problem,
+    unpack_solution,
+)
+from .riccati import RiccatiSolution, solve_riccati
+from .rslqr import RsLqrSolution, solve, solve_kkt
+from .rslqr_em import (
+    EmFactorization,
+    factorize_em,
+    leaf_rhs_em,
+    solve_em,
+    solve_kkt_em,
+    solve_rhs_em,
+)
+from .tree import TreeTables, build_tree_tables
+
+__version__ = "0.1.0"

@@ -1,0 +1,62 @@
+"""Per-call solver options (counterpart of ``rslqr_tpu.config.SolveOptions``).
+
+PyTorch runs eagerly, so there is no trace-time global config to snapshot:
+every entry point takes an explicit :class:`SolveOptions` (``None`` means
+the defaults).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+_LAYOUTS = ("auto", "em")
+_KERNEL_MODES = ("auto", "off")
+
+
+@dataclasses.dataclass(frozen=True)
+class SolveOptions:
+    """Solver options.
+
+    ``kernels`` replaces the JAX package's ``pallas`` switch:
+
+    * ``"auto"``: each of the four sweep kernels (``ops/schur.py``) launches
+      its hand-written CUDA kernel on CUDA tensors and runs its plain PyTorch
+      version on CPU tensors. There is no silent fallback on CUDA: a kernel
+      that cannot run raises.
+    * ``"off"``: the plain PyTorch versions on every device (the reference
+      path that ``chip_smoke.py`` times and compares the kernels against).
+
+    ``layout`` accepts ``"auto"`` and ``"em"``; both run the element-major
+    path. The knot-major grid path is not ported yet.
+    ``factor_dtype`` accepts only ``""`` (slabs in the problem dtype).
+    """
+
+    layout: str = "auto"
+    kernels: str = "auto"
+    factor_dtype: str = ""
+    mxu_block_threshold: int = 8
+    # Two sweep levels per slab pass (rslqr_em._sweep_pair_em); False = one
+    # level per pass.
+    level_pairing: bool = True
+
+    def __post_init__(self):
+        if self.layout not in _LAYOUTS:
+            raise ValueError(
+                f"unknown layout {self.layout!r} (want one of {_LAYOUTS})"
+            )
+        if self.kernels not in _KERNEL_MODES:
+            raise ValueError(
+                f"unknown kernel mode {self.kernels!r} "
+                f"(want one of {_KERNEL_MODES})"
+            )
+        if self.factor_dtype != "":
+            raise ValueError(
+                "factor_dtype storage other than the problem dtype is not "
+                f"ported yet (got {self.factor_dtype!r})"
+            )
+
+
+def resolve_options(options: Optional[SolveOptions]) -> SolveOptions:
+    """``options`` if given, else the defaults."""
+    return options if options is not None else SolveOptions()

@@ -1,0 +1,106 @@
+"""rsLQR front door: recursive Schur-complement (nested dissection) solve.
+
+Counterpart of the entry points of ``rslqr_tpu.rslqr`` (rslqr.py:90-124,
+218-227, 444-449, 536-592). Every solve runs the element-major path of
+:mod:`rslqr_tpu_torch.rslqr_em`: any number of leading batch axes is
+flattened to one (a single problem runs as a batch of one), so on CUDA the
+kernel path is the only path. The knot-major grid path and the large-block
+route of the JAX package are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .config import SolveOptions, resolve_options
+from .problem import LQRProblem, pack_solution
+from .tree import TreeTables
+
+
+@dataclasses.dataclass(frozen=True)
+class RsLqrSolution:
+    """Solution of one (possibly batched) rsLQR solve: ``Y``/``X`` are
+    ``[*batch, N, n]``, ``U`` is ``[*batch, N-1, m]``; ``fact`` is the
+    factorization (batch flattened to one trailing axis)."""
+
+    Y: torch.Tensor
+    X: torch.Tensor
+    U: torch.Tensor
+    fact: object
+
+    def kkt_vector(self) -> torch.Tensor:
+        return pack_solution(self.Y, self.X, self.U)
+
+
+def _bl(x: torch.Tensor, nlead: int) -> torch.Tensor:
+    """Move ``nlead`` leading batch axes to the back (batch-last layout)."""
+    if nlead == 0:
+        return x
+    return x.permute(tuple(range(nlead, x.dim())) + tuple(range(nlead)))
+
+
+def _bf(x: torch.Tensor, nbatch: int) -> torch.Tensor:
+    """Move ``nbatch`` trailing batch axes to the front."""
+    if nbatch == 0:
+        return x
+    nd = x.dim()
+    return x.permute(tuple(range(nd - nbatch, nd)) + tuple(range(nd - nbatch)))
+
+
+def _to_batch_last(prob: LQRProblem, nlead: int) -> LQRProblem:
+    return prob.map(lambda x: _bl(x, nlead))
+
+
+def _lambda_mask(N: int, span: int, mid: int) -> np.ndarray:
+    """calc_lambda (nested_dissection.c:173-177) as a static ``[G, span]``
+    pattern: the left-range start (position 0) and right-range start
+    (position mid) of each group skip the lambda update, except knot 0."""
+    mask = np.ones((N // span, span), dtype=bool)
+    mask[:, 0] = False
+    mask[:, mid] = False
+    mask[0, 0] = True
+    return mask
+
+
+def solve(
+    prob: LQRProblem,
+    tables: Optional[TreeTables] = None,
+    options: Optional[SolveOptions] = None,
+) -> RsLqrSolution:
+    """Full rsLQR solve (ref ndlqr_Solve, solve.c:38-190) of a single
+    problem or a batch (leading batch axes on every field).
+
+    Sets ``torch.backends.cuda.matmul.allow_tf32`` and
+    ``torch.backends.cudnn.allow_tf32`` to False: the plain stages may
+    lower to batched matmuls, and TF32 would cut them to ~3 digits.
+    """
+    from . import rslqr_em
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    opts = resolve_options(options)
+    n, m = prob.nstates, prob.ninputs
+    if max(n, m) > opts.mxu_block_threshold and opts.layout == "auto":
+        raise NotImplementedError(
+            f"blocks n={n}, m={m} above mxu_block_threshold="
+            f"{opts.mxu_block_threshold}: the mid/large-block routes are not "
+            "ported yet"
+        )
+    bshape = prob.batch_shape
+    flat = prob.map(lambda x: x.reshape((-1,) + x.shape[len(bshape):]))
+    sol = rslqr_em.solve_em(flat, tables, options=opts)
+    unflat = lambda x: x.reshape(bshape + x.shape[1:])
+    return RsLqrSolution(
+        Y=unflat(sol.Y), X=unflat(sol.X), U=unflat(sol.U), fact=sol.fact
+    )
+
+
+def solve_kkt(
+    prob: LQRProblem, options: Optional[SolveOptions] = None
+) -> torch.Tensor:
+    """Solve and return the flat KKT vector(s) ``[*b, nvars]``."""
+    return solve(prob, options=options).kkt_vector()

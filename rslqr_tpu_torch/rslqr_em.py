@@ -1,0 +1,532 @@
+"""Element-major rsLQR solve: the production path for small blocks.
+
+Counterpart of ``rslqr_tpu.rslqr_em``. Same algorithm (recursive Schur
+complement over the knot-point tree, ref solve.c:38-190), with the factor
+slabs element-major ``[p, q, N, B]``: block dims leading, the (knot x batch)
+plane minor. The batch is always ONE trailing axis here (the front door
+flattens leading batch axes; a single problem runs as ``B = 1``).
+
+On every device this module runs the structure of the JAX package's kernel
+path:
+
+1. level-0 products from compact gathers of the problem data, a small
+   Cholesky and stacked separator solves, then ONE fused leaf + level-0
+   pass (``leaf_schur_level0_em``);
+2. per level, either the paired sweep (``schur_update_pair_em`` after the
+   compact ``_pair_prepass``) or the single sweep (``schur_update_level_em``);
+3. the RHS sweep: per level a compact separator solve in plain ops, then
+   one pass over the level's slabs (``rhs_update_level_em``).
+
+Only the four kernel calls (``ops/schur.py``) differ between devices: the
+plain PyTorch versions on CPU tensors (or under ``kernels="off"``), the
+CUDA kernels on CUDA tensors. Everything else is plain PyTorch on compact
+``[.., G, B]`` data. The flat-plane and mid-block planes branches of the
+JAX module are not ported yet.
+
+The slabs are updated in place by the kernels, as the TPU kernels alias
+them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import linalg as la
+from .config import SolveOptions, resolve_options
+from .ops import schur
+from .problem import LQRProblem, pack_solution
+from .rslqr import RsLqrSolution, _bf, _to_batch_last
+from .tree import TreeTables, build_tree_tables
+
+NB = 1  # trailing batch axes of every element-major array
+
+
+@dataclasses.dataclass(frozen=True)
+class EmFactorization:
+    """Element-major factorization state (NdLqrCholeskyFactors analogue,
+    cholesky_factors.h:30-35, plus the final factor slabs).
+
+    ``Fls``/``Fxs``/``Fus``: tuple over levels of ``[{n,n,m}, n, N, B]``
+    post-sweep factor slabs, consumed by the RHS sweep.
+    ``chols``: tuple over levels of ``[n, n, G_level, B]`` Cholesky factors.
+    """
+
+    Fls: Tuple
+    Fxs: Tuple
+    Fus: Tuple
+    chols: Tuple
+
+
+def _em(x: torch.Tensor) -> torch.Tensor:
+    """Batch-last blocks ``[N, p, q, B]`` -> element-major ``[p, q, N, B]``."""
+    return x.movedim(0, 2)
+
+
+def _emv(x: torch.Tensor) -> torch.Tensor:
+    """Batch-last vectors ``[N, p, B]`` -> element-major ``[p, N, B]``."""
+    return x.movedim(0, 1)
+
+
+def _emv_bl(x: torch.Tensor) -> torch.Tensor:
+    return x.movedim(1, 0)
+
+
+def _gk(x: torch.Tensor, span: int) -> torch.Tensor:
+    """Group the knot axis: ``[..., N, B] -> [..., G, span, B]``."""
+    return x.reshape(x.shape[:-2] + (x.shape[-2] // span, span, x.shape[-1]))
+
+
+def _sel(x: torch.Tensor, idx: int) -> torch.Tensor:
+    """Select one span position: ``[..., G, span, B] -> [..., G, B]``."""
+    return x[..., idx, :]
+
+
+def _kmask(sel: np.ndarray, lead: int, device) -> torch.Tensor:
+    """Static bool over knots -> broadcastable with ``lead`` leading block
+    axes and the trailing batch axis."""
+    return torch.as_tensor(
+        sel.reshape((1,) * lead + sel.shape + (1,)), device=device
+    )
+
+
+def _leaf_masks(levels: np.ndarray, N: int, depth: int):
+    """Static per-level leaf-ownership masks over knots (ref
+    nested_dissection.c:10-105 index logic via the tree tables)."""
+    ks = np.arange(N)
+    own = [
+        (levels[np.minimum(ks, N - 2)] == L) & (ks >= 1) & (ks < N - 1)
+        for L in range(depth)
+    ]
+    prev = [np.concatenate([[False], levels == L]) for L in range(depth)]
+    return own, prev
+
+
+def _leaf_em(pbl: LQRProblem, levels: np.ndarray, depth: int):
+    """Leaf solves (ref nested_dissection.c:10-105) as static-mask
+    ``where``s over dense planes. Used when the tree is too shallow for the
+    fused leaf kernel (N = 2) and for fresh right-hand sides."""
+    N, n = pbl.A.shape[0], pbl.A.shape[1]
+    dev, dtype = pbl.A.device, pbl.A.dtype
+    A, B = _em(pbl.A), _em(pbl.B)
+    At, Bt = A.transpose(0, 1), B.transpose(0, 1)
+    qinv, rinv = 1.0 / _emv(pbl.Qdiag), 1.0 / _emv(pbl.Rdiag)
+    QiAt = At * qinv[:, None]
+    RiBt = Bt * rinv[:, None]
+    knot0 = np.arange(N) == 0
+    own, prev = _leaf_masks(levels, N, depth)
+    eye = torch.eye(n, dtype=dtype, device=dev).reshape(n, n, 1, 1)
+    Fls: List[torch.Tensor] = []
+    Fxs: List[torch.Tensor] = []
+    Fus: List[torch.Tensor] = []
+    for L in range(depth):
+        mo = _kmask(own[L], 2, dev)
+        mp = _kmask(prev[L], 2, dev)
+        Fxs.append(
+            torch.where(mo, QiAt, 0.0) - torch.where(mp, eye * qinv[None], 0.0)
+        )
+        if L == 0:
+            Fus.append(torch.where(_kmask(own[L] | knot0, 2, dev), RiBt, 0.0))
+            Fls.append(torch.where(_kmask(knot0, 2, dev), -At, 0.0))
+        else:
+            Fus.append(torch.where(mo, RiBt, 0.0))
+            Fls.append(torch.zeros_like(At))
+    zy, zx, zu = _leaf_z(pbl)
+    return Fls, Fxs, Fus, A, B, zy, zx, zu
+
+
+def _leaf_z(pbl: LQRProblem):
+    """Negated, leaf-transformed RHS planes (ref solver.c:187-190 +
+    nested_dissection.c:42-90)."""
+    N = pbl.A.shape[0]
+    dev = pbl.A.device
+    q_, r_, f_ = _emv(pbl.q), _emv(pbl.r), _emv(pbl.f)
+    Qd, Rd = _emv(pbl.Qdiag), _emv(pbl.Rdiag)
+    ks = np.arange(N)
+    m0 = _kmask(ks == 0, 1, dev)
+    mlast = _kmask(ks == N - 1, 1, dev)
+    zy0 = torch.cat([-pbl.x0[:, None], -f_[:, :-1]], dim=1)
+    zy = torch.where(m0, -Qd[:, :1] * zy0 + q_, zy0)
+    zx = torch.where(m0, -zy0, -q_ * (1.0 / Qd))
+    zu = torch.where(mlast, -r_, -r_ * (1.0 / Rd))
+    return zy, zx, zu
+
+
+def _em_from_gm(x: torch.Tensor, p: int, q: int) -> torch.Tensor:
+    """Group-major kernel extract ``[G, p*q, B]`` -> ``[p, q, G, B]``."""
+    G, _, B = x.shape
+    return x.transpose(0, 1).reshape(p, q, G, B)
+
+
+def _gm(x: torch.Tensor) -> torch.Tensor:
+    """Element-major ``[p, q, G, B] -> [G, pq, B]`` group-major."""
+    p, q, G, B = x.shape
+    return x.reshape(p * q, G, B).transpose(0, 1).contiguous()
+
+
+def _sep_gm(M: torch.Tensor, level: int) -> torch.Tensor:
+    """Group-major gather of a dynamics array at level-``level`` separator
+    knots: ``[p, q, N, B] -> [G, pq, B]`` with ``G = N / 2^{level+1}``."""
+    p, q, N, B = M.shape
+    span = 1 << (level + 1)
+    sep = M.reshape(p * q, N // span, span, B)[:, :, span // 2 - 1, :]
+    return sep.transpose(0, 1).contiguous()
+
+
+def _flat(x: torch.Tensor) -> torch.Tensor:
+    """Kernel view of an element-major slab: ``[p, q, N, B] -> [pq, N, B]``
+    (a view of the contiguous slab, so in-place updates land in it)."""
+    return x.view(x.shape[0] * x.shape[1], x.shape[2], x.shape[3])
+
+
+def _level_products_em(A, B, level, depth, Fls, Fxs, Fus, ex, n):
+    """Inner products for every upper level (ndlqr_FactorInnerProduct,
+    nested_dissection.c:114-134): either the compact arrays emitted by the
+    previous kernel or computed from slab slices."""
+    if ex is not None:
+        return [_em_from_gm(S, n, n) for S in ex]
+    span = 1 << (level + 1)
+    mid = (1 << level) - 1
+    A_sep = _sel(_gk(A, span), mid)
+    B_sep = _sel(_gk(B, span), mid)
+    Ss = []
+    for u in range(level, depth):
+        gl, gx, gu = _gk(Fls[u], span), _gk(Fxs[u], span), _gk(Fus[u], span)
+        Ss.append(
+            la.bgemm(A_sep, _sel(gx, mid), NB + 1)
+            + la.bgemm(B_sep, _sel(gu, mid), NB + 1)
+            - _sel(gx, mid + 1)
+            - _sel(gl, mid + 1)
+        )
+    return Ss
+
+
+def _level_writeback_em(Fls, level, S):
+    """Separator write-back of this level's Sbar into its lambda slab
+    (ref solve.c:92-97 placement), in place. The kernels fold this into
+    the upstream store when they emitted the products."""
+    span = 1 << (level + 1)
+    mid = (1 << level) - 1
+    _gk(Fls[level], span)[..., mid + 1, :] = S
+
+
+def _level_cholsolve_em(Lc, Ss, level):
+    """Cached-Cholesky solves of the upper-level products
+    (ndlqr_SolveCholeskyFactor, nested_dissection.c:136-152), stacked."""
+    sols = _cholsolve_stacked(Lc, Ss[1:])
+    return {level + 1 + i: s for i, s in enumerate(sols)}
+
+
+def _cholsolve_stacked(Lc, Ss):
+    """Solve equal-shape block RHS against one cached factor as a single
+    stacked substitution (width n*len(Ss)); returns the split list."""
+    if len(Ss) <= 1:
+        return [la.bcho_solve(Lc, S, NB + 1) for S in Ss]
+    n = Ss[0].shape[1]
+    sol = la.bcho_solve(Lc, torch.cat(Ss, dim=1), NB + 1)
+    return [sol[:, i * n:(i + 1) * n] for i in range(len(Ss))]
+
+
+def _schur_kernel(A, B_dyn, level, depth, Fls, Fxs, Fus, fsols, n, m, opts):
+    """The single-level Schur stage through ``schur_update_level_em``
+    (counterpart of ``rslqr_em._schur_pallas``); updates the slabs in
+    place and returns the next level's products list (or None)."""
+    N, B = Fls[level].shape[2], Fls[level].shape[3]
+    us = list(range(level + 1, depth))
+    Asep = Bsep = None
+    if schur._level_emits(level, N) and level + 2 <= depth:
+        Asep = _sep_gm(A, level + 1)
+        Bsep = _sep_gm(B_dyn, level + 1)
+    *_, S_next = schur.schur_update_level_em(
+        _flat(Fls[level]), _flat(Fxs[level]), _flat(Fus[level]),
+        [_flat(Fls[u]) for u in us],
+        [_flat(Fxs[u]) for u in us],
+        [_flat(Fus[u]) for u in us],
+        [_gm(fsols[u]) for u in us],
+        Asep, Bsep, level=level, n=n, m=m, kernels=opts.kernels,
+    )
+    return S_next
+
+
+def _sweep_level_em(A, B, level, depth, Fls, Fxs, Fus, n, m, ex, opts):
+    """One level of the factorization sweep (ref solve.c:68-134); updates
+    the slabs in place, returns the level's Cholesky factors
+    ``[n, n, G, B]`` and the next level's products (or None)."""
+    Ss = _level_products_em(A, B, level, depth, Fls, Fxs, Fus, ex, n)
+    Lc = la.bcholesky(Ss[0], NB + 1)
+    if ex is None:
+        _level_writeback_em(Fls, level, Ss[0])
+    fsols = _level_cholsolve_em(Lc, Ss, level)
+    if level + 1 < depth:
+        return Lc, _schur_kernel(
+            A, B, level, depth, Fls, Fxs, Fus, fsols, n, m, opts
+        )
+    return Lc, None
+
+
+def _pair_prepass(A, B, level, depth, Fls, Fxs, Fus, fsols1):
+    """Level-(L+1) inner products computed from the PRE-update slabs and
+    this level's solved separators (only the level-(L+1) separator rows
+    are gathered), so the paired kernel needs no separate level-(L+1) pass.
+    See ``rslqr_tpu.rslqr_em._pair_prepass`` for the row algebra."""
+    span1 = 1 << (level + 1)
+    span2 = 2 * span1
+    nk = NB + 1
+    sel2 = lambda x, pos: _sel(_gk(x, span2), pos)
+    A_sep2 = sel2(A, span1 - 1)
+    B_sep2 = sel2(B, span1 - 1)
+    FxL_r2 = sel2(Fxs[level], span1 - 1)
+    FuL_r2 = sel2(Fus[level], span1 - 1)
+    FxL_r2p = sel2(Fxs[level], span1)
+    Ss = []
+    for u in range(level + 1, depth):
+        f = fsols1[u]  # [n, n, G1, B]
+        f_e = _sel(_gk(f, 2), 0)  # even level-L groups (row r2)
+        f_o = _sel(_gk(f, 2), 1)  # odd groups (row r2 + 1)
+        Fx_r2 = sel2(Fxs[u], span1 - 1) - la.bgemm(FxL_r2, f_e, nk)
+        Fu_r2 = sel2(Fus[u], span1 - 1) - la.bgemm(FuL_r2, f_e, nk)
+        Fx_r2p = sel2(Fxs[u], span1) - la.bgemm(FxL_r2p, f_o, nk)
+        Fl_r2p = sel2(Fls[u], span1)
+        Ss.append(
+            la.bgemm(A_sep2, Fx_r2, nk)
+            + la.bgemm(B_sep2, Fu_r2, nk)
+            - Fx_r2p
+            - Fl_r2p
+        )
+    return Ss
+
+
+def _schur_kernel_pair(
+    A, B_dyn, level, depth, Fls, Fxs, Fus, fsols1, Sbar2, fsols2, n, m, opts
+):
+    """The two-level Schur stage through ``schur_update_pair_em``
+    (counterpart of ``rslqr_em._schur_pallas_pair``); updates the slabs in
+    place and returns the level-(L+2) products list (or None)."""
+    N, B = Fls[level].shape[2], Fls[level].shape[3]
+    us = list(range(level + 1, depth))
+    Asep = Bsep = None
+    if (
+        schur._pair_emits(level, N, B, len(us), n, m)
+        and level + 2 <= depth - 1
+    ):
+        Asep = _sep_gm(A, level + 2)
+        Bsep = _sep_gm(B_dyn, level + 2)
+    *_, S_next = schur.schur_update_pair_em(
+        _flat(Fls[level]), _flat(Fxs[level]), _flat(Fus[level]),
+        [_flat(Fls[u]) for u in us],
+        [_flat(Fxs[u]) for u in us],
+        [_flat(Fus[u]) for u in us],
+        [_gm(fsols1[u]) for u in us],
+        _gm(Sbar2),
+        [_gm(fsols2[u]) for u in us[1:]],
+        Asep, Bsep, level=level, n=n, m=m, kernels=opts.kernels,
+    )
+    return S_next
+
+
+def _sweep_pair_em(A, B, level, depth, Fls, Fxs, Fus, n, m, ex, opts):
+    """TWO levels of the factorization sweep (ref solve.c:68-134, two
+    iterations) with a single slab pass: compact stages for both levels'
+    Cholesky factors and separator solves, then the paired kernel.
+    Returns ``(Lc1, Lc2, ex_next)``."""
+    Ss = _level_products_em(A, B, level, depth, Fls, Fxs, Fus, ex, n)
+    Lc1 = la.bcholesky(Ss[0], NB + 1)
+    if ex is None:
+        _level_writeback_em(Fls, level, Ss[0])
+    fsols1 = _level_cholsolve_em(Lc1, Ss, level)
+    S2 = _pair_prepass(A, B, level, depth, Fls, Fxs, Fus, fsols1)
+    Lc2 = la.bcholesky(S2[0], NB + 1)
+    fsols2 = {
+        level + 2 + i: s
+        for i, s in enumerate(_cholsolve_stacked(Lc2, S2[1:]))
+    }
+    ex_next = _schur_kernel_pair(
+        A, B, level, depth, Fls, Fxs, Fus, fsols1, S2[0], fsols2, n, m, opts
+    )
+    return Lc1, Lc2, ex_next
+
+
+def _rhs_level_em(A, B, level, Fl, Fx, Fu, Lc, zy, zx, zu, opts):
+    """One level of the RHS sweep (ref solve.c:137-182): the compact
+    separator solve in plain ops, then one kernel pass over the level's
+    slabs. Vectors are ``[n|m, N, B]``; returns the updated
+    ``(zy, zx, zu)`` (updated in place)."""
+    span = 1 << (level + 1)
+    mid = (1 << level) - 1
+    nk = NB + 1
+    A_sep = _sel(_gk(A, span), mid)
+    B_sep = _sel(_gk(B, span), mid)
+    gy, gx, gu = _gk(zy, span), _gk(zx, span), _gk(zu, span)
+    znew = (
+        la.bgemv(A_sep, _sel(gx, mid), nk)
+        + la.bgemv(B_sep, _sel(gu, mid), nk)
+        - _sel(gx, mid + 1)
+        - _sel(gy, mid + 1)
+    )
+    zbar = la.bcho_solve_vec(Lc, znew, nk)  # [n, G, B]
+    n, m = zy.shape[0], zu.shape[0]
+    return schur.rhs_update_level_em(
+        _flat(Fl), _flat(Fx), _flat(Fu), zy, zx, zu,
+        zbar.transpose(0, 1).contiguous(),
+        level=level, n=n, m=m, kernels=opts.kernels,
+    )
+
+
+def _leaf_products0(pbl: LQRProblem, t: TreeTables, n: int, m: int):
+    """Level-0 inner products from compact even/odd-knot gathers of the
+    problem data: ``S_{0,u} = A_sep Fx_u[even] + B_sep Fu_u[even] -
+    Fx_u[odd]`` (the lambda term vanishes: the only nonzero leaf lambda
+    block sits at knot 0, an even knot). Returns ``(A, B, qinv, rinv,
+    [S_u])`` in element-major layout."""
+    N, depth = pbl.A.shape[0], t.depth
+    dev = pbl.A.device
+    nk = NB + 1
+    A, Bd = _em(pbl.A), _em(pbl.B)
+    At, Bt = A.transpose(0, 1), Bd.transpose(0, 1)
+    qinv = 1.0 / _emv(pbl.Qdiag)
+    rinv = 1.0 / _emv(pbl.Rdiag)
+    QiAt = At * qinv[:, None]
+    RiBt = Bt * rinv[:, None]
+    own, prev = _leaf_masks(t.levels, N, depth)
+    knot0 = np.arange(N) == 0
+
+    par = lambda x, p: _sel(_gk(x, 2), p)  # even (0) / odd (1) knots
+    eye = torch.eye(n, dtype=A.dtype, device=dev).reshape(n, n, 1, 1)
+    qinv_e, qinv_o = par(qinv, 0), par(qinv, 1)
+    A_sep, B_sep = par(A, 0), par(Bd, 0)
+    QiAt_e, QiAt_o = par(QiAt, 0), par(QiAt, 1)
+    RiBt_e = par(RiBt, 0)
+
+    def fx(u, parity, QiAt_p, qinv_p):
+        mo = _kmask(own[u][parity::2], 2, dev)
+        mp = _kmask(prev[u][parity::2], 2, dev)
+        return torch.where(mo, QiAt_p, 0.0) - torch.where(
+            mp, eye * qinv_p[None], 0.0
+        )
+
+    Ss = []
+    for u in range(depth):
+        ownu = own[u] | knot0 if u == 0 else own[u]
+        Fue = torch.where(_kmask(ownu[0::2], 2, dev), RiBt_e, 0.0)
+        Ss.append(
+            la.bgemm(A_sep, fx(u, 0, QiAt_e, qinv_e), nk)
+            + la.bgemm(B_sep, Fue, nk)
+            - fx(u, 1, QiAt_o, qinv_o)
+        )
+    return A, Bd, qinv, rinv, Ss
+
+
+def factorize_em(
+    prob: LQRProblem, tables: Optional[TreeTables] = None,
+    options: Optional[SolveOptions] = None,
+):
+    """Leaf solves + level sweep (ref solve.c:50-134). ``prob`` carries ONE
+    leading batch axis. Returns the factorization and the leaf-solved
+    element-major RHS ``(zy, zx, zu)``."""
+    opts = resolve_options(options)
+    pbl = _to_batch_last(prob, 1)
+    t = tables or build_tree_tables(pbl.A.shape[0])
+    n, m = pbl.A.shape[1], pbl.B.shape[2]
+    N, Bb = pbl.A.shape[0], pbl.A.shape[3]
+
+    if t.depth >= 2:
+        # Fused leaf + level 0: level-0 products from compact gathers, then
+        # ONE kernel writes every slab in its post-level-0 state and emits
+        # the level-1 products.
+        A, B, qinv, rinv, Ss = _leaf_products0(pbl, t, n, m)
+        Lc0 = la.bcholesky(Ss[0], NB + 1)
+        fsols0 = _cholsolve_stacked(Lc0, Ss[1:])
+        A = A.contiguous()
+        B = B.contiguous()
+        Fls, Fxs, Fus, ex = schur.leaf_schur_level0_em(
+            A.view(n * n, N, Bb), B.view(n * m, N, Bb),
+            qinv.contiguous(), rinv.contiguous(),
+            _gm(Ss[0]), [_gm(f) for f in fsols0],
+            _sep_gm(A, 1), _sep_gm(B, 1),
+            depth=t.depth, n=n, m=m, kernels=opts.kernels,
+        )
+        Fls = [x.view(n, n, N, Bb) for x in Fls]
+        Fxs = [x.view(n, n, N, Bb) for x in Fxs]
+        Fus = [x.view(m, n, N, Bb) for x in Fus]
+        zy, zx, zu = _leaf_z(pbl)
+        chols = [Lc0]
+        level = 1
+    else:
+        Fls, Fxs, Fus, A, B, zy, zx, zu = _leaf_em(pbl, t.levels, t.depth)
+        Fls = [x.contiguous() for x in Fls]
+        Fxs = [x.contiguous() for x in Fxs]
+        Fus = [x.contiguous() for x in Fus]
+        chols = []
+        ex = None
+        level = 0
+    while level < t.depth:
+        # Level pairing: two sweep levels per slab pass, whenever level+1
+        # still has upper levels to update.
+        if level <= t.depth - 3 and opts.level_pairing:
+            Lc1, Lc2, ex = _sweep_pair_em(
+                A, B, level, t.depth, Fls, Fxs, Fus, n, m, ex, opts
+            )
+            chols.extend([Lc1, Lc2])
+            level += 2
+        else:
+            Lc, ex = _sweep_level_em(
+                A, B, level, t.depth, Fls, Fxs, Fus, n, m, ex, opts
+            )
+            chols.append(Lc)
+            level += 1
+    fact = EmFactorization(
+        Fls=tuple(Fls), Fxs=tuple(Fxs), Fus=tuple(Fus), chols=tuple(chols)
+    )
+    return fact, (zy, zx, zu)
+
+
+def solve_rhs_em(
+    prob: LQRProblem,
+    fact: EmFactorization,
+    rhs: Tuple,
+    tables: Optional[TreeTables] = None,
+    options: Optional[SolveOptions] = None,
+) -> RsLqrSolution:
+    """Cached-factorization RHS solve (ref solve.c:137-182). ``rhs`` is the
+    leaf-solved element-major RHS from :func:`factorize_em` or
+    :func:`leaf_rhs_em`; its planes are updated in place."""
+    opts = resolve_options(options)
+    pbl = _to_batch_last(prob, 1)
+    t = tables or build_tree_tables(pbl.A.shape[0])
+    A, B = _em(pbl.A), _em(pbl.B)
+    zy, zx, zu = (z.contiguous() for z in rhs)
+    for level in range(t.depth):
+        zy, zx, zu = _rhs_level_em(
+            A, B, level, fact.Fls[level], fact.Fxs[level], fact.Fus[level],
+            fact.chols[level], zy, zx, zu, opts,
+        )
+    Y, X, U = _emv_bl(zy), _emv_bl(zx), _emv_bl(zu)
+    return RsLqrSolution(
+        Y=_bf(Y, 1), X=_bf(X, 1), U=_bf(U[:-1], 1), fact=fact
+    )
+
+
+def leaf_rhs_em(prob: LQRProblem) -> Tuple:
+    """Leaf-solve a fresh RHS into element-major planes (multi-RHS mode;
+    the z-vector half of ndlqr_SolveLeaf, nested_dissection.c:42-90)."""
+    return _leaf_z(_to_batch_last(prob, 1))
+
+
+def solve_em(
+    prob: LQRProblem, tables: Optional[TreeTables] = None,
+    options: Optional[SolveOptions] = None,
+) -> RsLqrSolution:
+    """Full rsLQR solve, element-major (ref ndlqr_Solve, solve.c:38-190),
+    of a problem with ONE leading batch axis."""
+    t = tables or build_tree_tables(prob.A.shape[-3])
+    fact, rhs = factorize_em(prob, t, options=options)
+    return solve_rhs_em(prob, fact, rhs, t, options=options)
+
+
+def solve_kkt_em(prob: LQRProblem, options=None) -> torch.Tensor:
+    """Solve and return the flat KKT vectors ``[B, nvars]``."""
+    sol = solve_em(prob, options=options)
+    return pack_solution(sol.Y, sol.X, sol.U)

@@ -9,7 +9,10 @@ from setuptools import Extension, setup
 setup(
     name="rslqr-tpu",
     version="0.1.0",
-    packages=["rslqr_tpu", "rslqr_tpu.ops", "rslqr_tpu.parallel"],
+    packages=[
+        "rslqr_tpu", "rslqr_tpu.ops", "rslqr_tpu.parallel",
+        "rslqr_tpu_torch", "rslqr_tpu_torch.ops",
+    ],
     ext_modules=[
         Extension(
             "_rslqr_native",

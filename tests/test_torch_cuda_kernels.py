@@ -1,0 +1,160 @@
+"""CUDA kernels of the port against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: each test skips where ``torch.cuda.is_available()`` is
+false (decided inside the fixture). This file imports no JAX, so it runs on
+a machine with a card and no JAX:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
+
+(``--noconftest``: tests/conftest.py configures JAX.)
+
+Inputs are random f32, cloned for each route, at small shapes that reach
+every branch: odd batch widths (ragged last block of batch columns), B=1,
+the shortest horizons, emission on and off, and emission groups larger than
+one block of knots. Bar: ``max|kernel - plain| <= 1e-4 * (1 + max|plain|)``
+(summation order only; the f32 atol of tests/test_pallas_ops.py:110-118).
+"""
+
+import pytest
+import torch
+
+from rslqr_tpu_torch.ops import schur
+
+pytestmark = pytest.mark.cuda
+
+n, m = 6, 3
+nn, mn = n * n, m * n
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _rand(gen, dev, *shape):
+    return torch.randn(shape, generator=gen).to(dev)
+
+
+def _both(fn, args, kwargs):
+    """Run the kernel and the plain version on clones of ``args``; return
+    both outputs flattened to tensor lists."""
+    def clone(a):
+        if isinstance(a, (list, tuple)):
+            return [x.clone() for x in a]
+        return None if a is None else a.clone()
+
+    def flat(out):
+        res = []
+        for o in out:
+            if isinstance(o, (list, tuple)):
+                res.extend(o)
+            elif o is not None:
+                res.append(o)
+        return res
+
+    k = fn(*[clone(a) for a in args], **kwargs)
+    torch.cuda.synchronize()
+    p = fn(*[clone(a) for a in args], kernels="off", **kwargs)
+    return flat(k), flat(p), k, p
+
+
+def _assert_match(ks, ps):
+    assert len(ks) == len(ps)
+    for a, b in zip(ks, ps):
+        scale = 1.0 + b.abs().max().item()
+        assert (a - b).abs().max().item() <= 1e-4 * scale
+
+
+@pytest.mark.parametrize(
+    "N,B,level", [(4, 1, 0), (64, 40, 0), (64, 40, 3), (64, 40, 5),
+                  (256, 33, 7)],
+)
+def test_rhs_kernel(dev, N, B, level):
+    g = torch.Generator().manual_seed(level)
+    G = N >> (level + 1)
+    args = [_rand(g, dev, *s) for s in (
+        (nn, N, B), (nn, N, B), (mn, N, B), (n, N, B), (n, N, B), (m, N, B),
+        (G, n, B))]
+    before = schur.rhs_update_level_em.launches
+    ks, ps, *_ = _both(schur.rhs_update_level_em, args,
+                       dict(level=level, n=n, m=m))
+    assert schur.rhs_update_level_em.launches == before + 1
+    _assert_match(ks, ps)
+
+
+@pytest.mark.parametrize(
+    "N,B,level,with_sep",
+    [(8, 1, 1, True), (16, 40, 0, True), (16, 40, 0, False),
+     (16, 40, 2, True), (32, 40, 3, True), (128, 40, 1, True)],
+)
+def test_level_kernel(dev, N, B, level, with_sep):
+    g = torch.Generator().manual_seed(100 + level)
+    depth = N.bit_length() - 1
+    U = depth - level - 1
+    G, G2 = N >> (level + 1), N >> (level + 2)
+    R = lambda *s: _rand(g, dev, *s)
+    args = [R(nn, N, B), R(nn, N, B), R(mn, N, B),
+            [R(nn, N, B) for _ in range(U)], [R(nn, N, B) for _ in range(U)],
+            [R(mn, N, B) for _ in range(U)], [R(G, nn, B) for _ in range(U)],
+            R(G2, nn, B) if with_sep else None,
+            R(G2, n * m, B) if with_sep else None]
+    ks, ps, k, p = _both(schur.schur_update_level_em, args,
+                         dict(level=level, n=n, m=m))
+    emits = with_sep and schur._level_emits(level, N)
+    assert (k[3] is not None) == (p[3] is not None) == emits
+    _assert_match(ks, ps)
+
+
+@pytest.mark.parametrize("N,B", [(4, 1), (16, 40), (256, 33)])
+def test_leaf_kernel(dev, N, B):
+    g = torch.Generator().manual_seed(N)
+    depth = N.bit_length() - 1
+    R = lambda *s: _rand(g, dev, *s)
+    pos = lambda *s: (0.5 + torch.rand(s, generator=g)).to(dev)
+    args = [R(nn, N, B), R(n * m, N, B), pos(n, N, B), pos(m, N, B),
+            R(N // 2, nn, B), [R(N // 2, nn, B) for _ in range(depth - 1)],
+            R(N // 4, nn, B), R(N // 4, n * m, B)]
+    ks, ps, *_ = _both(schur.leaf_schur_level0_em, args,
+                       dict(depth=depth, n=n, m=m))
+    _assert_match(ks, ps)
+
+
+@pytest.mark.parametrize(
+    "N,B,level", [(8, 1, 0), (16, 40, 1), (64, 40, 1), (64, 40, 3),
+                  (256, 8, 5), (256, 33, 5)],
+)
+def test_pair_kernel(dev, N, B, level):
+    g = torch.Generator().manual_seed(200 + level)
+    depth = N.bit_length() - 1
+    U = depth - level - 1
+    G1, G2, G3 = N >> (level + 1), N >> (level + 2), N >> (level + 3)
+    R = lambda *s: _rand(g, dev, *s)
+    with_sep = G3 >= 1
+    args = [R(nn, N, B), R(nn, N, B), R(mn, N, B),
+            [R(nn, N, B) for _ in range(U)], [R(nn, N, B) for _ in range(U)],
+            [R(mn, N, B) for _ in range(U)], [R(G1, nn, B) for _ in range(U)],
+            R(G2, nn, B), [R(G2, nn, B) for _ in range(U - 1)],
+            R(G3, nn, B) if with_sep else None,
+            R(G3, n * m, B) if with_sep else None]
+    ks, ps, k, p = _both(schur.schur_update_pair_em, args,
+                         dict(level=level, n=n, m=m))
+    emits = with_sep and schur._pair_emits(level, N, B, U, n, m)
+    assert (k[3] is not None) == (p[3] is not None) == emits
+    _assert_match(ks, ps)
+
+
+def test_solve_kernel_path_matches_plain(dev):
+    """The whole slice at a small size: kernels vs ``kernels="off"``."""
+    import rslqr_tpu_torch as pt
+
+    prob = pt.double_integrator_problem(32, dtype=torch.float32, device=dev)
+    batch = pt.batch_problems(prob, 40, torch.Generator().manual_seed(0))
+    schur.reset_launch_counts()
+    got = pt.solve_kkt(batch)
+    counts = schur.launch_counts()
+    ref = pt.solve_kkt(batch, options=pt.SolveOptions(kernels="off"))
+    assert all(c > 0 for c in counts.values()), counts
+    scale = 1.0 + ref.abs().max().item()
+    assert (got - ref).abs().max().item() <= 1e-4 * scale
