@@ -6,21 +6,35 @@
 Phases, each printing one line of numbers:
 
 1. device: the card's name and power limit (nvidia-smi), then the kernel
-   build from ``rslqr_tpu_torch/csrc/schur_kernels.cu`` (nvcc, timed);
-2. each of the four CUDA kernels against its plain PyTorch version on
-   clones of the same random f32 inputs, at the main path's shapes
-   (N=256, B=1024; B1 at N=128 and with level pairing off), with the median
-   time of each over 10 launches;
-3. the slice: ``solve_kkt`` on the BASELINE batched-MPC config (the
-   double integrator, nx=6, nu=3, N=256, perturbed into B=1024 instances,
-   f32) and again at N=128 so that B1 launches, with launch counts,
-   agreement with ``kernels="off"`` and with the f64 Riccati oracle, and
-   the KKT residual;
-4. time per batched solve, kernel path and ``kernels="off"``.
+   build from ``rslqr_tpu_torch/csrc/*.cu`` (one nvcc per source, in
+   parallel, timed);
+2. each of the four small-block sweep kernels (B1-B4) against its plain
+   PyTorch version on clones of the same random f32 inputs, at the small
+   path's shapes (N=256, B=1024; B1 at N=128 and with level pairing off),
+   with the median time of each over 10 launches;
+2b. each of the four mid-block plane kernels (B5 pgemm, B6 pchol, B7
+   pcho_solve, B9 schur3_update_planes) the same way, at the quadruped
+   path's shapes (nx=36, nu=12, N=512, B=256) and once at n=12, m=4, with
+   the time of one PyTorch library call on the same inputs beside each;
+3. the small-block slice: ``solve_kkt`` on the BASELINE batched-MPC config
+   (the double integrator, nx=6, nu=3, N=256, perturbed into B=1024
+   instances, f32) and again at N=128 so that B1 launches, with launch
+   counts, agreement with ``kernels="off"`` and with the f64 Riccati
+   oracle, and the KKT residual;
+3b. the mid-block slice: ``solve_kkt`` on BASELINE.json's quadruped config
+   (``random_problem`` nx=36, nu=12, N=512, perturbed into B=256 instances,
+   f32, one batch), with launch counts, agreement with ``kernels="off"``,
+   the f64 Riccati oracle on 4 instances, the relative KKT residual and
+   the peak device memory;
+4. time per batched solve of both slices, kernel path and
+   ``kernels="off"``;
+5. one batched solve of each slice traced with ``torch.profiler``: device
+   time by kernel, device kernel launches, and the device's busy share of
+   the solve's wall time.
 
-Then a JSON line with every kernel's launches, error and times, and last
-``{"ok": true, "device": {...}}``. Any failed check exits non-zero without
-that last line; so does a machine without CUDA. Imports no JAX.
+Then a JSON line with every kernel's launches, error, times and bound, and
+last ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
+without that last line; so does a machine without CUDA. Imports no JAX.
 """
 
 import json
@@ -30,17 +44,32 @@ import sys
 import time
 
 N_MAIN, N_ODD, BATCH = 256, 128, 1024
+# BASELINE.json quadruped config (bench.py:373-381): one batch on the card.
+QN, QX, QU, QB = 512, 36, 12, 256
 REPS = 10
+QREPS = 5
 KERNEL_BAR = 1e-4     # max|k - p| <= 1e-4 (1 + max|p|): summation order only
 SLICE_BAR = 1e-4      # vs kernels="off" (__graft_entry__.dryrun_multichip)
+QUAD_SLICE_BAR = 3e-3  # two f32 solvers on the quadruped config (bench.py:322)
+QUAD_RESIDUAL_BAR = 3e-2  # relative f32 KKT residual (bench.py:321)
 F64_BAR = 1e-6        # f64 rsLQR vs f64 Riccati (tests/test_rslqr.py:143-148)
-SOURCE = "rslqr_tpu_torch/csrc/schur_kernels.cu"
+# Published H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s and f32
+# FLOP/s outside the tensor cores (the kernels' FMAs).
+PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
+SCHUR_SRC = "rslqr_tpu_torch/csrc/schur_kernels.cu"
+PLANES_SRC = "rslqr_tpu_torch/csrc/planes_kernels.cu"
 REPLACES = {
     "schur_update_level_em": "rslqr_tpu/ops/schur_pallas.py:373",
     "rhs_update_level_em": "rslqr_tpu/ops/schur_pallas.py:303",
     "leaf_schur_level0_em": "rslqr_tpu/ops/schur_pallas.py:705",
     "schur_update_pair_em": "rslqr_tpu/ops/schur_pallas.py:601",
+    "pgemm": "rslqr_tpu/ops/planes_pallas.py:185",
+    "pchol": "rslqr_tpu/ops/planes_pallas.py:377",
+    "pcho_solve": "rslqr_tpu/ops/planes_pallas.py:400",
+    "schur3_update_planes": "rslqr_tpu/ops/planes_pallas.py:503",
 }
+SOURCES = {k: SCHUR_SRC if k.endswith("_em") else PLANES_SRC
+           for k in REPLACES}
 n, m = 6, 3
 nn, mn = n * n, m * n
 
@@ -59,11 +88,71 @@ def rel_err(got, ref) -> float:
     return float((got - ref).abs().max() / (1.0 + ref.abs().max()))
 
 
+def tensors(x):
+    """Every tensor in a (nested) argument or output list."""
+    if isinstance(x, (list, tuple)):
+        return [t for a in x for t in tensors(a)]
+    return [] if x is None else [x]
+
+
+def bound(in_bytes: int, ops: float):
+    """Least time of the work on the card: (ms, what bounds it)."""
+    t_bytes, t_ops = in_bytes / PEAK_BYTES, ops / PEAK_F32
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def lam_knots(N, level):
+    """Knots of a level-``level`` update whose lambda rows calc_lambda
+    keeps (k mod 2^L != 0, or k = 0), and its separator knots (k mod
+    2^(L+1) = 2^L), where the solved separator is written instead."""
+    half = 1 << level
+    keep = sum(1 for k in range(N) if k % half or k == 0)
+    return keep, N >> (level + 1)
+
+
+def update_ops(nx, nu, q, N, B, level, U):
+    """FLOPs of U masked slab-trio updates at one level: the x/u rows at
+    every knot, the lambda rows where calc_lambda keeps them."""
+    keep, _ = lam_knots(N, level)
+    return 2 * nx * q * B * U * ((nx + nu) * N + nx * keep)
+
+
+def update_moved(nx, nu, q, N, B, level, U):
+    """Bytes (f32) U masked slab-trio updates at one level need: the x/u
+    multipliers in full and the lambda multiplier where calc_lambda keeps
+    the row; per trio its x/u slabs read and written, its lambda slab read
+    where kept and written there and at the separator knots, and its
+    solved separators once."""
+    keep, nsep = lam_knots(N, level)
+    G = N >> (level + 1)
+    return 4 * B * ((nx + nu) * nx * N + nx * nx * keep + U * (
+        2 * (nx + nu) * q * N + nx * q * (2 * keep + nsep) + nx * q * G))
+
+
+def emit_moved(G2, B, S):
+    """Bytes (f32) the emission of S next-level products at G2 separator
+    groups needs beyond the update: A and B at those separators, the lambda
+    rows after them (left unchanged by the update) of each slab, the
+    products, and the first slab's separator rows written back."""
+    return 4 * G2 * B * ((nn + n * m) + 2 * S * nn + nn)
+
+
+def sweep_ops(N, B, level, U, emitted=0, G2=0):
+    """FLOPs of a small-block sweep kernel at one level: U slab-trio
+    updates plus the emitted products."""
+    return update_ops(n, m, n, N, B, level, U) \
+        + 2 * (n + m) * n * n * G2 * B * emitted
+
+
 class Smoke:
-    def __init__(self, torch, pt, schur, dev):
-        self.torch, self.pt, self.schur, self.dev = torch, pt, schur, dev
+    def __init__(self, torch, pt, schur, planes, dev):
+        self.torch, self.pt, self.dev = torch, pt, dev
+        self.schur, self.planes = schur, planes
         self.failures = []
+        self.launches = {}
         self.gen = torch.Generator().manual_seed(0)
+        self.dgen = torch.Generator(device=dev).manual_seed(0)
         self.kernel_stats = {}
 
     def check(self, ok: bool, what: str) -> None:
@@ -75,6 +164,11 @@ class Smoke:
     def rand(self, *shape, scale=1.0):
         t = self.torch
         return (scale * t.randn(shape, generator=self.gen)).to(self.dev)
+
+    def drand(self, *shape, scale=1.0):
+        """Random inputs drawn on the card (the large phase-2b cases)."""
+        t = self.torch
+        return scale * t.randn(shape, generator=self.dgen, device=self.dev)
 
     def pos(self, *shape):
         t = self.torch
@@ -99,8 +193,14 @@ class Smoke:
             times.append(a.elapsed_time(b))
         return statistics.median(times[1:])
 
-    def compare(self, name, case, fn, args, kwargs):
-        """Kernel vs plain on clones of ``args``; record error and times."""
+    def compare(self, name, case, fn, args, kwargs, ops, library=None,
+                moved=None):
+        """Kernel vs plain on clones of ``args``; record error, times and
+        the bound of the first case of each kernel. ``ops``: the FLOPs the
+        call does; ``library``: ``(fn, args)`` of one PyTorch call on the
+        same inputs, timed beside it; ``moved``: the bytes the call needs,
+        where it needs less than every input read once and every output
+        written once."""
         t = self.torch
 
         def clones():
@@ -122,6 +222,10 @@ class Smoke:
         p = flat(fn(*clones(), kernels="off", **kwargs))
         k = flat(fn(*clones(), **kwargs))
         t.cuda.synchronize()
+        if moved is None:
+            moved = 4 * (sum(x.numel() for x in tensors(args))
+                         + sum(x.numel() for x in k))
+        bound_ms, bound_by = bound(moved, ops)
         ok = len(p) == len(k)
         err = 0.0
         scale = 1.0
@@ -136,12 +240,20 @@ class Smoke:
         plain_ms = self.time_call(
             lambda *a: fn(*a, kernels="off", **kwargs), clones
         )
+        lib_ms = None
+        if library is not None:
+            lib_fn, lib_args = library
+            lib_ms = self.time_call(lib_fn, lambda: lib_args)
         print(f"phase2 {name} {case}: max_abs_err={err:.3e} "
               f"rel_diff={err / scale:.3e} (bar {KERNEL_BAR}) "
-              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}", flush=True)
+              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms={lib_ms if lib_ms is None else f'{lib_ms:.4f}'} "
+              f"bound_ms={bound_ms:.4f} ({bound_by}: {moved / 1e9:.3f} GB, "
+              f"{ops / 1e9:.3f} GFLOP)", flush=True)
         st = self.kernel_stats.setdefault(
             name, {"max_abs_err": 0.0, "case": case, "ms": ms,
-                   "plain_ms": plain_ms}
+                   "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "library_ms": lib_ms}
         )
         st["max_abs_err"] = max(st["max_abs_err"], err)
 
@@ -159,6 +271,7 @@ class Smoke:
              [R(N // 2, nn, B, scale=0.1) for _ in range(depth - 1)],
              R(N // 4, nn, B), R(N // 4, n * m, B)],
             dict(depth=depth, n=n, m=m),
+            sweep_ops(N, B, 0, depth - 1, depth - 1, N // 4),
         )
         # B2 at levels 0, 3, 7 (the first, a middle and the top level).
         for level in (0, 3, depth - 1):
@@ -169,23 +282,43 @@ class Smoke:
                 [R(nn, N, B), R(nn, N, B), R(mn, N, B), R(n, N, B),
                  R(n, N, B), R(m, N, B), R(G, n, B, scale=0.1)],
                 dict(level=level, n=n, m=m),
+                update_ops(n, m, 1, N, B, level, 1),
+                moved=update_moved(n, m, 1, N, B, level, 1),
             )
         # B4 at levels 1 and 5 (the first and last pair of the main path;
         # emission as the main path chooses it).
         for level in (1, depth - 3):
+            U = depth - level - 1
+            args = self.pair_args(N, B, level)
+            emitted = 0 if args[-1] is None else U - 1
+            G2, G3 = N >> (level + 2), N >> (level + 3)
+            # Level L+1 adds per slab its separator rows (slab 0: the
+            # folded Sbar) and the solved separators (Sbar for slab 0).
             self.compare(
                 "schur_update_pair_em", f"N={N} B={B} level={level}",
-                s.schur_update_pair_em, self.pair_args(N, B, level),
+                s.schur_update_pair_em, args,
                 dict(level=level, n=n, m=m),
+                sweep_ops(N, B, level, U, emitted, G3)
+                + update_ops(n, m, n, N, B, level + 1, U - 1),
+                moved=update_moved(n, m, n, N, B, level, U)
+                + 4 * B * 2 * U * nn * G2
+                + (emit_moved(G3, B, emitted) if emitted else 0),
             )
         # B1 at N=128 levels 1 and 5 (level 5 is on the main path there),
         # and at N=256 level 1 (the level_pairing=False path).
         d_odd = N_ODD.bit_length() - 1
         for NN, level in ((N_ODD, 1), (N_ODD, d_odd - 2), (N_MAIN, 1)):
+            U = NN.bit_length() - 1 - level - 1
+            args = self.level_args(NN, B, level)
+            emitted = 0 if args[-1] is None else U
+            G2 = NN >> (level + 2)
             self.compare(
                 "schur_update_level_em", f"N={NN} B={B} level={level}",
-                s.schur_update_level_em, self.level_args(NN, B, level),
+                s.schur_update_level_em, args,
                 dict(level=level, n=n, m=m),
+                sweep_ops(NN, B, level, U, emitted, G2),
+                moved=update_moved(n, m, n, NN, B, level, U)
+                + (emit_moved(G2, B, emitted) if emitted else 0),
             )
 
     def level_args(self, N, B, level):
@@ -219,6 +352,97 @@ class Smoke:
                 R(G3, nn, B) if emit else None,
                 R(G3, n * m, B) if emit else None]
 
+    # -- phase 2b --------------------------------------------------------
+    def spd(self, d, *plane):
+        """Random SPD blocks ``[d, d, *plane]`` (f32, well conditioned)."""
+        t = self.torch
+        M = self.drand(*plane, d, d)
+        S = M @ M.transpose(-1, -2) + d * t.eye(d, device=self.dev)
+        return S.movedim((-2, -1), (0, 1)).contiguous()
+
+    @staticmethod
+    def mat_last(x):
+        """``[p, q, *plane] -> [F, p, q]`` contiguous (untimed layout
+        change for the library calls)."""
+        p, q = x.shape[:2]
+        return x.reshape(p, q, -1).permute(2, 0, 1).contiguous()
+
+    def plane_cases(self):
+        """B5, B6, B7, B9 at the quadruped path's level-0 shapes (G=256
+        groups of the N=512 horizon, B=256), B9 also at the top level and
+        with one column, and one case each at n=12, m=4."""
+        t, pl, R = self.torch, self.planes, self.drand
+        ml = self.mat_last
+        G, Bb = QN // 2, QB
+        F = G * Bb
+        for (p, K, q) in ((QX, QX, QX), (QX, QU, QX), (12, 12, 12)):
+            A, Bm = R(p, K, G, Bb), R(K, q, G, Bb)
+            self.compare(
+                "pgemm", f"{p}x{K}.{K}x{q} G={G} B={Bb}",
+                lambda a, b, **k: (pl.pgemm(a, b, **k),), [A, Bm], {},
+                2 * p * K * q * F, (t.matmul, (ml(A), ml(Bm))),
+            )
+        for d in (QX, 12):
+            S = self.spd(d, G, Bb)
+            self.compare(
+                "pchol", f"n={d} G={G} B={Bb}",
+                lambda a, **k: (pl.pchol(a, **k),), [S], {},
+                F * sum(2 * j * (d - j) + (d - j) for j in range(d)),
+                (t.linalg.cholesky_ex, (ml(S),)),
+                # A's lower triangle read, L (zeros included) written.
+                moved=4 * F * (d * (d + 1) // 2 + d * d),
+            )
+        for d, w in ((QX, QX), (QX, 1), (12, 12)):
+            Lc = pl.pchol_plain(self.spd(d, G, Bb))
+            X = R(d, w, G, Bb)
+            self.compare(
+                "pcho_solve", f"n={d} w={w} G={G} B={Bb}",
+                lambda a, b, **k: (pl.pcho_solve(a, b, **k),), [Lc, X], {},
+                2 * d * d * w * F, (t.cholesky_solve, (ml(X), ml(Lc))),
+                # L's lower triangle read, the right-hand side read and
+                # written.
+                moved=4 * F * (d * (d + 1) // 2 + 2 * d * w),
+            )
+        depth = QN.bit_length() - 1
+        for nx, nu, q, level in ((QX, QU, QX, 0), (QX, QU, QX, depth - 2),
+                                 (QX, QU, 1, 0), (12, 4, 12, 0)):
+            self.compare(
+                "schur3_update_planes",
+                f"n={nx} m={nu} q={q} N={QN} B={Bb} level={level}",
+                pl.schur3_update_planes, *self.schur3_case(nx, nu, q, level),
+            )
+
+    def schur3_case(self, nx, nu, q, level):
+        """Arguments, kwargs, FLOPs and the library call (one unmasked
+        ``baddbmm`` over the stacked lambda/x/u rows, with the separators
+        broadcast per knot) of one B9 case at N=QN, B=QB."""
+        t, R = self.torch, self.drand
+        N, Bb = QN, QB
+        G = N >> (level + 1)
+        span = N // G
+        FL = [R(nx, nx, N, Bb), R(nx, nx, N, Bb), R(nu, nx, N, Bb)]
+        fsol = R(nx, q, G, Bb, scale=0.1)
+        C = [R(nx, q, N, Bb), R(nx, q, N, Bb), R(nu, q, N, Bb)]
+        k = t.arange(N)
+        keep = int((((k % (1 << level)) != 0) | (k == 0)).sum())
+        ops = 2 * (nx + nu) * nx * q * N * Bb + 2 * nx * nx * q * keep * Bb
+        # Bytes the update needs: the x/u slabs and their multipliers in
+        # full, the solved separators once, the lambda multiplier and slab
+        # read only at knots where calc_lambda holds, the lambda slab
+        # written there and at the separator knots (N / 2^(L+1) of them).
+        nsep = N >> (level + 1)
+        moved = 4 * Bb * (
+            (nx + nu) * nx * N + 2 * (nx + nu) * q * N + nx * q * G
+            + nx * nx * keep + nx * q * (2 * keep + nsep))
+        rows = 2 * nx + nu
+        FLml = t.cat(FL).reshape(rows, nx, -1).permute(2, 0, 1).contiguous()
+        Cml = t.cat(C).reshape(rows, q, -1).permute(2, 0, 1).contiguous()
+        fsml = fsol.permute(2, 3, 0, 1)[:, None].expand(
+            G, span, Bb, nx, q).reshape(N * Bb, nx, q)
+        lib = (lambda c, a, b: t.baddbmm(c, a, b, alpha=-1.0),
+               (Cml, FLml, fsml))
+        return [*FL, fsol, *C], dict(level=level), ops, lib, moved
+
     # -- phase 3 ---------------------------------------------------------
     def batch(self, N, dtype):
         pt = self.pt
@@ -230,22 +454,20 @@ class Smoke:
         t, pt, s = self.torch, self.pt, self.schur
         off = pt.SolveOptions(kernels="off")
         batches = {N: self.batch(N, t.float32) for N in (N_MAIN, N_ODD)}
-        s.reset_launch_counts()
-        out = {N_MAIN: pt.solve_kkt(batches[N_MAIN])}
-        t.cuda.synchronize()
-        c_main = s.launch_counts()
-        out[N_ODD] = pt.solve_kkt(batches[N_ODD])
-        t.cuda.synchronize()
-        counts = s.launch_counts()
-        c_odd = {k: counts[k] - c_main[k] for k in counts}
-        self.launches = counts
-        for k in ("rhs_update_level_em", "leaf_schur_level0_em",
-                  "schur_update_pair_em"):
-            self.check(c_main[k] > 0, f"{k} not launched at N={N_MAIN}")
-        self.check(c_odd["schur_update_level_em"] > 0,
-                   f"schur_update_level_em not launched at N={N_ODD}")
-        for k, c in counts.items():
-            self.check(c > 0, f"{k} launched no time on the main path")
+        # Each path's counts: set to 0 just before its solve, read just
+        # after. B2-B4 run on the N=256 path, B1 on the N=128 one.
+        out, counts = {}, {}
+        for N in (N_MAIN, N_ODD):
+            s.reset_launch_counts()
+            out[N] = pt.solve_kkt(batches[N])
+            t.cuda.synchronize()
+            counts[N] = s.launch_counts()
+        c_main, c_odd = counts[N_MAIN], counts[N_ODD]
+        path = {"rhs_update_level_em": N_MAIN, "leaf_schur_level0_em": N_MAIN,
+                "schur_update_pair_em": N_MAIN, "schur_update_level_em": N_ODD}
+        for k, N in path.items():
+            self.launches[k] = counts[N][k]
+            self.check(counts[N][k] > 0, f"{k} not launched at N={N}")
         print(f"phase3 launches N={N_MAIN}: {json.dumps(c_main)} "
               f"N={N_ODD}: {json.dumps(c_odd)}", flush=True)
 
@@ -285,17 +507,102 @@ class Smoke:
                   flush=True)
         self.main_batch = batches[N_MAIN]
 
-    # -- phase 4 ---------------------------------------------------------
-    def time_solves(self, card):
+    # -- phase 3b --------------------------------------------------------
+    def quad_checks(self):
+        """The mid-block slice on the quadruped config, one batch."""
         t, pt = self.torch, self.pt
-        b = self.main_batch
         off = pt.SolveOptions(kernels="off")
-        for _ in range(2):
+        prob = pt.random_problem(t.Generator().manual_seed(1), QN, QX, QU,
+                                 dtype=t.float32, device=self.dev)
+        b = pt.batch_problems(prob, QB, t.Generator().manual_seed(0))
+        t.cuda.synchronize()
+        t.cuda.reset_peak_memory_stats()
+        self.schur.reset_launch_counts()
+        self.planes.reset_launch_counts()
+        got = pt.solve_kkt(b)
+        t.cuda.synchronize()
+        counts = self.planes.launch_counts()
+        small = self.schur.launch_counts()
+        peak = t.cuda.max_memory_allocated()
+        self.launches.update(counts)
+        for k, c in counts.items():
+            self.check(c > 0, f"{k} launched no time on the quadruped path")
+        print(f"phase3b launches N={QN} B={QB} nx={QX} nu={QU}: "
+              f"{json.dumps(counts)} small-block kernels: "
+              f"{json.dumps(small)}; peak device memory "
+              f"{peak / 2**30:.2f} GiB", flush=True)
+
+        self.check(tuple(got.shape) == (QB, b.nvars),
+                   f"quadruped: output shape {tuple(got.shape)}")
+        self.check(bool(t.isfinite(got).all()), "quadruped: non-finite")
+        ref = pt.solve_kkt(b, options=off)
+        d_off = rel_err(got, ref)
+        self.check(d_off <= QUAD_SLICE_BAR,
+                   f"quadruped: kernel vs plain rel diff {d_off:.3e}")
+        sub64 = b.map(lambda x: x[:4]).to(dtype=t.float64)
+        ric = pt.solve_riccati(sub64).kkt_vector()
+        e_k = rel_err(got[:4].double(), ric)
+        e_p = rel_err(ref[:4].double(), ric)
+        self.check(e_k <= 2.0 * e_p + 1e-6,
+                   f"quadruped: f32 kernel err vs f64 Riccati {e_k:.3e} > "
+                   f"2 x plain {e_p:.3e} + 1e-6")
+        f64 = pt.solve_kkt(sub64, options=off)
+        e64 = float((f64 - ric).abs().max())
+        bar64 = F64_BAR * (1.0 + float(ric.abs().max()))
+        self.check(e64 <= bar64, f"quadruped: f64 plain vs f64 Riccati "
+                                 f"{e64:.3e} > {bar64:.3e}")
+        res = max(float(pt.kkt_residual(b.map(lambda x: x[i]), got[i]))
+                  for i in range(2))
+        scale = max(float(got[:2].abs().max()), 1.0)
+        self.check(res / scale <= QUAD_RESIDUAL_BAR,
+                   f"quadruped: relative KKT residual {res / scale:.3e}")
+        print(f"phase3b slice N={QN} B={QB} f32: rel_diff_vs_off={d_off:.3e} "
+              f"(bar {QUAD_SLICE_BAR}) err_vs_f64_riccati={e_k:.3e} (plain "
+              f"{e_p:.3e}) f64_plain_vs_riccati={e64:.3e} (bar {bar64:.3e}) "
+              f"kkt_residual={res:.4e} rel={res / scale:.3e} (bar "
+              f"{QUAD_RESIDUAL_BAR}) max|x|={scale:.4e}", flush=True)
+        self.quad_batch = b
+
+    # -- phase 5 ---------------------------------------------------------
+    def profile(self, b, label, top=14):
+        """Device kernel time of one batched solve by kernel name
+        (``torch.profiler``, CUDA activity), against its wall time."""
+        t, pt = self.torch, self.pt
+        from torch.profiler import ProfilerActivity, profile
+
+        pt.solve_kkt(b)
+        t.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            pt.solve_kkt(b)
+            t.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+        dev = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")
+               and e.self_device_time_total > 0]
+        busy = sum(e.self_device_time_total for e in dev) / 1e3
+        print(f"phase5 {label}: wall {wall:.3f} ms (profiled), device "
+              f"kernel time {busy:.3f} ms, busy share {busy / wall:.3f}, "
+              f"{sum(e.count for e in dev)} device kernel launches",
+              flush=True)
+        for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:top]:
+            print(f"phase5   {e.self_device_time_total / 1e3:9.3f} ms "
+                  f"{e.count:5d}x {e.key[:90]}", flush=True)
+
+    # -- phase 4 ---------------------------------------------------------
+    def time_solves(self, card, b, reps, label):
+        """Median host-clock ms per batched solve (CUDA-synchronized), the
+        kernel path and ``kernels="off"`` in turns."""
+        t, pt = self.torch, self.pt
+        B = b.x0.shape[0]
+        off = pt.SolveOptions(kernels="off")
+        for _ in range(2 if reps >= REPS else 1):
             pt.solve_kkt(b)
             pt.solve_kkt(b, options=off)
         t.cuda.synchronize()
         tk, tp = [], []
-        for _ in range(REPS):
+        for _ in range(reps):
             for opts, acc in ((None, tk), (off, tp)):
                 t.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -303,10 +610,10 @@ class Smoke:
                 t.cuda.synchronize()
                 acc.append(1e3 * (time.perf_counter() - t0))
         mk, mp = statistics.median(tk), statistics.median(tp)
-        print(f"phase4 N={N_MAIN} B={BATCH} f32 on {card}: kernel path "
-              f"{mk:.3f} ms/solve ({BATCH / mk * 1e3:.0f} solves/s), "
-              f"kernels=off {mp:.3f} ms/solve ({BATCH / mp * 1e3:.0f} "
-              f"solves/s); median of {REPS}, min {min(tk):.3f} / "
+        print(f"{label} B={B} f32 on {card}: kernel path "
+              f"{mk:.3f} ms/solve ({B / mk * 1e3:.1f} solves/s), "
+              f"kernels=off {mp:.3f} ms/solve ({B / mp * 1e3:.1f} "
+              f"solves/s); median of {reps}, min {min(tk):.3f} / "
               f"{min(tp):.3f} ms", flush=True)
 
 
@@ -315,7 +622,7 @@ def main() -> int:
         import torch
 
         import rslqr_tpu_torch as pt
-        from rslqr_tpu_torch.ops import _build, schur
+        from rslqr_tpu_torch.ops import _build, planes, schur
     except ImportError as exc:
         print(f"chip_smoke: cannot import the port: {exc}", file=sys.stderr)
         return 2
@@ -337,10 +644,26 @@ def main() -> int:
           f"cuda={torch.version.cuda} build_s={build_s:.2f} lib={lib.name}",
           flush=True)
 
-    smoke = Smoke(torch, pt, schur, dev)
-    smoke.kernel_cases()
-    smoke.slice_checks()
-    smoke.time_solves(card)
+    smoke = Smoke(torch, pt, schur, planes, dev)
+    phases = (
+        ("phase2", smoke.kernel_cases),
+        ("phase2b", smoke.plane_cases),
+        ("phase3", smoke.slice_checks),
+        ("phase3b", smoke.quad_checks),
+        ("phase4", lambda: smoke.time_solves(
+            card, smoke.main_batch, REPS, f"phase4 N={N_MAIN}")),
+        ("phase4b", lambda: smoke.time_solves(
+            card, smoke.quad_batch, QREPS,
+            f"phase4b quadruped N={QN} nx={QX} nu={QU}")),
+        ("phase5", lambda: (
+            smoke.profile(smoke.main_batch, f"N={N_MAIN} B={BATCH}"),
+            smoke.profile(smoke.quad_batch, f"quadruped N={QN} B={QB}"))),
+    )
+    for name, run in phases:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        print(f"{name} seconds={time.perf_counter() - t0:.1f}", flush=True)
 
     if smoke.failures:
         print(f"chip_smoke: {len(smoke.failures)} check(s) failed:",
@@ -349,10 +672,12 @@ def main() -> int:
             print("  " + f, file=sys.stderr)
         return 1
     kernels = [
-        {"name": name, "route": "cuda", "source": SOURCE,
+        {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": smoke.launches[name],
          "max_abs_err": st["max_abs_err"], "ms": st["ms"],
-         "plain_ms": st["plain_ms"], "case": st["case"]}
+         "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
+         "bound_by": st["bound_by"], "library_ms": st["library_ms"],
+         "case": st["case"]}
         for name, st in smoke.kernel_stats.items()
     ]
     print(card)

@@ -2,9 +2,12 @@
 kernels for the NVIDIA H100.
 
 A port of ``rslqr_tpu`` (which stays the reference): the batched
-element-major rsLQR solve, the Riccati oracle, and the problem helpers.
-The four sweep kernels (``ops/schur.py``, ``csrc/schur_kernels.cu``) run on
-CUDA tensors; their plain PyTorch versions run on CPU tensors.
+element-major rsLQR solve for small and mid-size blocks (n, m <= 64), the
+Riccati oracle, and the problem helpers (which build on the card unless
+asked for ``device="cpu"``). The hand-written kernels (``ops/schur.py`` with
+``csrc/schur_kernels.cu`` for small blocks, ``ops/planes.py`` with
+``csrc/planes_kernels.cu`` for mid blocks) run on CUDA tensors; their plain
+PyTorch versions run on CPU tensors.
 """
 
 from .config import SolveOptions

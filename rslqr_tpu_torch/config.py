@@ -20,10 +20,10 @@ class SolveOptions:
 
     ``kernels`` replaces the JAX package's ``pallas`` switch:
 
-    * ``"auto"``: each of the four sweep kernels (``ops/schur.py``) launches
-      its hand-written CUDA kernel on CUDA tensors and runs its plain PyTorch
-      version on CPU tensors. There is no silent fallback on CUDA: a kernel
-      that cannot run raises.
+    * ``"auto"``: each kernel wrapper (``ops/schur.py``, ``ops/planes.py``)
+      launches its hand-written CUDA kernel on CUDA tensors and runs its
+      plain PyTorch version on CPU tensors. There is no silent fallback on
+      CUDA: a kernel that cannot run raises.
     * ``"off"``: the plain PyTorch versions on every device (the reference
       path that ``chip_smoke.py`` times and compares the kernels against).
 
@@ -35,6 +35,8 @@ class SolveOptions:
     layout: str = "auto"
     kernels: str = "auto"
     factor_dtype: str = ""
+    # Block dim above which linalg and the sweep take the mid-block planes
+    # route (up to 64).
     mxu_block_threshold: int = 8
     # Two sweep levels per slab pass (rslqr_em._sweep_pair_em); False = one
     # level per pass.

@@ -1,0 +1,424 @@
+// Hand-written Hopper kernels for the mid-block (8 < n <= 64) element-plane
+// linear algebra of the rsLQR path.
+//
+// Three kernels for the four TPU kernels of rslqr_tpu/ops/planes_pallas.py:
+//   rows_kernel        <- _pgemm_call / pgemm        (C = A @ B, no flags)
+//                      <- schur3_update_planes       (fused lambda/x/u update)
+//   pchol_kernel       <- pchol                      (Cholesky, lower L)
+//   pcho_solve_kernel  <- pcho_solve                 ((L L') X = B in place)
+//
+// Layout: element-plane blocks [p, q, F]: block element (i, j) is a dense
+// plane of F elements (the flattened knot x batch or group x batch grid) at
+// (i*q + j)*F + f. float32 only; block dims are runtime arguments up to 64.
+//
+// Bound: bandwidth. At n=36 the products do 2K = 72 FLOP per output float
+// over ~3 floats moved per output (~6 FLOP/byte), the Schur update ~3
+// FLOP/byte, the solves and the Cholesky less; the H100's f32 balance is
+// ~20 FLOP/byte. So each kernel must read every operand once and keep
+// enough loads in flight.
+//
+// rows_kernel (products): a block owns 32 plane elements (one per lane, so
+// every plane load and store is a coalesced 128-byte line) and stages their
+// right-hand operand R [K, q] in shared memory, QC columns at a time. Each
+// of its 16 warps then takes whole rows of the left operand: per term k one
+// coalesced load of A[i, k] feeds QC FMAs against shared memory, so A and R
+// are read from device memory once (per column chunk) and C written once.
+// For the Schur update the rows are the three slabs' (lambda rows masked,
+// separator rows overwritten) and R is the compact solved separator of each
+// lane's knot group. Shared-memory bandwidth is not what bounds it: a
+// variant that feeds two rows from each shared-memory load ran slower, and
+// unrolling 16 terms instead of 8 changed nothing (PERF.md).
+//
+// pcho_solve_kernel: one thread per (plane element, right-hand column),
+// the column in registers, L staged per block in shared memory (see the
+// kernel). pchol_kernel: one thread per plane element, its working values
+// in the output L (read back through L1/L2). Both are instantiated for
+// register columns of 12, 36 and 64 floats (the tests' n=12, the quadruped
+// path's 36, and 64 for any larger block), launched with the smallest that
+// holds the block; their unrolled loops carry no branch on the runtime dim
+// (padding entries are 0 and their loads repeat the last valid address), so
+// the loads of a row are in flight together.
+//
+// Each launcher returns cudaGetLastError() right after the launch; the
+// Python wrapper (rslqr_tpu_torch/ops/planes.py) raises on a nonzero code.
+
+#include <cuda_runtime.h>
+#include <cstddef>
+
+namespace {
+
+constexpr int MAXD = 64;        // largest block dim (matches ops/planes.py)
+constexpr int LANES = 32;       // plane elements per block (one per lane)
+constexpr int ROW_WARPS = 16;   // warps per rows_kernel block
+constexpr int SMEM_MAX = 232448;  // shared memory a block can use (H100)
+
+// Runs the statement list (a lambda) with the constexpr int W set to the
+// register-column width (12, 36 or 64) that holds d values.
+#define RSLQR_BY_WIDTH(d, ...)   \
+  do {                           \
+    if ((d) <= 12) {             \
+      constexpr int W = 12;      \
+      __VA_ARGS__();             \
+    } else if ((d) <= 36) {      \
+      constexpr int W = 36;      \
+      __VA_ARGS__();             \
+    } else {                     \
+      constexpr int W = 64;      \
+      __VA_ARGS__();             \
+    }                            \
+  } while (0)
+
+// Index k of a length-K column, clamped into it (the padding's stand-in).
+__device__ __forceinline__ int clampk(int k, int K) {
+  return k < K ? k : K - 1;
+}
+
+// Column j of a [K, q, F] block at plane element f into registers (0 past K).
+template <int W>
+__device__ __forceinline__ void load_col(float (&col)[W],
+                                         const float* __restrict__ src, int K,
+                                         int q, int j, size_t F, size_t f) {
+#pragma unroll
+  for (int k = 0; k < W; ++k) {
+    const float v = src[((size_t)clampk(k, K) * q + j) * F + f];
+    col[k] = k < K ? v : 0.f;
+  }
+}
+
+// What rows_kernel computes: C_g[i, :] (=, or -=) A_g[i, :] @ R for up to
+// three row groups g. For the Schur update (schur != 0) R is the compact
+// fsol [K, q, G, B] read at the lane's knot group, and group 0 is the lambda
+// slab: rows skip the update where calc_lambda is false and take R's row i
+// at separator knots (nested_dissection.c:154-177).
+struct RowsArgs {
+  const float* A[3];  // [rows_g, K, F]
+  float* C[3];        // [rows_g, q, F]
+  int rows[3];
+  const float* R;     // [K, q, F] (product) or [K, q, G, B] (Schur update)
+  int K, q, F;
+  int schur, N, B, level;
+};
+
+// One row's epilogue: C (=, or -=) acc; lambda rows of the Schur update
+// take R's row (``rrow``) at separator knots and skip where calc_lambda is
+// false.
+template <int QC>
+__device__ __forceinline__ void store_row(float* crow, const float (&acc)[QC],
+                                          int qc, size_t F, int schur,
+                                          bool lam, bool keep, bool sep,
+                                          const float* rrow) {
+#pragma unroll
+  for (int j = 0; j < QC; ++j) {
+    if (j < qc) {
+      float* c = crow + (size_t)j * F;
+      if (!schur)
+        *c = acc[j];
+      else if (!lam)
+        *c -= acc[j];
+      else if (sep)
+        *c = rrow[j * LANES];
+      else if (keep)
+        *c -= acc[j];
+    }
+  }
+}
+
+template <int QC>
+__global__ void __launch_bounds__(LANES * ROW_WARPS)
+    rows_kernel(const RowsArgs a) {
+  extern __shared__ float Rs[];  // [K][QC][LANES]
+  const int lane = threadIdx.x;
+  const int warp = threadIdx.y;
+  const int f0 = blockIdx.x * LANES + lane;
+  const bool live = f0 < a.F;
+  const size_t f = live ? f0 : a.F - 1;  // dead lanes load a valid address
+  const size_t F = a.F;
+  // The lane's knot (Schur update): masks and the compact R offset.
+  bool keep = true, sep = false;
+  size_t roff = f;        // offset of R[k, j] at this lane: k*q*rs + j*rs
+  size_t rs = F;
+  if (a.schur) {
+    const int knot = (int)(f / a.B);
+    const int half = 1 << a.level;
+    keep = (knot & (half - 1)) != 0 || knot == 0;
+    sep = (knot & (2 * half - 1)) == half;
+    const int G = a.N >> (a.level + 1);
+    rs = (size_t)G * a.B;
+    roff = (size_t)(knot >> (a.level + 1)) * a.B + (f - (size_t)knot * a.B);
+  }
+  const int total = a.rows[0] + a.rows[1] + a.rows[2];
+  for (int j0 = 0; j0 < a.q; j0 += QC) {
+    const int qc = a.q - j0 < QC ? a.q - j0 : QC;
+    // Stage R[:, j0:j0+QC] for the block's lanes (zero past q).
+    __syncthreads();
+#pragma unroll 8
+    for (int t = warp; t < a.K * QC; t += ROW_WARPS) {
+      const int k = t / QC, j = t - k * QC;
+      Rs[t * LANES + lane] =
+          j < qc ? a.R[((size_t)k * a.q + j0 + j) * rs + roff] : 0.f;
+    }
+    __syncthreads();
+    for (int r = warp; r < total; r += ROW_WARPS) {
+      // Row r of the stacked groups: group g, row i within it.
+      const int r1 = a.rows[0], r2 = r1 + a.rows[1];
+      const int g = (r >= r1) + (r >= r2);
+      const int i = r - (g == 0 ? 0 : (g == 1 ? r1 : r2));
+      const float* A = g == 0 ? a.A[0] : (g == 1 ? a.A[1] : a.A[2]);
+      float* C = g == 0 ? a.C[0] : (g == 1 ? a.C[1] : a.C[2]);
+      const bool lam = a.schur && g == 0;
+      float* crow = C + ((size_t)i * a.q + j0) * F + f;
+      const float* rrow = Rs + i * QC * LANES + lane;  // R's row i
+      if (lam && !__any_sync(0xffffffffu, live && keep)) {
+        if (live && sep)
+          for (int j = 0; j < qc; ++j) crow[(size_t)j * F] = rrow[j * LANES];
+        continue;
+      }
+      float acc[QC];
+#pragma unroll
+      for (int j = 0; j < QC; ++j) acc[j] = 0.f;
+      const float* arow = A + (size_t)i * a.K * F + f;
+#pragma unroll 8
+      for (int k = 0; k < a.K; ++k) {
+        const float v = arow[(size_t)k * F];
+        const float* rk = Rs + k * QC * LANES + lane;
+#pragma unroll
+        for (int j = 0; j < QC; ++j) acc[j] = fmaf(v, rk[j * LANES], acc[j]);
+      }
+      if (live) store_row(crow, acc, qc, F, a.schur, lam, keep, sep, rrow);
+    }
+  }
+}
+
+// Column chunk width for q columns against K terms: the smallest of 1, 12,
+// 16, 36 that holds q, or chunks of 16 where [K][36][LANES] would not fit
+// in shared memory.
+int chunk_for(int q, int K) {
+  if (q <= 1) return 1;
+  if (q <= 12) return 12;
+  if (q <= 16) return 16;
+  if (q <= 36 && (size_t)K * 36 * LANES * sizeof(float) <= SMEM_MAX)
+    return 36;
+  return 16;
+}
+
+template <int QC>
+int launch_rows_qc(const RowsArgs& a, cudaStream_t st) {
+  const int smem = a.K * QC * LANES * (int)sizeof(float);
+  const cudaError_t e = cudaFuncSetAttribute(
+      rows_kernel<QC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  rows_kernel<QC><<<(a.F + LANES - 1) / LANES, dim3(LANES, ROW_WARPS), smem,
+                    st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_rows(const RowsArgs& a, cudaStream_t st) {
+  switch (chunk_for(a.q, a.K)) {
+    case 1:
+      return launch_rows_qc<1>(a, st);
+    case 12:
+      return launch_rows_qc<12>(a, st);
+    case 16:
+      return launch_rows_qc<16>(a, st);
+    default:
+      return launch_rows_qc<36>(a, st);
+  }
+}
+
+// Left-looking Cholesky (the TPU kernel's _chol_kernel): column j is
+// A[j:, j] - L[j:, :j] L[j, :j]', scaled by 1/sqrt of its first entry. Row j
+// of L (columns < j) is held in registers; the rows below are read back
+// from L, which this thread wrote earlier. The column loop is unrolled, so
+// every inner loop has a compile-time length.
+template <int W>
+__global__ void __launch_bounds__(128)
+    pchol_kernel(const float* __restrict__ A, float* __restrict__ L, int n,
+                 int F) {
+  const int f = blockIdx.x * blockDim.x + threadIdx.x;
+  if (f >= F) return;
+  const size_t Fs = F;
+  auto at = [&](int i, int j) { return ((size_t)i * n + j) * Fs + f; };
+  for (int i = 0; i < n; ++i)
+    for (int j = i + 1; j < n; ++j) L[at(i, j)] = 0.f;
+  float rj[W];
+#pragma unroll
+  for (int j = 0; j < W; ++j) {
+    if (j < n) {
+#pragma unroll
+      for (int k = 0; k < j; ++k) rj[k] = L[at(j, k)];
+      float d = A[at(j, j)];
+#pragma unroll
+      for (int k = 0; k < j; ++k) d = fmaf(-rj[k], rj[k], d);
+      const float ljj = sqrtf(d);
+      const float inv = 1.f / ljj;
+      L[at(j, j)] = ljj;
+      for (int i = j + 1; i < n; ++i) {
+        float s = A[at(i, j)];
+#pragma unroll
+        for (int k = 0; k < j; ++k) s = fmaf(-L[at(i, k)], rj[k], s);
+        L[at(i, j)] = s * inv;
+      }
+    }
+  }
+}
+
+// (L L') X = B, one right-hand column per thread: the column lives in
+// registers through forward (L y = b) and back (L' x = y) substitution. A
+// block owns 32 plane elements (one per lane) and its warps (up to
+// SOLVE_WARPS) take the columns. With STAGE (several columns, and W <= 36:
+// n(n+1)/2 * 32 floats, 85 KB at n=36) the block first stages the lanes'
+// lower triangles of L in shared memory, so L is read from device memory
+// once and every term is a shared-memory load; otherwise L is read through
+// L1/L2 (one column: nothing to share).
+constexpr int SOLVE_WARPS = 8;  // 256 threads: 255 registers for the column
+
+template <int W>
+constexpr bool kSolveSmem = W * (W + 1) / 2 * LANES * 4 <= SMEM_MAX;
+
+template <int W, bool STAGE>
+__global__ void __launch_bounds__(LANES * SOLVE_WARPS)
+    pcho_solve_kernel(const float* __restrict__ L, float* __restrict__ X,
+                      int n, int w, int F) {
+  extern __shared__ float Ls[];  // packed lower triangles [i(i+1)/2 + k][LANES]
+  const int lane = threadIdx.x;
+  const int warp = threadIdx.y;
+  const int f0 = blockIdx.x * LANES + lane;
+  const bool live = f0 < F;
+  const size_t Fs = F;
+  const size_t f = live ? f0 : F - 1;
+  if constexpr (STAGE) {
+    for (int i = 0; i < n; ++i) {
+#pragma unroll 4
+      for (int k = warp; k <= i; k += blockDim.y)
+        Ls[(i * (i + 1) / 2 + k) * LANES + lane] = L[((size_t)i * n + k) * Fs + f];
+    }
+    __syncthreads();
+  }
+  auto l = [&](int i, int k) {
+    if constexpr (STAGE)
+      return Ls[(i * (i + 1) / 2 + k) * LANES + lane];
+    else
+      return L[((size_t)i * n + k) * Fs + f];
+  };
+  for (int c = warp; c < w; c += blockDim.y) {
+    float x[W];
+    load_col(x, X, n, w, c, Fs, f);
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+      if (i < n) {
+        float s = x[i];
+#pragma unroll
+        for (int k = 0; k < i; ++k) s = fmaf(-l(i, k), x[k], s);
+        x[i] = s / l(i, i);
+      }
+    }
+#pragma unroll
+    for (int i = W - 1; i >= 0; --i) {
+      if (i < n) {
+        float s = x[i];
+#pragma unroll
+        for (int k = i + 1; k < W; ++k)  // x[k] = 0 for k >= n
+          s = fmaf(-l(clampk(k, n), i), x[k], s);
+        x[i] = s / l(i, i);
+      }
+    }
+    if (live) {
+#pragma unroll
+      for (int i = 0; i < W; ++i)
+        if (i < n) X[((size_t)i * w + c) * Fs + f] = x[i];
+    }
+  }
+}
+
+// Launch the solve for width W: staged where it fits and there are several
+// columns. The staged instance exists only for widths that fit.
+template <int W>
+int launch_solve(const float* L, float* X, int n, int w, int F,
+                 cudaStream_t st) {
+  const dim3 grid((F + LANES - 1) / LANES);
+  const dim3 block(LANES, w < SOLVE_WARPS ? w : SOLVE_WARPS);
+  if constexpr (kSolveSmem<W>) {
+    if (w > 1) {
+      const int smem = n * (n + 1) / 2 * LANES * (int)sizeof(float);
+      const cudaError_t e = cudaFuncSetAttribute(
+          pcho_solve_kernel<W, true>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      pcho_solve_kernel<W, true><<<grid, block, smem, st>>>(L, X, n, w, F);
+      return static_cast<int>(cudaGetLastError());
+    }
+  }
+  pcho_solve_kernel<W, false><<<grid, block, 0, st>>>(L, X, n, w, F);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool dims_ok(int a) { return a >= 1 && a <= MAXD; }
+
+}  // namespace
+
+extern "C" {
+
+int rslqr_pgemm(const float* A, const float* B, float* C, int p, int K, int q,
+                int F, void* stream) {
+  if (!dims_ok(p) || !dims_ok(K) || !dims_ok(q) || F < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  RowsArgs a = {};
+  a.A[0] = A;
+  a.C[0] = C;
+  a.rows[0] = p;
+  a.R = B;
+  a.K = K;
+  a.q = q;
+  a.F = F;
+  return launch_rows(a, static_cast<cudaStream_t>(stream));
+}
+
+int rslqr_pchol(const float* A, float* L, int n, int F, void* stream) {
+  if (!dims_ok(n) || F < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int tx = 128;
+  const auto st = static_cast<cudaStream_t>(stream);
+  RSLQR_BY_WIDTH(n, [&] {
+    pchol_kernel<W><<<(F + tx - 1) / tx, tx, 0, st>>>(A, L, n, F);
+  });
+  return static_cast<int>(cudaGetLastError());
+}
+
+int rslqr_pcho_solve(const float* L, float* X, int n, int w, int F,
+                     void* stream) {
+  if (!dims_ok(n) || !dims_ok(w) || F < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  int err = 0;
+  RSLQR_BY_WIDTH(n, [&] { err = launch_solve<W>(L, X, n, w, F, st); });
+  return err;
+}
+
+int rslqr_schur3_update_planes(const float* FLl, const float* FLx,
+                               const float* FLu, const float* fsol, float* Cl,
+                               float* Cx, float* Cu, int n, int m, int q,
+                               int N, int B, int level, void* stream) {
+  if (!dims_ok(n) || !dims_ok(m) || !dims_ok(q) || N < 2 || B < 1 ||
+      level < 0 || (N >> (level + 1)) < 1 ||
+      (long long)N * B >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  RowsArgs a = {};
+  const float* As[3] = {FLl, FLx, FLu};
+  float* Cs[3] = {Cl, Cx, Cu};
+  const int rows[3] = {n, n, m};
+  for (int g = 0; g < 3; ++g) {
+    a.A[g] = As[g];
+    a.C[g] = Cs[g];
+    a.rows[g] = rows[g];
+  }
+  a.R = fsol;
+  a.K = n;
+  a.q = q;
+  a.F = N * B;
+  a.schur = 1;
+  a.N = N;
+  a.B = B;
+  a.level = level;
+  return launch_rows(a, static_cast<cudaStream_t>(stream));
+}
+
+}  // extern "C"

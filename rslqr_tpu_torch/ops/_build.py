@@ -1,10 +1,12 @@
-"""Build and load the CUDA kernels of ``csrc/schur_kernels.cu``.
+"""Build and load the CUDA kernels of ``csrc/*.cu``.
 
-``nvcc`` compiles the source into a shared library with a plain C interface,
-which ``ctypes`` loads; no PyTorch headers are involved, so a build takes
-seconds. The library lands in ``rslqr_tpu_torch/_build/`` (git-ignored)
-under a name that carries a hash of the source and the flags, so a changed
-source rebuilds and an unchanged one is loaded as it is.
+``nvcc`` compiles each source into an object, all sources at once in
+parallel processes, and links the objects into one shared library with a
+plain C interface, which ``ctypes`` loads; no PyTorch headers are involved,
+so a build takes seconds. Objects and library land in
+``rslqr_tpu_torch/_build/`` (git-ignored) under names that carry a hash of
+their sources and the flags, so a changed source rebuilds and an unchanged
+one is loaded as it is.
 """
 
 from __future__ import annotations
@@ -19,11 +21,14 @@ import tempfile
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "schur_kernels.cu"
+SOURCES = (
+    _PKG / "csrc" / "schur_kernels.cu",
+    _PKG / "csrc" / "planes_kernels.cu",
+)
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 
@@ -41,33 +46,73 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _digest(*parts: bytes) -> str:
+    return hashlib.sha256(b"\0".join(parts)).hexdigest()[:16]
+
+
+def _flags() -> bytes:
+    return " ".join(NVCC_FLAGS).encode()
+
+
+def object_path(source: Path) -> Path:
+    return BUILD_DIR / f"{source.stem}_{_digest(source.read_bytes(), _flags())}.o"
+
+
 def library_path() -> Path:
-    digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"schur_kernels_{digest}.so"
+    digest = _digest(*(s.read_bytes() for s in SOURCES), _flags())
+    return BUILD_DIR / f"rslqr_kernels_{digest}.so"
+
+
+def _run(procs) -> None:
+    """Wait for every ``(cmd, Popen, tmp)``; raise with the compiler's
+    output on the first failure, after all have ended."""
+    failed = []
+    for cmd, proc, tmp in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
+                          f"\n{out}\n{err}")
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+        elif out or err:
+            print(out + err)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def _tmp(suffix: str) -> str:
+    fd, tmp = tempfile.mkstemp(suffix=suffix, dir=BUILD_DIR)
+    os.close(fd)
+    return tmp
 
 
 def build(extra_flags=()) -> Path:
-    """Compile the kernels unless the library for this source exists.
+    """Compile the kernels unless the library for these sources exists.
     ``extra_flags`` (for example ``("-Xptxas", "-v")``) force a fresh
     compile whose compiler output is printed."""
     out = library_path()
     if out.exists() and not extra_flags:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, *extra_flags, "-o", tmp, str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    if extra_flags:
-        print(proc.stdout + proc.stderr)
+    nvcc = nvcc_path()
+    jobs = []
+    for src in SOURCES:
+        obj = object_path(src)
+        if obj.exists() and not extra_flags:
+            continue
+        tmp = _tmp(".o")
+        cmd = [nvcc, *NVCC_FLAGS, *extra_flags, "-c", "-o", tmp, str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        jobs.append((cmd, proc, tmp, obj))
+    _run([(cmd, proc, tmp) for cmd, proc, tmp, _ in jobs])
+    for *_, tmp, obj in jobs:
+        os.replace(tmp, obj)
+    tmp = _tmp(".so")
+    cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp,
+           *(str(object_path(s)) for s in SOURCES)]
+    _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True), tmp)])
     os.replace(tmp, out)
     return out
 
@@ -78,6 +123,7 @@ def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     P, PP, I = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p), ctypes.c_int
     sigs = {
+        # csrc/schur_kernels.cu
         "rslqr_rhs_update_level": [P] * 7 + [I] * 5 + [P],
         "rslqr_schur_update_level": [P] * 3 + [PP] * 4 + [P] * 2 + [PP]
         + [I] * 7 + [P],
@@ -85,6 +131,11 @@ def load() -> ctypes.CDLL:
         + [I] * 7 + [P],
         "rslqr_leaf_schur_level0": [P] * 5 + [PP] + [P] * 2 + [PP] * 4
         + [I] * 5 + [P],
+        # csrc/planes_kernels.cu
+        "rslqr_pgemm": [P] * 3 + [I] * 4 + [P],
+        "rslqr_pchol": [P] * 2 + [I] * 2 + [P],
+        "rslqr_pcho_solve": [P] * 2 + [I] * 3 + [P],
+        "rslqr_schur3_update_planes": [P] * 7 + [I] * 6 + [P],
     }
     for name, args in sigs.items():
         fn = getattr(lib, name)

@@ -97,19 +97,34 @@ class LQRProblem:
         return self.map(lambda x: x.to(device=device, dtype=dtype))
 
 
+def _card(device) -> torch.device:
+    """The device a builder puts its problem on. The builders default to the
+    card (``"cuda"``); a CUDA device without a visible card raises instead
+    of falling back to the CPU, which a caller asks for with ``"cpu"``."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"no CUDA device for device={device!r}: pass device='cpu' to "
+            "build the problem on the CPU"
+        )
+    return dev
+
+
 def problem_from_arrays(A, B, f, Qdiag, Rdiag, q, r, c, x0, *, dtype=None,
-                        device=None) -> LQRProblem:
+                        device="cuda") -> LQRProblem:
     """Build and validate an :class:`LQRProblem` from array-likes
-    (counterpart of ``ndlqr_InitializeLQRProblem``, lqr_problem.c:39-52)."""
+    (counterpart of ``ndlqr_InitializeLQRProblem``, lqr_problem.c:39-52),
+    on ``device`` (the card unless the caller asks for the CPU)."""
+    dev = _card(device)
     conv = lambda x: torch.as_tensor(np.asarray(x)).to(
-        device=device, dtype=dtype
+        device=dev, dtype=dtype
     )
     prob = LQRProblem(*(conv(x) for x in (A, B, f, Qdiag, Rdiag, q, r, c, x0)))
     prob.validate()
     return prob
 
 
-def problem_from_numpy(obj, *, dtype=None, device=None) -> LQRProblem:
+def problem_from_numpy(obj, *, dtype=None, device="cuda") -> LQRProblem:
     """Carry a problem given as a mapping or as an object with the nine
     fields (for example a ``rslqr_tpu.LQRProblem``) into the port exactly:
     each field goes through ``np.asarray``, so both packages solve the same
@@ -129,7 +144,7 @@ def double_integrator_problem(
     ninputs: int = 3,
     dt: float = 0.1,
     dtype=torch.float64,
-    device=None,
+    device="cuda",
 ) -> LQRProblem:
     """The double-integrator benchmark problem of
     ``rslqr_tpu.problem.double_integrator_problem``, value for value: block
@@ -173,11 +188,13 @@ def random_problem(
     nstates: int,
     ninputs: int,
     dtype=torch.float32,
-    device=None,
+    device="cuda",
 ) -> LQRProblem:
-    """A random well-conditioned LQR instance, drawn from ``generator``
-    (the distribution of ``rslqr_tpu.problem.random_problem``; the numbers
-    differ, since the two generators differ)."""
+    """A random well-conditioned LQR instance, drawn from ``generator`` on
+    the generator's device and moved to ``device`` (the distribution of
+    ``rslqr_tpu.problem.random_problem``; the numbers differ, since the two
+    generators differ)."""
+    dev = _card(device)
     n, m, N = nstates, ninputs, nhorizon
     g = generator
     A = torch.eye(n, dtype=dtype, device=g.device) + 0.1 * _randn(
@@ -194,7 +211,7 @@ def random_problem(
         c=torch.zeros((N,), dtype=dtype, device=g.device),
         x0=_randn(g, (n,), dtype),
     )
-    return prob.to(device=device)
+    return prob.to(device=dev)
 
 
 def perturb_problem(

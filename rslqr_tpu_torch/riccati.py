@@ -57,6 +57,12 @@ def backward_step(P_next, p_next, A, B, f, Qd, Rd, q, r):
     dgain = -sol[..., -1]
     Kt = K.transpose(-1, -2)
     P = Qxx + Kt @ (Quu @ K) + Kt @ Qux + Qux.transpose(-1, -2) @ K
+    # Keep P exactly symmetric. The reference's update (riccati_solve.c and
+    # rslqr_tpu.riccati) leaves a rounding-level antisymmetric part, which
+    # A' (.) A amplifies each step: with unstable dynamics (the quadruped
+    # config's A = I + 0.1 randn, spectral radius ~1.6) it reaches O(1)
+    # within ~80 steps and the Cholesky of Quu fails (ROADMAP C3).
+    P = 0.5 * (P + P.transpose(-1, -2))
     p = Qx + _mv(Kt, _mv(Quu, dgain)) + _mv(Kt, Qu) + _mv(
         Qux.transpose(-1, -2), dgain
     )

@@ -2,10 +2,11 @@
 
 Counterpart of the entry points of ``rslqr_tpu.rslqr`` (rslqr.py:90-124,
 218-227, 444-449, 536-592). Every solve runs the element-major path of
-:mod:`rslqr_tpu_torch.rslqr_em`: any number of leading batch axes is
-flattened to one (a single problem runs as a batch of one), so on CUDA the
-kernel path is the only path. The knot-major grid path and the large-block
-route of the JAX package are not ported yet.
+:mod:`rslqr_tpu_torch.rslqr_em`, for small and mid-size blocks (n, m <= 64):
+any number of leading batch axes is flattened to one (a single problem runs
+as a batch of one), so on CUDA the kernel path is the only path. The
+knot-major grid path and the large-block route of the JAX package are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 
 from .config import SolveOptions, resolve_options
 from .problem import LQRProblem, pack_solution
+from .ops.planes import MAX_BLOCK
 from .tree import TreeTables
 
 
@@ -72,7 +74,13 @@ def solve(
     options: Optional[SolveOptions] = None,
 ) -> RsLqrSolution:
     """Full rsLQR solve (ref ndlqr_Solve, solve.c:38-190) of a single
-    problem or a batch (leading batch axes on every field).
+    problem or a batch (leading batch axes on every field), on the device
+    of the problem's tensors.
+
+    Blocks up to 64 run the element-major path (JAX ``_use_em_layout``,
+    rslqr.py:498-533): small blocks through the Schur sweep kernels, mid
+    blocks (above ``mxu_block_threshold``) through the element-plane
+    kernels. Larger blocks raise ``NotImplementedError``.
 
     Sets ``torch.backends.cuda.matmul.allow_tf32`` and
     ``torch.backends.cudnn.allow_tf32`` to False: the plain stages may
@@ -84,11 +92,10 @@ def solve(
     torch.backends.cudnn.allow_tf32 = False
     opts = resolve_options(options)
     n, m = prob.nstates, prob.ninputs
-    if max(n, m) > opts.mxu_block_threshold and opts.layout == "auto":
+    if max(n, m) > MAX_BLOCK:
         raise NotImplementedError(
-            f"blocks n={n}, m={m} above mxu_block_threshold="
-            f"{opts.mxu_block_threshold}: the mid/large-block routes are not "
-            "ported yet"
+            f"blocks n={n}, m={m} above {MAX_BLOCK}: the large-block "
+            "route is not ported yet"
         )
     bshape = prob.batch_shape
     flat = prob.map(lambda x: x.reshape((-1,) + x.shape[len(bshape):]))

@@ -7,7 +7,7 @@ plane minor. The batch is always ONE trailing axis here (the front door
 flattens leading batch axes; a single problem runs as ``B = 1``).
 
 On every device this module runs the structure of the JAX package's kernel
-path:
+path. Small blocks (n at most ``SolveOptions.mxu_block_threshold``):
 
 1. level-0 products from compact gathers of the problem data, a small
    Cholesky and stacked separator solves, then ONE fused leaf + level-0
@@ -17,11 +17,21 @@ path:
 3. the RHS sweep: per level a compact separator solve in plain ops, then
    one pass over the level's slabs (``rhs_update_level_em``).
 
-Only the four kernel calls (``ops/schur.py``) differ between devices: the
-plain PyTorch versions on CPU tensors (or under ``kernels="off"``), the
-CUDA kernels on CUDA tensors. Everything else is plain PyTorch on compact
-``[.., G, B]`` data. The flat-plane and mid-block planes branches of the
-JAX module are not ported yet.
+Mid blocks (threshold < n <= 64, the quadruped regime), as the JAX module
+runs them when its Pallas Schur kernels do not apply (rslqr_em.py:202-242,
+388-421, 751-774, 935-963): the plain leaf (``_leaf_em``), then single
+levels only, each with its products (``planes.pgemm`` through
+``linalg.bgemm``), Cholesky (``planes.pchol``), one separator solve per
+upper level (``planes.pcho_solve``) and one fused Schur update per upper
+level (``planes.schur3_update_planes``); the RHS sweep solves its
+separators with ``pcho_solve`` (one column) and applies them with
+``schur3_update_planes`` (one column).
+
+Only the kernel calls (``ops/schur.py``, ``ops/planes.py``) differ between
+devices: the plain PyTorch versions on CPU tensors (or under
+``kernels="off"``), the CUDA kernels on CUDA tensors. Everything else is
+plain PyTorch on compact ``[.., G, B]`` data. The flat-plane branches of
+the JAX module are not ported yet.
 
 The slabs are updated in place by the kernels, as the TPU kernels alias
 them.
@@ -37,7 +47,7 @@ import torch
 
 from . import linalg as la
 from .config import SolveOptions, resolve_options
-from .ops import schur
+from .ops import planes, schur
 from .problem import LQRProblem, pack_solution
 from .rslqr import RsLqrSolution, _bf, _to_batch_last
 from .tree import TreeTables, build_tree_tables
@@ -106,34 +116,47 @@ def _leaf_masks(levels: np.ndarray, N: int, depth: int):
 
 
 def _leaf_em(pbl: LQRProblem, levels: np.ndarray, depth: int):
-    """Leaf solves (ref nested_dissection.c:10-105) as static-mask
-    ``where``s over dense planes. Used when the tree is too shallow for the
-    fused leaf kernel (N = 2) and for fresh right-hand sides."""
+    """Leaf solves (ref nested_dissection.c:10-105): each level's factor
+    slabs, contiguous ``[p, n, N, B]``, zero except at the knots the level
+    owns (``Q^-1 A'``, ``R^-1 B'``; ``-Q^-1`` after its separators; ``-A'``
+    and ``R^-1 B'`` at knot 0 for level 0). The values are those of the JAX
+    module's static-mask ``where``s (a knot is never both owned and after a
+    separator), written only at those knots. Used for mid-size blocks and
+    when the tree is too shallow for the fused leaf kernel (N = 2)."""
     N, n = pbl.A.shape[0], pbl.A.shape[1]
+    m, Bb = pbl.B.shape[2], pbl.A.shape[3]
     dev, dtype = pbl.A.device, pbl.A.dtype
     A, B = _em(pbl.A), _em(pbl.B)
     At, Bt = A.transpose(0, 1), B.transpose(0, 1)
     qinv, rinv = 1.0 / _emv(pbl.Qdiag), 1.0 / _emv(pbl.Rdiag)
-    QiAt = At * qinv[:, None]
-    RiBt = Bt * rinv[:, None]
     knot0 = np.arange(N) == 0
     own, prev = _leaf_masks(levels, N, depth)
     eye = torch.eye(n, dtype=dtype, device=dev).reshape(n, n, 1, 1)
+
+    def slab(p, parts):
+        """Zeros ``[p, n, N, B]`` with ``(knot mask, values)`` parts set;
+        ``values(idx)`` gives the blocks at knots ``idx``."""
+        out = torch.zeros((p, n, N, Bb), dtype=dtype, device=dev)
+        for mask, values in parts:
+            idx = torch.as_tensor(np.nonzero(mask)[0], device=dev)
+            if len(idx):
+                out[:, :, idx] = values(idx)
+        return out
+
+    qiat = lambda idx: At[:, :, idx] * qinv[:, idx][:, None]
+    ribt = lambda idx: Bt[:, :, idx] * rinv[:, idx][:, None]
+    mqinv = lambda idx: -(eye * qinv[:, idx][None])
     Fls: List[torch.Tensor] = []
     Fxs: List[torch.Tensor] = []
     Fus: List[torch.Tensor] = []
     for L in range(depth):
-        mo = _kmask(own[L], 2, dev)
-        mp = _kmask(prev[L], 2, dev)
-        Fxs.append(
-            torch.where(mo, QiAt, 0.0) - torch.where(mp, eye * qinv[None], 0.0)
-        )
+        Fxs.append(slab(n, [(own[L], qiat), (prev[L], mqinv)]))
         if L == 0:
-            Fus.append(torch.where(_kmask(own[L] | knot0, 2, dev), RiBt, 0.0))
-            Fls.append(torch.where(_kmask(knot0, 2, dev), -At, 0.0))
+            Fus.append(slab(m, [(own[L] | knot0, ribt)]))
+            Fls.append(slab(n, [(knot0, lambda idx: -At[:, :, idx])]))
         else:
-            Fus.append(torch.where(mo, RiBt, 0.0))
-            Fls.append(torch.zeros_like(At))
+            Fus.append(slab(m, [(own[L], ribt)]))
+            Fls.append(slab(n, []))
     zy, zx, zu = _leaf_z(pbl)
     return Fls, Fxs, Fus, A, B, zy, zx, zu
 
@@ -182,7 +205,7 @@ def _flat(x: torch.Tensor) -> torch.Tensor:
     return x.view(x.shape[0] * x.shape[1], x.shape[2], x.shape[3])
 
 
-def _level_products_em(A, B, level, depth, Fls, Fxs, Fus, ex, n):
+def _level_products_em(A, B, level, depth, Fls, Fxs, Fus, ex, n, opts):
     """Inner products for every upper level (ndlqr_FactorInnerProduct,
     nested_dissection.c:114-134): either the compact arrays emitted by the
     previous kernel or computed from slab slices."""
@@ -190,14 +213,16 @@ def _level_products_em(A, B, level, depth, Fls, Fxs, Fus, ex, n):
         return [_em_from_gm(S, n, n) for S in ex]
     span = 1 << (level + 1)
     mid = (1 << level) - 1
-    A_sep = _sel(_gk(A, span), mid)
-    B_sep = _sel(_gk(B, span), mid)
+    # Compact copies, made once per level (the products' kernels take
+    # contiguous planes).
+    A_sep = _sel(_gk(A, span), mid).contiguous()
+    B_sep = _sel(_gk(B, span), mid).contiguous()
     Ss = []
     for u in range(level, depth):
         gl, gx, gu = _gk(Fls[u], span), _gk(Fxs[u], span), _gk(Fus[u], span)
         Ss.append(
-            la.bgemm(A_sep, _sel(gx, mid), NB + 1)
-            + la.bgemm(B_sep, _sel(gu, mid), NB + 1)
+            la.bgemm(A_sep, _sel(gx, mid), NB + 1, opts)
+            + la.bgemm(B_sep, _sel(gu, mid), NB + 1, opts)
             - _sel(gx, mid + 1)
             - _sel(gl, mid + 1)
         )
@@ -213,20 +238,38 @@ def _level_writeback_em(Fls, level, S):
     _gk(Fls[level], span)[..., mid + 1, :] = S
 
 
-def _level_cholsolve_em(Lc, Ss, level):
+def _level_cholsolve_em(Lc, Ss, level, opts):
     """Cached-Cholesky solves of the upper-level products
-    (ndlqr_SolveCholeskyFactor, nested_dissection.c:136-152), stacked."""
-    sols = _cholsolve_stacked(Lc, Ss[1:])
+    (ndlqr_SolveCholeskyFactor, nested_dissection.c:136-152)."""
+    sols = _cholsolve_stacked(Lc, Ss[1:], opts)
     return {level + 1 + i: s for i, s in enumerate(sols)}
 
 
-def _cholsolve_stacked(Lc, Ss):
-    """Solve equal-shape block RHS against one cached factor as a single
-    stacked substitution (width n*len(Ss)); returns the split list."""
+def _mid_block(n: int, opts: SolveOptions) -> bool:
+    """Whether the slabs take the mid-block planes route (JAX: its Pallas
+    Schur kernels' mode is None above the threshold)."""
+    return n > opts.mxu_block_threshold
+
+
+def _pcho_solve(Lc, S, opts):
+    """Mid-block separator solve, in place on ``S`` (a level's compact
+    product or RHS, used no more after it; JAX donates it the same way)."""
+    return planes.pcho_solve(Lc.contiguous(), S.contiguous(),
+                             kernels=opts.kernels)
+
+
+def _cholsolve_stacked(Lc, Ss, opts):
+    """Solve equal-shape block RHS against one cached factor. Small blocks:
+    one stacked substitution (width n*len(Ss)), split after. Mid blocks:
+    one ``pcho_solve`` per RHS, in place on it, as the JAX package runs
+    them (rslqr_em.py:299-314); stacking there would save the factor's
+    re-reads but pay a concatenated copy of every RHS."""
+    if _mid_block(Lc.shape[0], opts):
+        return [_pcho_solve(Lc, S, opts) for S in Ss]
     if len(Ss) <= 1:
-        return [la.bcho_solve(Lc, S, NB + 1) for S in Ss]
+        return [la.bcho_solve(Lc, S, NB + 1, opts) for S in Ss]
     n = Ss[0].shape[1]
-    sol = la.bcho_solve(Lc, torch.cat(Ss, dim=1), NB + 1)
+    sol = la.bcho_solve(Lc, torch.cat(Ss, dim=1), NB + 1, opts)
     return [sol[:, i * n:(i + 1) * n] for i in range(len(Ss))]
 
 
@@ -251,23 +294,38 @@ def _schur_kernel(A, B_dyn, level, depth, Fls, Fxs, Fus, fsols, n, m, opts):
     return S_next
 
 
+def _level_update_planes_em(level, depth, Fls, Fxs, Fus, fsols, opts):
+    """Mid-block Schur update stage (ndlqr_UpdateShurFactor,
+    nested_dissection.c:154-171): one fused ``schur3_update_planes`` pass
+    per upper level, which reads the compact solved separators at each
+    knot's group; updates the slabs in place."""
+    for u in range(level + 1, depth):
+        planes.schur3_update_planes(
+            Fls[level], Fxs[level], Fus[level], fsols[u],
+            Fls[u], Fxs[u], Fus[u], level=level, kernels=opts.kernels,
+        )
+
+
 def _sweep_level_em(A, B, level, depth, Fls, Fxs, Fus, n, m, ex, opts):
     """One level of the factorization sweep (ref solve.c:68-134); updates
     the slabs in place, returns the level's Cholesky factors
     ``[n, n, G, B]`` and the next level's products (or None)."""
-    Ss = _level_products_em(A, B, level, depth, Fls, Fxs, Fus, ex, n)
-    Lc = la.bcholesky(Ss[0], NB + 1)
+    Ss = _level_products_em(A, B, level, depth, Fls, Fxs, Fus, ex, n, opts)
+    Lc = la.bcholesky(Ss[0], NB + 1, opts)
     if ex is None:
         _level_writeback_em(Fls, level, Ss[0])
-    fsols = _level_cholsolve_em(Lc, Ss, level)
-    if level + 1 < depth:
-        return Lc, _schur_kernel(
-            A, B, level, depth, Fls, Fxs, Fus, fsols, n, m, opts
-        )
-    return Lc, None
+    fsols = _level_cholsolve_em(Lc, Ss, level, opts)
+    if level + 1 >= depth:
+        return Lc, None
+    if _mid_block(n, opts):
+        _level_update_planes_em(level, depth, Fls, Fxs, Fus, fsols, opts)
+        return Lc, None
+    return Lc, _schur_kernel(
+        A, B, level, depth, Fls, Fxs, Fus, fsols, n, m, opts
+    )
 
 
-def _pair_prepass(A, B, level, depth, Fls, Fxs, Fus, fsols1):
+def _pair_prepass(A, B, level, depth, Fls, Fxs, Fus, fsols1, opts):
     """Level-(L+1) inner products computed from the PRE-update slabs and
     this level's solved separators (only the level-(L+1) separator rows
     are gathered), so the paired kernel needs no separate level-(L+1) pass.
@@ -286,13 +344,13 @@ def _pair_prepass(A, B, level, depth, Fls, Fxs, Fus, fsols1):
         f = fsols1[u]  # [n, n, G1, B]
         f_e = _sel(_gk(f, 2), 0)  # even level-L groups (row r2)
         f_o = _sel(_gk(f, 2), 1)  # odd groups (row r2 + 1)
-        Fx_r2 = sel2(Fxs[u], span1 - 1) - la.bgemm(FxL_r2, f_e, nk)
-        Fu_r2 = sel2(Fus[u], span1 - 1) - la.bgemm(FuL_r2, f_e, nk)
-        Fx_r2p = sel2(Fxs[u], span1) - la.bgemm(FxL_r2p, f_o, nk)
+        Fx_r2 = sel2(Fxs[u], span1 - 1) - la.bgemm(FxL_r2, f_e, nk, opts)
+        Fu_r2 = sel2(Fus[u], span1 - 1) - la.bgemm(FuL_r2, f_e, nk, opts)
+        Fx_r2p = sel2(Fxs[u], span1) - la.bgemm(FxL_r2p, f_o, nk, opts)
         Fl_r2p = sel2(Fls[u], span1)
         Ss.append(
-            la.bgemm(A_sep2, Fx_r2, nk)
-            + la.bgemm(B_sep2, Fu_r2, nk)
+            la.bgemm(A_sep2, Fx_r2, nk, opts)
+            + la.bgemm(B_sep2, Fu_r2, nk, opts)
             - Fx_r2p
             - Fl_r2p
         )
@@ -332,16 +390,16 @@ def _sweep_pair_em(A, B, level, depth, Fls, Fxs, Fus, n, m, ex, opts):
     iterations) with a single slab pass: compact stages for both levels'
     Cholesky factors and separator solves, then the paired kernel.
     Returns ``(Lc1, Lc2, ex_next)``."""
-    Ss = _level_products_em(A, B, level, depth, Fls, Fxs, Fus, ex, n)
-    Lc1 = la.bcholesky(Ss[0], NB + 1)
+    Ss = _level_products_em(A, B, level, depth, Fls, Fxs, Fus, ex, n, opts)
+    Lc1 = la.bcholesky(Ss[0], NB + 1, opts)
     if ex is None:
         _level_writeback_em(Fls, level, Ss[0])
-    fsols1 = _level_cholsolve_em(Lc1, Ss, level)
-    S2 = _pair_prepass(A, B, level, depth, Fls, Fxs, Fus, fsols1)
-    Lc2 = la.bcholesky(S2[0], NB + 1)
+    fsols1 = _level_cholsolve_em(Lc1, Ss, level, opts)
+    S2 = _pair_prepass(A, B, level, depth, Fls, Fxs, Fus, fsols1, opts)
+    Lc2 = la.bcholesky(S2[0], NB + 1, opts)
     fsols2 = {
         level + 2 + i: s
-        for i, s in enumerate(_cholsolve_stacked(Lc2, S2[1:]))
+        for i, s in enumerate(_cholsolve_stacked(Lc2, S2[1:], opts))
     }
     ex_next = _schur_kernel_pair(
         A, B, level, depth, Fls, Fxs, Fus, fsols1, S2[0], fsols2, n, m, opts
@@ -351,9 +409,11 @@ def _sweep_pair_em(A, B, level, depth, Fls, Fxs, Fus, n, m, ex, opts):
 
 def _rhs_level_em(A, B, level, Fl, Fx, Fu, Lc, zy, zx, zu, opts):
     """One level of the RHS sweep (ref solve.c:137-182): the compact
-    separator solve in plain ops, then one kernel pass over the level's
-    slabs. Vectors are ``[n|m, N, B]``; returns the updated
-    ``(zy, zx, zu)`` (updated in place)."""
+    separator solve (plain ops; ``pcho_solve`` for mid blocks), then one
+    kernel pass over the level's slabs (``rhs_update_level_em``; for mid
+    blocks ``schur3_update_planes`` with one column, JAX rslqr_em.py:751-774).
+    Vectors are ``[n|m, N, B]``; returns the updated ``(zy, zx, zu)``
+    (updated in place)."""
     span = 1 << (level + 1)
     mid = (1 << level) - 1
     nk = NB + 1
@@ -366,8 +426,16 @@ def _rhs_level_em(A, B, level, Fl, Fx, Fu, Lc, zy, zx, zu, opts):
         - _sel(gx, mid + 1)
         - _sel(gy, mid + 1)
     )
-    zbar = la.bcho_solve_vec(Lc, znew, nk)  # [n, G, B]
     n, m = zy.shape[0], zu.shape[0]
+    if _mid_block(n, opts):
+        zbar = _pcho_solve(Lc, znew.unsqueeze(1), opts)  # [n, 1, G, B]
+        planes.schur3_update_planes(
+            Fl, Fx, Fu, zbar, zy.unsqueeze(1),
+            zx.unsqueeze(1), zu.unsqueeze(1), level=level,
+            kernels=opts.kernels,
+        )
+        return zy, zx, zu
+    zbar = la.bcho_solve_vec(Lc, znew, nk, opts)  # [n, G, B]
     return schur.rhs_update_level_em(
         _flat(Fl), _flat(Fx), _flat(Fu), zy, zx, zu,
         zbar.transpose(0, 1).contiguous(),
@@ -375,7 +443,7 @@ def _rhs_level_em(A, B, level, Fl, Fx, Fu, Lc, zy, zx, zu, opts):
     )
 
 
-def _leaf_products0(pbl: LQRProblem, t: TreeTables, n: int, m: int):
+def _leaf_products0(pbl: LQRProblem, t: TreeTables, n: int, m: int, opts):
     """Level-0 inner products from compact even/odd-knot gathers of the
     problem data: ``S_{0,u} = A_sep Fx_u[even] + B_sep Fu_u[even] -
     Fx_u[odd]`` (the lambda term vanishes: the only nonzero leaf lambda
@@ -412,8 +480,8 @@ def _leaf_products0(pbl: LQRProblem, t: TreeTables, n: int, m: int):
         ownu = own[u] | knot0 if u == 0 else own[u]
         Fue = torch.where(_kmask(ownu[0::2], 2, dev), RiBt_e, 0.0)
         Ss.append(
-            la.bgemm(A_sep, fx(u, 0, QiAt_e, qinv_e), nk)
-            + la.bgemm(B_sep, Fue, nk)
+            la.bgemm(A_sep, fx(u, 0, QiAt_e, qinv_e), nk, opts)
+            + la.bgemm(B_sep, Fue, nk, opts)
             - fx(u, 1, QiAt_o, qinv_o)
         )
     return A, Bd, qinv, rinv, Ss
@@ -432,13 +500,14 @@ def factorize_em(
     n, m = pbl.A.shape[1], pbl.B.shape[2]
     N, Bb = pbl.A.shape[0], pbl.A.shape[3]
 
-    if t.depth >= 2:
+    mid = _mid_block(n, opts)
+    if t.depth >= 2 and not mid:
         # Fused leaf + level 0: level-0 products from compact gathers, then
         # ONE kernel writes every slab in its post-level-0 state and emits
         # the level-1 products.
-        A, B, qinv, rinv, Ss = _leaf_products0(pbl, t, n, m)
-        Lc0 = la.bcholesky(Ss[0], NB + 1)
-        fsols0 = _cholsolve_stacked(Lc0, Ss[1:])
+        A, B, qinv, rinv, Ss = _leaf_products0(pbl, t, n, m, opts)
+        Lc0 = la.bcholesky(Ss[0], NB + 1, opts)
+        fsols0 = _cholsolve_stacked(Lc0, Ss[1:], opts)
         A = A.contiguous()
         B = B.contiguous()
         Fls, Fxs, Fus, ex = schur.leaf_schur_level0_em(
@@ -455,17 +524,17 @@ def factorize_em(
         chols = [Lc0]
         level = 1
     else:
+        # Plain leaf slabs: the tree is too shallow for the fused leaf
+        # kernel, or the blocks are mid-size (no fused leaf there in JAX).
         Fls, Fxs, Fus, A, B, zy, zx, zu = _leaf_em(pbl, t.levels, t.depth)
-        Fls = [x.contiguous() for x in Fls]
-        Fxs = [x.contiguous() for x in Fxs]
-        Fus = [x.contiguous() for x in Fus]
         chols = []
         ex = None
         level = 0
     while level < t.depth:
         # Level pairing: two sweep levels per slab pass, whenever level+1
-        # still has upper levels to update.
-        if level <= t.depth - 3 and opts.level_pairing:
+        # still has upper levels to update (small blocks only: the pair
+        # kernel is a small-block kernel).
+        if level <= t.depth - 3 and opts.level_pairing and not mid:
             Lc1, Lc2, ex = _sweep_pair_em(
                 A, B, level, t.depth, Fls, Fxs, Fus, n, m, ex, opts
             )

@@ -11,14 +11,16 @@ a machine with a card and no JAX:
 Inputs are random f32, cloned for each route, at small shapes that reach
 every branch: odd batch widths (ragged last block of batch columns), B=1,
 the shortest horizons, emission on and off, and emission groups larger than
-one block of knots. Bar: ``max|kernel - plain| <= 1e-4 * (1 + max|plain|)``
+one block of knots. The mid-block plane kernels run at n=12 and 36 (and the
+limit, 64), with one right-hand column (w=1, q=1), ragged planes, and
+Schur updates at level 0 and the top level. Bar: ``max|kernel - plain| <= 1e-4 * (1 + max|plain|)``
 (summation order only; the f32 atol of tests/test_pallas_ops.py:110-118).
 """
 
 import pytest
 import torch
 
-from rslqr_tpu_torch.ops import schur
+from rslqr_tpu_torch.ops import planes, schur
 
 pytestmark = pytest.mark.cuda
 
@@ -154,6 +156,90 @@ def test_solve_kernel_path_matches_plain(dev):
     schur.reset_launch_counts()
     got = pt.solve_kkt(batch)
     counts = schur.launch_counts()
+    ref = pt.solve_kkt(batch, options=pt.SolveOptions(kernels="off"))
+    assert all(c > 0 for c in counts.values()), counts
+    scale = 1.0 + ref.abs().max().item()
+    assert (got - ref).abs().max().item() <= 1e-4 * scale
+
+
+# ---------------------------------------------------------------------------
+# Mid-block plane kernels (ops/planes.py, csrc/planes_kernels.cu).
+# ---------------------------------------------------------------------------
+
+
+def _spd(gen, dev, d, *plane):
+    """Random SPD blocks ``[d, d, *plane]`` (f32, well conditioned)."""
+    M = torch.randn(plane + (d, d), generator=gen, dtype=torch.float64)
+    S = M @ M.transpose(-1, -2) + d * torch.eye(d, dtype=torch.float64)
+    return S.movedim((-2, -1), (0, 1)).contiguous().float().to(dev)
+
+
+@pytest.mark.parametrize(
+    "p,K,q,plane", [(12, 12, 12, (5, 33)), (12, 4, 12, (3, 7)),
+                    (36, 36, 36, (16, 40)), (36, 12, 36, (9, 33)),
+                    (64, 64, 64, (2, 33)), (3, 36, 1, (1, 1))],
+)
+def test_pgemm_kernel(dev, p, K, q, plane):
+    g = torch.Generator().manual_seed(p * K + q)
+    args = [_rand(g, dev, p, K, *plane), _rand(g, dev, K, q, *plane)]
+    before = planes.pgemm.launches
+    ks, ps, *_ = _both(lambda *a, **k: (planes.pgemm(*a, **k),), args, {})
+    assert planes.pgemm.launches == before + 1
+    _assert_match(ks, ps)
+
+
+@pytest.mark.parametrize("n,plane", [(12, (7, 33)), (36, (16, 40)),
+                                     (64, (2, 5)), (9, (1, 1))])
+def test_pchol_kernel(dev, n, plane):
+    g = torch.Generator().manual_seed(n)
+    A = _spd(g, dev, n, *plane)
+    ks, ps, *_ = _both(lambda *a, **k: (planes.pchol(*a, **k),), [A], {})
+    _assert_match(ks, ps)
+    assert not torch.triu(ks[0].movedim((0, 1), (-2, -1)), 1).any()
+
+
+@pytest.mark.parametrize("n,w,plane", [(12, 12, (7, 33)), (12, 1, (7, 33)),
+                                       (36, 36, (16, 40)), (36, 1, (9, 40)),
+                                       (64, 3, (2, 5))])
+def test_pcho_solve_kernel(dev, n, w, plane):
+    g = torch.Generator().manual_seed(n + w)
+    L = planes.pchol_plain(_spd(g, dev, n, *plane))
+    args = [L, _rand(g, dev, n, w, *plane)]
+    ks, ps, k, _ = _both(lambda *a, **kw: (planes.pcho_solve(*a, **kw),),
+                         args, {})
+    _assert_match(ks, ps)
+
+
+@pytest.mark.parametrize(
+    "n,m,q,N,B,level",
+    [(12, 4, 12, 16, 40, 0), (12, 4, 12, 16, 33, 3), (12, 4, 1, 16, 33, 0),
+     (12, 4, 1, 16, 1, 3), (36, 12, 36, 32, 40, 0), (36, 12, 36, 32, 40, 4),
+     (36, 12, 1, 32, 33, 2)],
+)
+def test_schur3_update_planes_kernel(dev, n, m, q, N, B, level):
+    g = torch.Generator().manual_seed(300 + level + q)
+    G = N >> (level + 1)
+    R = lambda *s: _rand(g, dev, *s)
+    args = [R(n, n, N, B), R(n, n, N, B), R(m, n, N, B), R(n, q, G, B),
+            R(n, q, N, B), R(n, q, N, B), R(m, q, N, B)]
+    before = planes.schur3_update_planes.launches
+    ks, ps, *_ = _both(planes.schur3_update_planes, args, dict(level=level))
+    assert planes.schur3_update_planes.launches == before + 1
+    _assert_match(ks, ps)
+
+
+def test_midblock_solve_kernel_path_matches_plain(dev):
+    """The mid-block slice at a small size (nx=12, nu=4, N=16, B=40):
+    every plane kernel launches, and the kernel path agrees with
+    ``kernels="off"``."""
+    import rslqr_tpu_torch as pt
+
+    prob = pt.random_problem(torch.Generator().manual_seed(0), 16, 12, 4,
+                             device=dev)
+    batch = pt.batch_problems(prob, 40, torch.Generator().manual_seed(1))
+    planes.reset_launch_counts()
+    got = pt.solve_kkt(batch)
+    counts = planes.launch_counts()
     ref = pt.solve_kkt(batch, options=pt.SolveOptions(kernels="off"))
     assert all(c > 0 for c in counts.values()), counts
     scale = 1.0 + ref.abs().max().item()

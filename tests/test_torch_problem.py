@@ -76,32 +76,32 @@ def test_kernel_masks_match_calc_lambda(N):
 def test_problem_from_numpy_round_trip():
     """Carrying a JAX problem over is exact, and back again."""
     batch = _batch(16, 4)
-    tb = pt.problem_from_numpy(batch)
+    tb = pt.problem_from_numpy(batch, device="cpu")
     for name in ("A", "B", "f", "Qdiag", "Rdiag", "q", "r", "c", "x0"):
         src = np.asarray(getattr(batch, name))
         got = getattr(tb, name)
         assert got.dtype == torch.float64
         np.testing.assert_array_equal(got.numpy(), src)
     again = pt.problem_from_numpy({k: getattr(tb, k).numpy() for k in (
-        "A", "B", "f", "Qdiag", "Rdiag", "q", "r", "c", "x0")})
+        "A", "B", "f", "Qdiag", "Rdiag", "q", "r", "c", "x0")}, device="cpu")
     np.testing.assert_array_equal(again.A.numpy(), tb.A.numpy())
     assert tb.nvars == batch.nvars and tb.batch_shape == (4,)
 
 
 def test_double_integrator_matches_jax():
-    a = pt.double_integrator_problem(32)
+    a = pt.double_integrator_problem(32, device="cpu")
     b = rt.double_integrator_problem(32)
     for name in ("A", "B", "f", "Qdiag", "Rdiag", "q", "r", "c", "x0"):
         np.testing.assert_array_equal(
             getattr(a, name).numpy(), np.asarray(getattr(b, name))
         )
-    f32 = pt.double_integrator_problem(8, dtype=torch.float32)
+    f32 = pt.double_integrator_problem(8, dtype=torch.float32, device="cpu")
     assert f32.A.dtype == torch.float32
 
 
 def test_batch_problems_from_generator():
     """Same seed, same batch; only x0, q, r are perturbed."""
-    prob = pt.double_integrator_problem(8)
+    prob = pt.double_integrator_problem(8, device="cpu")
     b1 = pt.batch_problems(prob, 5, torch.Generator().manual_seed(7))
     b2 = pt.batch_problems(prob, 5, torch.Generator().manual_seed(7))
     np.testing.assert_array_equal(b1.q.numpy(), b2.q.numpy())
@@ -110,16 +110,40 @@ def test_batch_problems_from_generator():
     assert (b1.q[0] - prob.q).abs().max() > 0
     one = pt.perturb_problem(prob, torch.Generator().manual_seed(1))
     assert one.q.shape == prob.q.shape
-    rnd = pt.random_problem(torch.Generator().manual_seed(2), 16, 6, 3)
+    rnd = pt.random_problem(torch.Generator().manual_seed(2), 16, 6, 3,
+                           device="cpu")
     rnd.validate()
     assert rnd.A.dtype == torch.float32
+
+
+def test_builders_default_to_the_card():
+    """Without ``device`` the builders put the problem on the card; where
+    there is none they raise instead of falling back to the CPU."""
+    arrays = {k: np.asarray(getattr(rt.double_integrator_problem(4), k))
+              for k in ("A", "B", "f", "Qdiag", "Rdiag", "q", "r", "c", "x0")}
+    builders = [
+        lambda: pt.double_integrator_problem(4),
+        lambda: pt.random_problem(torch.Generator().manual_seed(0), 4, 6, 3),
+        lambda: pt.problem_from_numpy(arrays),
+        lambda: pt.problem_from_arrays(*arrays.values()),
+    ]
+    for build in builders:
+        if torch.cuda.is_available():
+            assert build().A.device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                build()
+    # batch_problems follows the problem it is given.
+    prob = pt.double_integrator_problem(4, device="cpu")
+    b = pt.batch_problems(prob, 2, torch.Generator().manual_seed(0))
+    assert b.A.device.type == "cpu"
 
 
 def test_pack_unpack_match_jax():
     """Pure data movement: exact."""
     rng = np.random.default_rng(0)
     prob = rt.double_integrator_problem(16)
-    tp = pt.problem_from_numpy(prob)
+    tp = pt.problem_from_numpy(prob, device="cpu")
     vec = rng.standard_normal((3, prob.nvars))
     Yj, Xj, Uj = rt.unpack_solution(prob, jnp.asarray(vec))
     Yt, Xt, Ut = pt.unpack_solution(tp, torch.as_tensor(vec))
@@ -134,7 +158,7 @@ def test_kkt_residual_and_objective_match_jax():
     """Same formulas, f64: atol 1e-12 (summation order only)."""
     rng = np.random.default_rng(1)
     batch = _batch(16, 3)
-    tb = pt.problem_from_numpy(batch)
+    tb = pt.problem_from_numpy(batch, device="cpu")
     vec = rng.standard_normal((3, batch.nvars))
     got = pt.kkt_residual(tb, torch.as_tensor(vec)).numpy()
     ref = np.array([
@@ -193,7 +217,7 @@ def test_riccati_matches_jax():
     (test/riccati_solver_test.c:343)."""
     prob = rt.random_problem(jax.random.PRNGKey(4), 16, 6, 3, jnp.float64)
     ref = rt.solve_riccati(prob)
-    got = pt.solve_riccati(pt.problem_from_numpy(prob))
+    got = pt.solve_riccati(pt.problem_from_numpy(prob, device="cpu"))
     for name in ("K", "d", "P", "p", "X", "U", "Y"):
         assert rel_err(to_numpy(getattr(got, name)),
                        np.asarray(getattr(ref, name))) < 1e-10, name

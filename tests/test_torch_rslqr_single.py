@@ -35,7 +35,7 @@ _jax_ref = jax.jit(lambda p: rt.solve_kkt(p, options=JaxOptions(pallas="off")))
 def test_single_problem_matches_jax():
     prob = rt.double_integrator_problem(16)
     ref = np.asarray(_jax_ref(prob))
-    tp = pt.problem_from_numpy(prob)
+    tp = pt.problem_from_numpy(prob, device="cpu")
     got = pt.solve_kkt(tp)
     assert got.shape == (prob.nvars,)
     assert rel_err(got.numpy(), ref) < BAR
@@ -51,7 +51,7 @@ def test_random_batches_match_jax(N):
     prob = rt.random_problem(jax.random.PRNGKey(N), N, 6, 3, jnp.float64)
     batch = rt.batch_problems(prob, jax.random.split(jax.random.PRNGKey(1), 3))
     ref = np.asarray(_jax_ref(batch))
-    tb = pt.problem_from_numpy(batch)
+    tb = pt.problem_from_numpy(batch, device="cpu")
     got = pt.solve_kkt(tb)
     assert rel_err(got.numpy(), ref) < BAR
     assert float(pt.kkt_residual(tb, got).max()) < 1e-9
@@ -59,7 +59,7 @@ def test_random_batches_match_jax(N):
 
 def test_two_leading_batch_axes():
     """Leading batch axes are flattened to one and restored."""
-    prob = pt.double_integrator_problem(8)
+    prob = pt.double_integrator_problem(8, device="cpu")
     b = pt.batch_problems(prob, 6, torch.Generator().manual_seed(0))
     b2 = b.map(lambda x: x.reshape((2, 3) + x.shape[1:]))
     got = pt.solve_kkt(b2)
