@@ -21,16 +21,27 @@ Phases, each printing one line of numbers:
    instances, f32) and again at N=128 so that B1 launches, with launch
    counts, agreement with ``kernels="off"`` and with the f64 Riccati
    oracle, and the KKT residual;
+2c. the parallel scan's kernels the same way: every flag combination of B5
+   (``pgemm`` with ``ta``/``tbt``/``Cin``/``diag``/``dconst``/``sym``/
+   ``kscale``) that ``solve_pscan`` calls, at its shapes, B5's
+   ``schur_update_planes`` (lambda masked and not) and B8
+   ``plu_solve_multi`` with each right-hand-side pattern of the path;
 3b. the mid-block slice: ``solve_kkt`` on BASELINE.json's quadruped config
    (``random_problem`` nx=36, nu=12, N=512, perturbed into B=256 instances,
    f32, one batch), with launch counts, agreement with ``kernels="off"``,
    the f64 Riccati oracle on 4 instances, the relative KKT residual and
    the peak device memory;
+3c. the parallel-scan slice: ``solve_pscan_kkt`` on the same quadruped
+   batch (launch counts, peak memory, agreement with ``kernels="off"``, with
+   the rsLQR kernel path and, with ``pscan_batched_interior``, with the
+   default; f64 plain pscan vs the f64 Riccati oracle on 4 instances; the
+   relative KKT residual), and on the small-block batch of phase 3 (f64 vs
+   Riccati on 16 instances; f32 difference to rsLQR, reported);
 4. time per batched solve of both slices, kernel path and
-   ``kernels="off"``;
-5. one batched solve of each slice traced with ``torch.profiler``: device
-   time by kernel, device kernel launches, and the device's busy share of
-   the solve's wall time.
+   ``kernels="off"``; 4c the same for the parallel scan;
+5. one batched solve of each slice (and one quadruped pscan solve) traced
+   with ``torch.profiler``: device time by kernel, device kernel launches,
+   and the device's busy share of the solve's wall time.
 
 Then a JSON line with every kernel's launches, error, times and bound, and
 last ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
@@ -58,6 +69,7 @@ F64_BAR = 1e-6        # f64 rsLQR vs f64 Riccati (tests/test_rslqr.py:143-148)
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 SCHUR_SRC = "rslqr_tpu_torch/csrc/schur_kernels.cu"
 PLANES_SRC = "rslqr_tpu_torch/csrc/planes_kernels.cu"
+PLU_SRC = "rslqr_tpu_torch/csrc/plu_kernels.cu"
 REPLACES = {
     "schur_update_level_em": "rslqr_tpu/ops/schur_pallas.py:373",
     "rhs_update_level_em": "rslqr_tpu/ops/schur_pallas.py:303",
@@ -67,9 +79,25 @@ REPLACES = {
     "pchol": "rslqr_tpu/ops/planes_pallas.py:377",
     "pcho_solve": "rslqr_tpu/ops/planes_pallas.py:400",
     "schur3_update_planes": "rslqr_tpu/ops/planes_pallas.py:503",
+    "schur_update_planes": "rslqr_tpu/ops/planes_pallas.py:270",
+    "plu_solve_multi": "rslqr_tpu/ops/planes_pallas.py:425",
 }
-SOURCES = {k: SCHUR_SRC if k.endswith("_em") else PLANES_SRC
-           for k in REPLACES}
+SOURCES = {k: SCHUR_SRC if k.endswith("_em") else (
+    PLU_SRC if k.startswith("plu") else PLANES_SRC) for k in REPLACES}
+# The kernels of each mid-block path (the others launch no time there).
+RSLQR_MID = ("pgemm", "pchol", "pcho_solve", "schur3_update_planes")
+PSCAN_MID = ("pgemm", "plu_solve_multi")
+# The solve each kernel's JSON ``launches`` count comes from (counts set to
+# 0 just before it, read just after).
+LAUNCHES_FROM = {
+    **{k: "rslqr N=256 B=1024" for k in (
+        "rhs_update_level_em", "leaf_schur_level0_em",
+        "schur_update_pair_em")},
+    "schur_update_level_em": "rslqr N=128 B=1024",
+    **{k: "rslqr quadruped" for k in RSLQR_MID},
+    **{k: "pscan quadruped" for k in (
+        "pgemm", "plu_solve_multi", "schur_update_planes")},
+}
 n, m = 6, 3
 nn, mn = n * n, m * n
 
@@ -194,7 +222,7 @@ class Smoke:
         return statistics.median(times[1:])
 
     def compare(self, name, case, fn, args, kwargs, ops, library=None,
-                moved=None):
+                moved=None, phase="phase2"):
         """Kernel vs plain on clones of ``args``; record error, times and
         the bound of the first case of each kernel. ``ops``: the FLOPs the
         call does; ``library``: ``(fn, args)`` of one PyTorch call on the
@@ -244,7 +272,7 @@ class Smoke:
         if library is not None:
             lib_fn, lib_args = library
             lib_ms = self.time_call(lib_fn, lambda: lib_args)
-        print(f"phase2 {name} {case}: max_abs_err={err:.3e} "
+        print(f"{phase} {name} {case}: max_abs_err={err:.3e} "
               f"rel_diff={err / scale:.3e} (bar {KERNEL_BAR}) "
               f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
               f"library_ms={lib_ms if lib_ms is None else f'{lib_ms:.4f}'} "
@@ -443,6 +471,118 @@ class Smoke:
                (Cml, FLml, fsml))
         return [*FL, fsol, *C], dict(level=level), ops, lib, moved
 
+    # -- phase 2c --------------------------------------------------------
+    def scan_cases(self):
+        """B5's flags, schur_update_planes and B8 at the shapes of the
+        quadruped pscan solve: C=16 chunks x B=256 planes (F=4096) for the
+        serial fold and down-sweep, 8 x 256 for the first level of the
+        suffix tree over the composites, 511 x 256 for the batched interior
+        gains pass's Quu."""
+        t, pl, R = self.torch, self.planes, self.drand
+        ml = self.mat_last
+        Bb, C = QB, QN // 32
+        X, U = QX, QU
+        fold, tree, tree2, full = (C, Bb), (C // 2, Bb), (C // 2 - 1, Bb), (
+            QN - 1, Bb)
+        # (label, p, K, q, plane, flags) from pscan.py's call sites.
+        cases = [
+            ("Sm", U, X, U, fold, dict(dconst=1.0)),
+            ("Vt", U, X, X, fold, dict(tbt=True)),
+            ("C_leaf", X, U, X, fold, dict(cin=True, sub=False, sym=True)),
+            ("J_leaf", X, X, X, fold, dict(ta=True, diag=True, sym=True)),
+            ("J_pair", X, X, X, fold, dict(ta=True, ks=True, diag=True,
+                                           sym=True)),
+            ("IC", X, X, X, tree, dict(dconst=1.0)),
+            ("C_comb", X, X, X, tree, dict(tbt=True, cin=True, sub=False,
+                                           sym=True)),
+            ("J_comb", X, X, X, tree, dict(cin=True, sub=False, sym=True)),
+            ("Quu", U, X, U, full, dict(diag=True, sym=True)),
+        ]
+        for label, p, K, q, plane, fl in cases:
+            F = plane[0] * plane[1]
+            ta, tbt, sym = (fl.get(k, False) for k in ("ta", "tbt", "sym"))
+            A = R(*((K, p) if ta else (p, K)), *plane)
+            Bm = R(*((q, K) if tbt else (K, q)), *plane)
+            cin = R(p, q, *plane) if fl.get("cin") else None
+            if cin is not None and sym:
+                cin = 0.5 * (cin + cin.transpose(0, 1))
+            diag = R(p, *plane) if fl.get("diag") else None
+            ks = R(K, *plane) if fl.get("ks") else None
+            kw = dict(ta=ta, tbt=tbt, sub=fl.get("sub", True),
+                      dconst=fl.get("dconst", 0.0), sym=sym)
+            # Each input read once (Cin's lower triangle under sym), the
+            # output written once; sym does the lower triangle's FLOPs.
+            cols = p * (p + 1) // 2 if sym else p * q
+            moved = 4 * F * (p * K + K * q + p * q
+                             + (0 if cin is None else cols)
+                             + (0 if diag is None else p)
+                             + (0 if ks is None else K))
+            ops = 2 * K * cols * F
+            a_ml = ml(A).transpose(1, 2) if ta else ml(A)
+            b_ml = ml(Bm).transpose(1, 2) if tbt else ml(Bm)
+            lib = ((lambda c, a, b: t.baddbmm(c, a, b), (ml(cin), a_ml, b_ml))
+                   if cin is not None else (t.matmul, (a_ml, b_ml)))
+            flags = "+".join(k for k in fl if k != "sub") + (
+                "(add)" if fl.get("sub") is False else "")
+            self.compare(
+                "pgemm", f"{label} {p}x{K}.{K}x{q} {flags} plane={plane}",
+                lambda a, b, c, d, s, **k: (pl.pgemm(a, b, c, d, s, **k),),
+                [A, Bm, cin, diag, ks], kw, ops, lib, moved, phase="phase2c",
+            )
+        for lam in (True, False):
+            self.compare(
+                "schur_update_planes",
+                f"n={X} q={X} N={QN} B={Bb} level=0 lam={lam}",
+                lambda *a, **k: (pl.schur_update_planes(*a, **k),),
+                *self.schur1_case(lam), phase="phase2c",
+            )
+        # B8: the Woodbury solve (m=12, identity right-hand side) of every
+        # fold / down-sweep step, and the suffix tree's I + C J solves.
+        for n, ws, plane in ((U, (U,), fold), (X, (X, 1, X, 1), tree),
+                             (X, (X, 1), tree2)):
+            F = plane[0] * plane[1]
+            M = self.drand(*plane, n, n, scale=n ** -0.5)
+            P = self.drand(*plane, n, n, scale=n ** -0.5)
+            IC = t.eye(n, device=self.dev) + (M @ M.transpose(-1, -2)) @ (
+                P @ P.transpose(-1, -2))
+            A = IC.movedim((-2, -1), (0, 1)).contiguous()
+            Bs = [R(n, w, *plane) for w in ws]
+            wt = sum(ws)
+            Aml = ml(A)
+            Bml = t.cat([ml(b) for b in Bs], dim=2)
+
+            def lu_lib(a, b):
+                LU, piv, _ = t.linalg.lu_factor_ex(a)
+                return t.linalg.lu_solve(LU, piv, b)
+
+            self.compare(
+                "plu_solve_multi", f"n={n} w={ws} plane={plane}",
+                lambda a, bs, **k: pl.plu_solve_multi(a, *bs, **k),
+                [A, Bs], {}, F * (2 * n ** 3 / 3 + 2 * n * n * wt),
+                (lu_lib, (Aml, Bml)), 4 * F * (n * n + 2 * n * wt),
+                phase="phase2c",
+            )
+
+    def schur1_case(self, lam):
+        """Arguments, kwargs, FLOPs, library call and bytes of one
+        ``schur_update_planes`` case (n=q=36, N=QN, B=QB, level 0)."""
+        t, R = self.torch, self.drand
+        n, N, Bb, level = QX, QN, QB, 0
+        G = N >> (level + 1)
+        FL, fsol, Fin = R(n, n, N, Bb), R(n, n, G, Bb, scale=0.1), R(
+            n, n, N, Bb)
+        keep, nsep = lam_knots(N, level) if lam else (N, 0)
+        ops = 2 * n * n * n * keep * Bb
+        # Masked like B9's lambda slab: FL and Fin read where calc_lambda
+        # keeps the row, Fin written there and at the separator knots.
+        moved = 4 * Bb * (n * n * keep + n * n * G
+                          + n * n * (2 * keep + nsep))
+        fsml = fsol.permute(2, 3, 0, 1)[:, None].expand(
+            G, N // G, Bb, n, n).reshape(N * Bb, n, n)
+        lib = (lambda c, a, b: t.baddbmm(c, a, b, alpha=-1.0),
+               (self.mat_last(Fin), self.mat_last(FL), fsml))
+        return [FL, fsol, Fin], dict(level=level, lam=lam), ops, lib, moved
+
     # -- phase 3 ---------------------------------------------------------
     def batch(self, N, dtype):
         pt = self.pt
@@ -506,6 +646,7 @@ class Smoke:
                   f"(plain {res_off:.4e}) max|x|={float(ref.abs().max()):.4e}",
                   flush=True)
         self.main_batch = batches[N_MAIN]
+        self.main_got = out[N_MAIN]
 
     # -- phase 3b --------------------------------------------------------
     def quad_checks(self):
@@ -524,9 +665,10 @@ class Smoke:
         counts = self.planes.launch_counts()
         small = self.schur.launch_counts()
         peak = t.cuda.max_memory_allocated()
-        self.launches.update(counts)
-        for k, c in counts.items():
-            self.check(c > 0, f"{k} launched no time on the quadruped path")
+        for k in RSLQR_MID:
+            self.launches[k] = counts[k]
+            self.check(counts[k] > 0,
+                       f"{k} launched no time on the quadruped path")
         print(f"phase3b launches N={QN} B={QB} nx={QX} nu={QU}: "
               f"{json.dumps(counts)} small-block kernels: "
               f"{json.dumps(small)}; peak device memory "
@@ -562,20 +704,104 @@ class Smoke:
               f"kkt_residual={res:.4e} rel={res / scale:.3e} (bar "
               f"{QUAD_RESIDUAL_BAR}) max|x|={scale:.4e}", flush=True)
         self.quad_batch = b
+        self.quad_got, self.quad_ric, self.quad_sub64 = got, ric, sub64
+
+    # -- phase 3c --------------------------------------------------------
+    def pscan_checks(self):
+        """The parallel-scan slice: ``solve_pscan_kkt`` on phase 3b's
+        quadruped batch (launch counts, peak memory, agreement with
+        ``kernels="off"``, with the rsLQR kernel path and with the batched
+        interior recovery; f64 plain vs f64 Riccati; residual), then on the
+        small-block batch of phase 3."""
+        t, pt = self.torch, self.pt
+        off = pt.SolveOptions(kernels="off")
+        b = self.quad_batch
+        t.cuda.synchronize()
+        t.cuda.reset_peak_memory_stats()
+        self.schur.reset_launch_counts()
+        self.planes.reset_launch_counts()
+        got = pt.solve_pscan_kkt(b)
+        t.cuda.synchronize()
+        counts = self.planes.launch_counts()
+        small = self.schur.launch_counts()
+        peak = t.cuda.max_memory_allocated()
+        # B5 (its flags) and B8 are this path's; schur_update_planes runs
+        # on no path of either package.
+        for k in ("pgemm", "plu_solve_multi", "schur_update_planes"):
+            self.launches[k] = counts[k]
+        for k in PSCAN_MID:
+            self.check(counts[k] > 0,
+                       f"{k} launched no time on the quadruped pscan path")
+        print(f"phase3c launches pscan N={QN} B={QB} nx={QX} nu={QU}: "
+              f"{json.dumps(counts)} small-block kernels: "
+              f"{json.dumps(small)}; peak device memory "
+              f"{peak / 2**30:.2f} GiB", flush=True)
+
+        self.check(tuple(got.shape) == (QB, b.nvars),
+                   f"pscan quadruped: output shape {tuple(got.shape)}")
+        self.check(bool(t.isfinite(got).all()), "pscan quadruped: non-finite")
+        ref = pt.solve_pscan_kkt(b, options=off)
+        d_off = rel_err(got, ref)
+        self.check(d_off <= QUAD_SLICE_BAR,
+                   f"pscan quadruped: kernel vs plain rel diff {d_off:.3e}")
+        d_rs = rel_err(got, self.quad_got)
+        self.check(d_rs <= QUAD_SLICE_BAR,
+                   f"pscan quadruped: vs rsLQR rel diff {d_rs:.3e}")
+        res = max(float(pt.kkt_residual(b.map(lambda x: x[i]), got[i]))
+                  for i in range(2))
+        scale = max(float(got[:2].abs().max()), 1.0)
+        self.check(res / scale <= QUAD_RESIDUAL_BAR,
+                   f"pscan quadruped: relative KKT residual {res / scale:.3e}")
+        ric = self.quad_ric
+        f64 = pt.solve_pscan_kkt(self.quad_sub64, options=off)
+        e64 = float((f64 - ric).abs().max())
+        bar64 = F64_BAR * (1.0 + float(ric.abs().max()))
+        self.check(e64 <= bar64, f"pscan quadruped: f64 plain vs f64 "
+                                 f"Riccati {e64:.3e} > {bar64:.3e}")
+        self.planes.reset_launch_counts()
+        bi = pt.solve_pscan_kkt(
+            b, options=pt.SolveOptions(pscan_batched_interior=True))
+        t.cuda.synchronize()
+        c_bi = self.planes.launch_counts()
+        d_bi = rel_err(bi, got)
+        self.check(bool(t.isfinite(bi).all()) and d_bi <= QUAD_SLICE_BAR,
+                   f"pscan quadruped: batched interior vs default rel diff "
+                   f"{d_bi:.3e}")
+        print(f"phase3c pscan N={QN} B={QB} f32: rel_diff_vs_off={d_off:.3e} "
+              f"rel_diff_vs_rslqr={d_rs:.3e} (bar {QUAD_SLICE_BAR}) "
+              f"f64_plain_vs_riccati={e64:.3e} (bar {bar64:.3e}) "
+              f"kkt_residual={res:.4e} rel={res / scale:.3e} (bar "
+              f"{QUAD_RESIDUAL_BAR}); batched_interior: rel_diff_vs_default="
+              f"{d_bi:.3e} launches {json.dumps(c_bi)}", flush=True)
+
+        sb = self.main_batch
+        sg = pt.solve_pscan_kkt(sb)
+        d_small = rel_err(sg, self.main_got)
+        sub64 = sb.map(lambda x: x[:16]).to(dtype=t.float64)
+        ric = pt.solve_riccati(sub64).kkt_vector()
+        e64 = float((pt.solve_pscan_kkt(sub64) - ric).abs().max())
+        bar64 = F64_BAR * (1.0 + float(ric.abs().max()))
+        self.check(bool(t.isfinite(sg).all()), "pscan small: non-finite")
+        self.check(e64 <= bar64, f"pscan small: f64 vs f64 Riccati "
+                                 f"{e64:.3e} > {bar64:.3e}")
+        print(f"phase3c pscan N={N_MAIN} B={BATCH} nx={n} nu={m} f32: "
+              f"rel_diff_vs_rslqr={d_small:.3e} (reported) "
+              f"f64_vs_riccati={e64:.3e} (bar {bar64:.3e})", flush=True)
 
     # -- phase 5 ---------------------------------------------------------
-    def profile(self, b, label, top=14):
+    def profile(self, b, label, solve=None, top=14):
         """Device kernel time of one batched solve by kernel name
         (``torch.profiler``, CUDA activity), against its wall time."""
         t, pt = self.torch, self.pt
         from torch.profiler import ProfilerActivity, profile
 
-        pt.solve_kkt(b)
+        solve = solve or pt.solve_kkt
+        solve(b)
         t.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            pt.solve_kkt(b)
+            solve(b)
             t.cuda.synchronize()
             wall = 1e3 * (time.perf_counter() - t0)
         dev = [e for e in prof.key_averages()
@@ -591,22 +817,23 @@ class Smoke:
                   f"{e.count:5d}x {e.key[:90]}", flush=True)
 
     # -- phase 4 ---------------------------------------------------------
-    def time_solves(self, card, b, reps, label):
+    def time_solves(self, card, b, reps, label, solve=None):
         """Median host-clock ms per batched solve (CUDA-synchronized), the
         kernel path and ``kernels="off"`` in turns."""
         t, pt = self.torch, self.pt
+        solve = solve or pt.solve_kkt
         B = b.x0.shape[0]
         off = pt.SolveOptions(kernels="off")
         for _ in range(2 if reps >= REPS else 1):
-            pt.solve_kkt(b)
-            pt.solve_kkt(b, options=off)
+            solve(b)
+            solve(b, options=off)
         t.cuda.synchronize()
         tk, tp = [], []
         for _ in range(reps):
             for opts, acc in ((None, tk), (off, tp)):
                 t.cuda.synchronize()
                 t0 = time.perf_counter()
-                pt.solve_kkt(b, options=opts)
+                solve(b, options=opts)
                 t.cuda.synchronize()
                 acc.append(1e3 * (time.perf_counter() - t0))
         mk, mp = statistics.median(tk), statistics.median(tp)
@@ -648,16 +875,27 @@ def main() -> int:
     phases = (
         ("phase2", smoke.kernel_cases),
         ("phase2b", smoke.plane_cases),
+        ("phase2c", smoke.scan_cases),
         ("phase3", smoke.slice_checks),
         ("phase3b", smoke.quad_checks),
+        ("phase3c", smoke.pscan_checks),
         ("phase4", lambda: smoke.time_solves(
             card, smoke.main_batch, REPS, f"phase4 N={N_MAIN}")),
         ("phase4b", lambda: smoke.time_solves(
             card, smoke.quad_batch, QREPS,
             f"phase4b quadruped N={QN} nx={QX} nu={QU}")),
+        ("phase4c", lambda: (
+            smoke.time_solves(card, smoke.main_batch, QREPS,
+                              f"phase4c pscan N={N_MAIN}",
+                              pt.solve_pscan_kkt),
+            smoke.time_solves(card, smoke.quad_batch, QREPS,
+                              f"phase4c pscan quadruped N={QN} nx={QX} "
+                              f"nu={QU}", pt.solve_pscan_kkt))),
         ("phase5", lambda: (
             smoke.profile(smoke.main_batch, f"N={N_MAIN} B={BATCH}"),
-            smoke.profile(smoke.quad_batch, f"quadruped N={QN} B={QB}"))),
+            smoke.profile(smoke.quad_batch, f"quadruped N={QN} B={QB}"),
+            smoke.profile(smoke.quad_batch, f"pscan quadruped N={QN} B={QB}",
+                          pt.solve_pscan_kkt))),
     )
     for name, run in phases:
         t0 = time.perf_counter()
@@ -677,7 +915,7 @@ def main() -> int:
          "max_abs_err": st["max_abs_err"], "ms": st["ms"],
          "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
          "bound_by": st["bound_by"], "library_ms": st["library_ms"],
-         "case": st["case"]}
+         "case": st["case"], "launches_from": LAUNCHES_FROM.get(name)}
         for name, st in smoke.kernel_stats.items()
     ]
     print(card)

@@ -2,11 +2,12 @@
 kernels for the NVIDIA H100.
 
 A port of ``rslqr_tpu`` (which stays the reference): the batched
-element-major rsLQR solve for small and mid-size blocks (n, m <= 64), the
-Riccati oracle, and the problem helpers (which build on the card unless
-asked for ``device="cpu"``). The hand-written kernels (``ops/schur.py`` with
-``csrc/schur_kernels.cu`` for small blocks, ``ops/planes.py`` with
-``csrc/planes_kernels.cu`` for mid blocks) run on CUDA tensors; their plain
+element-major rsLQR solve and the parallel-scan solver (``solve_pscan``) for
+small and mid-size blocks (n, m <= 64), the Riccati oracle, and the problem
+helpers (which build on the card unless asked for ``device="cpu"``). The
+hand-written kernels (``ops/schur.py`` with ``csrc/schur_kernels.cu`` for
+small blocks, ``ops/planes.py`` with ``csrc/planes_kernels.cu`` and
+``csrc/plu_kernels.cu`` for mid blocks) run on CUDA tensors; their plain
 PyTorch versions run on CPU tensors.
 """
 
@@ -24,6 +25,7 @@ from .problem import (
     random_problem,
     unpack_solution,
 )
+from .pscan import solve_pscan, solve_pscan_kkt
 from .riccati import RiccatiSolution, solve_riccati
 from .rslqr import RsLqrSolution, solve, solve_kkt
 from .rslqr_em import (

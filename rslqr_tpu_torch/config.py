@@ -41,6 +41,15 @@ class SolveOptions:
     # Two sweep levels per slab pass (rslqr_em._sweep_pair_em); False = one
     # level per pass.
     level_pairing: bool = True
+    # Chunk size of the mid-block parallel scan (pscan._auto_chunk): 0 =
+    # auto (the largest of 32, 16, 8, 4 that divides N, for N >= 64), 1 =
+    # the unchunked leaf-pair scan, >= 2 = explicit (must divide N with at
+    # least two chunks).
+    pscan_chunk: int = 0
+    # Chunked pscan: recover the interior cost-to-gos and rollout states in
+    # one full-width reduced combine / gemv from the emitted within-chunk
+    # composites, instead of s - 1 serial steps.
+    pscan_batched_interior: bool = False
 
     def __post_init__(self):
         if self.layout not in _LAYOUTS:

@@ -24,6 +24,7 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCES = (
     _PKG / "csrc" / "schur_kernels.cu",
     _PKG / "csrc" / "planes_kernels.cu",
+    _PKG / "csrc" / "plu_kernels.cu",
 )
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
@@ -122,6 +123,7 @@ def load() -> ctypes.CDLL:
     """Build if needed, load, and declare every C entry point's types."""
     lib = ctypes.CDLL(str(build()))
     P, PP, I = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p), ctypes.c_int
+    PI, FL = ctypes.POINTER(ctypes.c_int), ctypes.c_float
     sigs = {
         # csrc/schur_kernels.cu
         "rslqr_rhs_update_level": [P] * 7 + [I] * 5 + [P],
@@ -133,9 +135,13 @@ def load() -> ctypes.CDLL:
         + [I] * 5 + [P],
         # csrc/planes_kernels.cu
         "rslqr_pgemm": [P] * 3 + [I] * 4 + [P],
+        "rslqr_pgemm_flagged": [P] * 6 + [I] * 8 + [FL, P],
+        "rslqr_schur_update_planes": [P] * 3 + [I] * 7 + [P],
         "rslqr_pchol": [P] * 2 + [I] * 2 + [P],
         "rslqr_pcho_solve": [P] * 2 + [I] * 3 + [P],
         "rslqr_schur3_update_planes": [P] * 7 + [I] * 6 + [P],
+        # csrc/plu_kernels.cu
+        "rslqr_plu_solve_multi": [P, P, PP, PP, PI] + [I] * 3 + [P],
     }
     for name, args in sigs.items():
         fn = getattr(lib, name)

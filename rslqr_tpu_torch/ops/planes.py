@@ -11,14 +11,19 @@ plane size directly.
 
 Dispatch, as in ``ops/schur.py``: a wrapper runs its plain PyTorch version
 (``*_plain``) for CPU tensors or under ``kernels="off"``, and launches its
-CUDA kernel (``csrc/planes_kernels.cu``) for CUDA tensors: f32, contiguous,
-block dims at most 64. On CUDA it launches or raises; there is no fallback.
+CUDA kernel (``csrc/planes_kernels.cu``; ``plu_solve_multi``:
+``csrc/plu_kernels.cu``) for CUDA tensors: f32, contiguous, block dims at
+most 64. On CUDA it launches or raises; there is no fallback.
 Each wrapper counts its launches in its ``launches`` attribute
 (:func:`launch_counts`).
 
-``pcho_solve`` and ``schur3_update_planes`` update their right-hand side /
-slab operands IN PLACE on both routes, as the TPU kernels alias them
-(``input_output_aliases``), and return them.
+``pcho_solve``, ``schur3_update_planes`` and ``schur_update_planes`` update
+their right-hand side / slab operands IN PLACE on both routes, as the TPU
+kernels alias them (``input_output_aliases``), and return them. ``pgemm``
+with ``Cin`` and ``plu_solve_multi`` return new tensors and leave every
+operand as it is: their callers (the parallel-scan combines) pass views and
+operands they read again, which the TPU kernels' aliasing (an XLA hint
+that keeps the semantics) never overwrote.
 
 What bounds the kernels on the card: every one streams its operands once
 with a few FLOP per byte (at n=36: pgemm ~6, the Schur update ~3
@@ -28,13 +33,15 @@ plane elements, one per lane, so every plane load and store is a
 coalesced 128-byte line; the products and the Schur update stage the
 right-hand operand of those plane elements in shared memory and give
 whole rows of the left operand to the block's warps, and the Cholesky
-solve stages the factor, so each operand is read from device memory once.
+solve and the LU solve keep the factor in shared memory, so each operand is
+read from device memory once.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -42,6 +49,10 @@ from .schur import _launch, _masks, _ptr, _use_kernel
 
 # Largest block dim the kernels take (their register columns hold 64).
 MAX_BLOCK = 64
+# Right-hand sides per plu_solve_multi launch, and the largest n whose LU
+# the kernel keeps in shared memory (above it, in a global scratch).
+MAX_RHS = 4
+LU_SMEM_MAX = 36
 
 
 # ---------------------------------------------------------------------------
@@ -54,11 +65,34 @@ def _flat(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(x.shape[0], x.shape[1], -1)
 
 
-def pgemm_plain(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+def pgemm_plain(A, B, Cin=None, diag=None, kscale=None, *, ta=False,
+                tbt=False, sub=True, dconst=0.0, sym=False) -> torch.Tensor:
     """Plain version of :func:`pgemm`: one einsum over the planes (what the
-    JAX package's ``_bgemm_mxu`` fallback computes)."""
-    p, q = A.shape[0], B.shape[1]
-    C = torch.einsum("ikf,kjf->ijf", _flat(A), _flat(B))
+    JAX package's ``_bgemm_mxu`` fallback computes), then the epilogues in
+    the TPU kernel's order (``Cin``, then the diagonal; ``sym`` keeps the
+    lower triangle and mirrors it)."""
+    a, b = _flat(A), _flat(B)
+    if ta:
+        a = a.transpose(0, 1)
+    if tbt:
+        b = b.transpose(0, 1)
+    if kscale is not None:  # scale the A side per (i, k), as the TPU kernel
+        a = a * kscale.reshape(1, a.shape[1], -1)
+    p, q = a.shape[0], b.shape[1]
+    C = torch.einsum("ikf,kjf->ijf", a, b)
+    if Cin is not None:
+        C = _flat(Cin) - C if sub else _flat(Cin) + C
+    if diag is not None or dconst:
+        idx = torch.arange(p, device=C.device)
+        dg = C[idx, idx]
+        if diag is not None:
+            dg = dg + diag.reshape(p, -1)
+        if dconst:
+            dg = dg + dconst
+        C[idx, idx] = dg  # C is a fresh tensor here
+    if sym:
+        low = torch.ones((p, p), dtype=torch.bool, device=C.device).tril()
+        C = torch.where(low[:, :, None], C, C.transpose(0, 1))
     return C.reshape((p, q) + A.shape[2:])
 
 
@@ -93,25 +127,53 @@ def pcho_solve_plain(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return B
 
 
-def schur3_update_planes_plain(FLl, FLx, FLu, fsol, Cl, Cx, Cu, *, level):
-    """Plain version of :func:`schur3_update_planes`."""
-    n, N, Bb = FLl.shape[1:]
+def schur_update_planes_plain(FL, fsol, Fin, *, level, lam):
+    """Plain version of :func:`schur_update_planes`, in place on ``Fin``."""
+    p, n, N, Bb = FL.shape
     q, G = fsol.shape[1], fsol.shape[2]
     span = N // G
+    prod = torch.einsum(
+        "ikgsb,kjgb->ijgsb", FL.reshape(p, n, G, span, Bb), fsol
+    ).reshape(p, q, N, Bb)
+    if not lam:
+        return Fin.sub_(prod)
+    keep, sep = _masks(level, N, FL.device)
+    fs_full = fsol[:p, :, :, None].expand(p, q, G, span, Bb).reshape(
+        p, q, N, Bb)
+    return Fin.copy_(
+        torch.where(sep, fs_full, Fin - torch.where(keep, prod, 0.0)))
 
-    def prod(F):
-        p = F.shape[0]
-        out = torch.einsum(
-            "ikgsb,kjgb->ijgsb", F.reshape(p, n, G, span, Bb), fsol
-        )
-        return out.reshape(p, q, N, Bb)
 
-    keep, sep = _masks(level, N, FLl.device)
-    fs_full = fsol[:, :, :, None].expand(n, q, G, span, Bb).reshape(n, q, N, Bb)
-    Cl.copy_(torch.where(sep, fs_full, Cl - torch.where(keep, prod(FLl), 0.0)))
-    Cx.sub_(prod(FLx))
-    Cu.sub_(prod(FLu))
+def schur3_update_planes_plain(FLl, FLx, FLu, fsol, Cl, Cx, Cu, *, level):
+    """Plain version of :func:`schur3_update_planes`."""
+    for FL, C, lam in ((FLl, Cl, True), (FLx, Cx, False), (FLu, Cu, False)):
+        schur_update_planes_plain(FL, fsol, C, level=level, lam=lam)
     return Cl, Cx, Cu
+
+
+def plu_solve_multi_plain(A: torch.Tensor, *Bs: torch.Tensor):
+    """Plain version of :func:`plu_solve_multi`: the TPU kernel's
+    (``_lu_solve_kernel``) unpivoted Doolittle LU, one column step at a time
+    over all planes, then per right-hand side the unit-lower forward and the
+    upper back substitution, row by row. Returns new tensors."""
+    n = A.shape[0]
+    LU = A.clone()
+    for k in range(n - 1):
+        f = LU[k + 1:, k] * (1.0 / LU[k, k])[None]
+        LU[k + 1:, k] = f
+        LU[k + 1:, k + 1:] -= f[:, None] * LU[k, k + 1:][None]
+    outs = []
+    for B in Bs:
+        X = B.clone()
+        for i in range(1, n):
+            X[i] = X[i] - (LU[i, :i, None] * X[:i]).sum(0)
+        for i in reversed(range(n)):
+            acc = X[i]
+            if i + 1 < n:
+                acc = acc - (LU[i, i + 1:, None] * X[i + 1:]).sum(0)
+            X[i] = acc * (1.0 / LU[i, i])[None]
+        outs.append(X)
+    return tuple(outs)
 
 
 # ---------------------------------------------------------------------------
@@ -147,23 +209,64 @@ def _check(name: str, tensors: Sequence[torch.Tensor], shapes, dims):
     return F
 
 
-def pgemm(A: torch.Tensor, B: torch.Tensor, *, kernels: str = "auto"):
-    """Planewise block matmul ``C = A @ B``: ``A [p, K, *plane]``,
-    ``B [K, q, *plane]`` -> ``C [p, q, *plane]`` (a new tensor).
+def pgemm(
+    A: torch.Tensor,                       # [p, K, *plane] ([K, p, ..] if ta)
+    B: torch.Tensor,                       # [K, q, *plane] ([q, K, ..] if tbt)
+    Cin: Optional[torch.Tensor] = None,    # [p, q, *plane]
+    diag: Optional[torch.Tensor] = None,   # [p, *plane] added on the diagonal
+    kscale: Optional[torch.Tensor] = None,  # [K, *plane] contraction scale
+    *,
+    ta: bool = False,
+    tbt: bool = False,
+    sub: bool = True,
+    dconst: float = 0.0,
+    sym: bool = False,
+    kernels: str = "auto",
+):
+    """Planewise block matmul with the TPU kernel's flags:
+    ``C = Cin -/+ op(A) diag(kscale) op(B)``, plus ``diag`` and ``dconst``
+    on the diagonal; ``sym``: the output is symmetric (``Cin`` must be), only
+    its lower triangle is computed. ``C`` is a new tensor: ``Cin`` is read,
+    never overwritten (the TPU kernel aliases it to the output; here the
+    caller may still hold it, for example as a view).
 
-    Replaces ``rslqr_tpu/ops/planes_pallas.py:pgemm`` (``_pgemm_call``
-    without its transpose and epilogue flags). Kernel: ``rows_kernel``.
+    Replaces ``rslqr_tpu/ops/planes_pallas.py:_pgemm_call`` (its
+    ``lam_level`` mode is :func:`schur_update_planes`). Kernel:
+    ``rows_kernel``, its flagged instantiation when any flag is set.
     """
+    p, K = (A.shape[1], A.shape[0]) if ta else (A.shape[0], A.shape[1])
+    q = B.shape[0] if tbt else B.shape[1]
+    if (diag is not None or dconst or sym) and p != q:
+        raise ValueError(f"diag/sym need a square output, got {p}x{q}")
     if not _use_kernel(kernels, A):
-        return pgemm_plain(A, B)
-    p, K = A.shape[:2]
-    q = B.shape[1]
+        return pgemm_plain(A, B, Cin, diag, kscale, ta=ta, tbt=tbt, sub=sub,
+                           dconst=dconst, sym=sym)
     plane = tuple(A.shape[2:])
-    F = _check("pgemm", (A, B), ((p, K) + plane, (K, q) + plane), (p, K, q))
+    opt = [(t, s) for t, s in ((Cin, (p, q)), (diag, (p,)), (kscale, (K,)))
+           if t is not None]
+    F = _check(
+        "pgemm", [A, B] + [t for t, _ in opt],
+        [((K, p) if ta else (p, K)) + plane,
+         ((q, K) if tbt else (K, q)) + plane] + [s + plane for _, s in opt],
+        (p, K, q),
+    )
     C = torch.empty((p, q) + plane, device=A.device)
-    _launch("rslqr_pgemm", A.device, _ptr(A), _ptr(B), _ptr(C), p, K, q, F)
+    if opt or ta or tbt or sym or dconst:
+        _launch("rslqr_pgemm_flagged", A.device, _ptr(A), _ptr(B), _ptr(Cin),
+                _ptr(diag), _ptr(kscale), _ptr(C), p, K, q, F, int(ta),
+                int(tbt), int(sub), int(sym), ctypes.c_float(dconst))
+    else:
+        _launch("rslqr_pgemm", A.device, _ptr(A), _ptr(B), _ptr(C), p, K, q,
+                F)
     pgemm.launches += 1
     return C
+
+
+def pgemm_acc(A, B, Cin, *, sub=True, ta=False, tbt=False,
+              kernels: str = "auto"):
+    """``C = Cin -/+ op(A) @ op(B)`` in one pass (a new tensor; ``Cin`` is
+    left as it is). Replaces ``planes_pallas.py:pgemm_acc``."""
+    return pgemm(A, B, Cin, ta=ta, tbt=tbt, sub=sub, kernels=kernels)
 
 
 def pchol(A: torch.Tensor, *, kernels: str = "auto"):
@@ -253,7 +356,89 @@ def schur3_update_planes(
     return Cl, Cx, Cu
 
 
-KERNEL_WRAPPERS = (pgemm, pchol, pcho_solve, schur3_update_planes)
+def schur_update_planes(
+    FL: torch.Tensor,    # [p, n, N, B] level-L multiplier slab
+    fsol: torch.Tensor,  # [n, q, G, B] solved separators, G = N / 2^(L+1)
+    Fin: torch.Tensor,   # [p, q, N, B] upper-level slab (updated in place)
+    *,
+    level: int,
+    lam: bool,
+    kernels: str = "auto",
+):
+    """Mid-block Schur update of one upper-level slab, in place on ``Fin``:
+
+      out = Fin - FL @ fs                               (x / u slab, lam=False)
+      out = where(sep, fs, Fin - where(keep, FL @ fs, 0))  (lambda, lam=True)
+
+    with ``fs`` the solved separator of knot k's group and ``keep``/``sep``
+    the masks of :func:`schur3_update_planes` (which runs three such slabs
+    in one pass). ``lam=True`` needs ``p <= n``.
+
+    Replaces ``rslqr_tpu/ops/planes_pallas.py:schur_update_planes``
+    (``_pgemm_call`` with ``lam_level``), which takes ``fs`` broadcast over
+    each group's knots and the flattened plane's ``logb``; this wrapper
+    takes the compact ``fsol`` and the plane's ``[N, B]`` shape, as B9's
+    does. No module of either package calls it. Kernel: ``rows_kernel`` in
+    its Schur mode, with one slab.
+    """
+    p, n, N, Bb = FL.shape
+    q = fsol.shape[1]
+    if lam and p > n:
+        raise ValueError(f"schur_update_planes: lam needs p <= n, got {p}, {n}")
+    if not _use_kernel(kernels, FL):
+        return schur_update_planes_plain(FL, fsol, Fin, level=level, lam=lam)
+    G = N >> (level + 1)
+    if G < 1 or N % (2 << level):
+        raise ValueError(f"schur_update_planes: level {level} for N={N}")
+    _check("schur_update_planes", (FL, fsol, Fin),
+           ((p, n, N, Bb), (n, q, G, Bb), (p, q, N, Bb)), (p, n, q))
+    _launch("rslqr_schur_update_planes", FL.device, _ptr(FL), _ptr(fsol),
+            _ptr(Fin), p, n, q, N, Bb, level, int(lam))
+    schur_update_planes.launches += 1
+    return Fin
+
+
+def plu_solve_multi(A: torch.Tensor, *Bs: torch.Tensor, kernels: str = "auto"):
+    """Solve ``A X_r = B_r`` for 1-4 right-hand sides with ONE unpivoted
+    LU: ``A [n, n, *plane]``, ``B_r [n, w_r, *plane]``; returns the tuple of
+    ``X_r``, new tensors (the ``B_r`` are left as they are; the TPU kernel
+    aliases them to its outputs). No pivoting: for well-conditioned blocks
+    such as the parallel scan's ``I + C J``.
+
+    Replaces ``rslqr_tpu/ops/planes_pallas.py:plu_solve_multi``. Kernel:
+    ``plu_kernel`` (``csrc/plu_kernels.cu``).
+    """
+    if not 1 <= len(Bs) <= MAX_RHS:
+        raise ValueError(f"plu_solve_multi takes 1..{MAX_RHS} right-hand "
+                         f"sides, got {len(Bs)}")
+    if not _use_kernel(kernels, A):
+        return plu_solve_multi_plain(A, *Bs)
+    n = A.shape[0]
+    plane = tuple(A.shape[2:])
+    ws = [b.shape[1] for b in Bs]
+    F = _check("plu_solve_multi", (A,) + Bs,
+               ((n, n) + plane,) + tuple((n, w) + plane for w in ws),
+               (n, *ws))
+    Xs = tuple(torch.empty((n, w) + plane, device=A.device) for w in ws)
+    scratch = None
+    if n > LU_SMEM_MAX:  # the LU does not fit shared memory: lane slots
+        scratch = torch.empty(n * n * (-(-F // 32) * 32), device=A.device)
+    ptrs = lambda ts: (ctypes.c_void_p * MAX_RHS)(
+        *(t.data_ptr() for t in ts))
+    _launch("rslqr_plu_solve_multi", A.device, _ptr(A), _ptr(scratch),
+            ptrs(Bs), ptrs(Xs), (ctypes.c_int * MAX_RHS)(*ws), len(Bs), n, F)
+    plu_solve_multi.launches += 1
+    return Xs
+
+
+def plu_solve(A: torch.Tensor, B: torch.Tensor, *, kernels: str = "auto"):
+    """Single right-hand side :func:`plu_solve_multi` (replaces
+    ``planes_pallas.py:plu_solve``)."""
+    return plu_solve_multi(A, B, kernels=kernels)[0]
+
+
+KERNEL_WRAPPERS = (pgemm, pchol, pcho_solve, schur3_update_planes,
+                   schur_update_planes, plu_solve_multi)
 for _w in KERNEL_WRAPPERS:
     _w.launches = 0
 

@@ -13,7 +13,11 @@ every branch: odd batch widths (ragged last block of batch columns), B=1,
 the shortest horizons, emission on and off, and emission groups larger than
 one block of knots. The mid-block plane kernels run at n=12 and 36 (and the
 limit, 64), with one right-hand column (w=1, q=1), ragged planes, and
-Schur updates at level 0 and the top level. Bar: ``max|kernel - plain| <= 1e-4 * (1 + max|plain|)``
+Schur updates at level 0 and the top level. The parallel scan's kernels:
+``pgemm`` with each of its flags alone and in every combination the scan
+calls (and all at once at width 64), ``schur_update_planes`` masked and not,
+``plu_solve_multi`` at widths 12, 36 and 64 with 1-4 right-hand sides, and
+the pscan slice at small sizes. Bar: ``max|kernel - plain| <= 1e-4 * (1 + max|plain|)``
 (summation order only; the f32 atol of tests/test_pallas_ops.py:110-118).
 """
 
@@ -228,6 +232,11 @@ def test_schur3_update_planes_kernel(dev, n, m, q, N, B, level):
     _assert_match(ks, ps)
 
 
+# The plane kernels of the mid-block rsLQR path (the scan's own kernels,
+# schur_update_planes and plu_solve_multi, do not run there).
+RSLQR_MID_KERNELS = ("pgemm", "pchol", "pcho_solve", "schur3_update_planes")
+
+
 def test_midblock_solve_kernel_path_matches_plain(dev):
     """The mid-block slice at a small size (nx=12, nu=4, N=16, B=40):
     every plane kernel launches, and the kernel path agrees with
@@ -241,6 +250,129 @@ def test_midblock_solve_kernel_path_matches_plain(dev):
     got = pt.solve_kkt(batch)
     counts = planes.launch_counts()
     ref = pt.solve_kkt(batch, options=pt.SolveOptions(kernels="off"))
-    assert all(c > 0 for c in counts.values()), counts
+    assert all(counts[k] > 0 for k in RSLQR_MID_KERNELS), counts
+    scale = 1.0 + ref.abs().max().item()
+    assert (got - ref).abs().max().item() <= 1e-4 * scale
+
+
+# ---------------------------------------------------------------------------
+# The parallel scan's kernels: B5's flags, schur_update_planes, B8.
+# ---------------------------------------------------------------------------
+
+# (p, K, q, plane, flags): each flag alone, then every combination the
+# pscan combines call (pscan.py), at n=36 / m=12 and at the limits.
+PGEMM_FLAG_CASES = [
+    (12, 36, 12, (3, 33), dict(ta=True)),
+    (12, 36, 36, (3, 33), dict(tbt=True)),
+    (36, 12, 36, (2, 40), dict(cin=True)),
+    (36, 12, 36, (2, 40), dict(cin=True, sub=False)),
+    (12, 12, 12, (5, 7), dict(diag=True)),
+    (12, 36, 12, (4, 33), dict(dconst=1.0)),
+    (36, 36, 36, (2, 33), dict(sym=True)),
+    (36, 36, 36, (2, 33), dict(ks=True)),
+    (36, 36, 36, (16, 40), dict(dconst=1.0)),
+    (36, 36, 36, (16, 40), dict(ta=True, sym=True, diag=True)),
+    (36, 36, 36, (16, 40), dict(ta=True, sym=True, diag=True, ks=True)),
+    (36, 12, 36, (16, 40), dict(sym=True, cin=True, sub=False)),
+    (36, 36, 36, (8, 33), dict(sym=True, cin=True, sub=False)),
+    (36, 36, 36, (8, 33), dict(tbt=True, sym=True, cin=True, sub=False)),
+    (12, 36, 12, (31, 9), dict(sym=True, diag=True)),
+    (64, 64, 64, (1, 45), dict(ta=True, tbt=True, cin=True, diag=True,
+                               dconst=2.0, sym=True, ks=True)),
+    (40, 64, 40, (1, 45), dict(tbt=True, cin=True, ks=True)),
+    (5, 20, 1, (1, 1), dict(ta=True, cin=True, ks=True)),
+]
+
+
+@pytest.mark.parametrize("p,K,q,plane,flags", PGEMM_FLAG_CASES)
+def test_pgemm_flagged_kernel(dev, p, K, q, plane, flags):
+    g = torch.Generator().manual_seed(p + 7 * K + q)
+    R = lambda *s: _rand(g, dev, *s)
+    A = R(*((K, p) if flags.get("ta") else (p, K)), *plane)
+    Bm = R(*((q, K) if flags.get("tbt") else (K, q)), *plane)
+    cin = R(p, q, *plane) if flags.get("cin") else None
+    diag = R(p, *plane) if flags.get("diag") else None
+    ks = R(K, *plane) if flags.get("ks") else None
+    kw = dict(ta=flags.get("ta", False), tbt=flags.get("tbt", False),
+              sub=flags.get("sub", True), dconst=flags.get("dconst", 0.0),
+              sym=flags.get("sym", False))
+    before = planes.pgemm.launches
+    ks_, ps, *_ = _both(
+        lambda a, b, c, d, s, **k: (planes.pgemm(a, b, c, d, s, **k),),
+        [A, Bm, cin, diag, ks], kw)
+    assert planes.pgemm.launches == before + 1
+    _assert_match(ks_, ps)
+    if kw["sym"]:
+        out = ks_[0]
+        assert torch.equal(out, out.transpose(0, 1))
+
+
+@pytest.mark.parametrize(
+    "p,n,q,N,B,level,lam",
+    [(36, 36, 36, 32, 40, 0, True), (36, 36, 36, 32, 40, 0, False),
+     (12, 12, 12, 16, 33, 3, True), (12, 12, 1, 16, 33, 2, False),
+     (4, 12, 12, 16, 40, 1, True)],
+)
+def test_schur_update_planes_kernel(dev, p, n, q, N, B, level, lam):
+    g = torch.Generator().manual_seed(400 + level + q + p)
+    G = N >> (level + 1)
+    R = lambda *s: _rand(g, dev, *s)
+    args = [R(p, n, N, B), R(n, q, G, B), R(p, q, N, B)]
+    before = planes.schur_update_planes.launches
+    ks, ps, k, _ = _both(
+        lambda *a, **kw: (planes.schur_update_planes(*a, **kw),), args,
+        dict(level=level, lam=lam))
+    assert planes.schur_update_planes.launches == before + 1
+    _assert_match(ks, ps)
+
+
+@pytest.mark.parametrize(
+    "n,ws,plane",
+    [(12, (12,), (16, 33)), (12, (12, 1, 12, 1), (3, 7)),
+     (36, (36, 1, 36, 1), (8, 40)), (36, (36, 1), (5, 33)),
+     (36, (1,), (1, 1)), (64, (64, 1, 3), (2, 33)), (20, (5, 5), (1, 45))],
+)
+def test_plu_solve_multi_kernel(dev, n, ws, plane):
+    """Well-conditioned ``I + C J`` blocks (C, J PSD), 1-4 right-hand sides,
+    ragged planes; the operands are left as they are."""
+    g = torch.Generator().manual_seed(500 + n + len(ws))
+    M = torch.randn(plane + (n, n), generator=g, dtype=torch.float64)
+    P = torch.randn(plane + (n, n), generator=g, dtype=torch.float64)
+    C = M @ M.transpose(-1, -2) / n
+    J = P @ P.transpose(-1, -2) / n
+    IC = torch.eye(n, dtype=torch.float64) + C @ J
+    A = IC.movedim((-2, -1), (0, 1)).contiguous().float().to(dev)
+    Bs = [_rand(g, dev, n, w, *plane) for w in ws]
+    A0, B0 = A.clone(), [b.clone() for b in Bs]
+    before = planes.plu_solve_multi.launches
+    ks = planes.plu_solve_multi(A, *Bs)
+    torch.cuda.synchronize()
+    assert planes.plu_solve_multi.launches == before + 1
+    assert torch.equal(A, A0) and all(torch.equal(b, c) for b, c in zip(Bs, B0))
+    ps = planes.plu_solve_multi(A, *Bs, kernels="off")
+    _assert_match(list(ks), list(ps))
+
+
+@pytest.mark.parametrize("n,m,N,B,chunk,batched",
+                         [(12, 4, 16, 40, 4, False), (12, 4, 16, 40, 1, False),
+                          (36, 12, 64, 9, 0, False), (36, 12, 64, 9, 8, True)])
+def test_pscan_kernel_path_matches_plain(dev, n, m, N, B, chunk, batched):
+    """The mid-block pscan slice at a small size: pgemm and plu_solve_multi
+    launch (pchol and pcho_solve too where the gains pass runs on m > 8),
+    and the kernel path agrees with ``kernels="off"``."""
+    import rslqr_tpu_torch as pt
+
+    prob = pt.random_problem(torch.Generator().manual_seed(2), N, n, m,
+                             device=dev)
+    batch = pt.batch_problems(prob, B, torch.Generator().manual_seed(3))
+    opts = pt.SolveOptions(pscan_chunk=chunk, pscan_batched_interior=batched)
+    planes.reset_launch_counts()
+    got = pt.solve_pscan_kkt(batch, opts)
+    counts = planes.launch_counts()
+    ref = pt.solve_pscan_kkt(batch, pt.SolveOptions(
+        kernels="off", pscan_chunk=chunk, pscan_batched_interior=batched))
+    assert counts["pgemm"] > 0 and counts["plu_solve_multi"] > 0, counts
+    if (chunk == 1 or batched) and m > 8:  # the gains pass's m x m Quu
+        assert counts["pchol"] > 0 and counts["pcho_solve"] > 0, counts
     scale = 1.0 + ref.abs().max().item()
     assert (got - ref).abs().max().item() <= 1e-4 * scale
