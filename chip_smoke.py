@@ -37,11 +37,26 @@ Phases, each printing one line of numbers:
    default; f64 plain pscan vs the f64 Riccati oracle on 4 instances; the
    relative KKT residual), and on the small-block batch of phase 3 (f64 vs
    Riccati on 16 instances; f32 difference to rsLQR, reported);
+2d. the three flat-plane kernels (B10 ``schur_update_level_flat`` at
+   levels 1 and 2, B11 ``leaf_schur_level0_flat``, B12
+   ``rhs_update_level_flat`` at levels 0 and 5) the same way at the flat
+   path's shapes (N=256, B=1024), each beside its em twin (B1, B3, B2 on
+   the same data with group-major compacts) and, for B10 and B12, one
+   unmasked ``baddbmm`` on mat-last views;
+3d. the flat-plane slice: ``solve_kkt(flat_planes=True)`` on phase 3's
+   N=256 batch (launch counts B11 1 / B10 6 / B12 8 and no B1-B4, agreement
+   with flat ``kernels="off"`` and with phase 3's em result, the f64
+   Riccati check), then mixed-precision refinement on the same batch in f64
+   (``solve_refined`` with 2 iterations: B11 1 / B10 6 / B12 24;
+   ``solve_refined_host`` and ``solve_refined_device`` with 3), each held
+   to the f64 bar against the f64 Riccati oracle on 16 instances;
 4. time per batched solve of both slices, kernel path and
-   ``kernels="off"``; 4c the same for the parallel scan;
-5. one batched solve of each slice (and one quadruped pscan solve) traced
-   with ``torch.profiler``: device time by kernel, device kernel launches,
-   and the device's busy share of the solve's wall time.
+   ``kernels="off"``; 4c the same for the parallel scan; 4d for the flat
+   solve and the refined solve;
+5. one batched solve of each slice (and one quadruped pscan solve, one flat
+   solve and one refined solve) traced with ``torch.profiler``: device time
+   by kernel, device kernel launches, and the device's busy share of the
+   solve's wall time.
 
 Then a JSON line with every kernel's launches, error, times and bound, and
 last ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
@@ -70,6 +85,7 @@ PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 SCHUR_SRC = "rslqr_tpu_torch/csrc/schur_kernels.cu"
 PLANES_SRC = "rslqr_tpu_torch/csrc/planes_kernels.cu"
 PLU_SRC = "rslqr_tpu_torch/csrc/plu_kernels.cu"
+FLAT_SRC = "rslqr_tpu_torch/csrc/flat_kernels.cu"
 REPLACES = {
     "schur_update_level_em": "rslqr_tpu/ops/schur_pallas.py:373",
     "rhs_update_level_em": "rslqr_tpu/ops/schur_pallas.py:303",
@@ -81,9 +97,13 @@ REPLACES = {
     "schur3_update_planes": "rslqr_tpu/ops/planes_pallas.py:503",
     "schur_update_planes": "rslqr_tpu/ops/planes_pallas.py:270",
     "plu_solve_multi": "rslqr_tpu/ops/planes_pallas.py:425",
+    "schur_update_level_flat": "rslqr_tpu/ops/schur_planes.py:338",
+    "leaf_schur_level0_flat": "rslqr_tpu/ops/schur_planes.py:429",
+    "rhs_update_level_flat": "rslqr_tpu/ops/schur_planes.py:518",
 }
-SOURCES = {k: SCHUR_SRC if k.endswith("_em") else (
-    PLU_SRC if k.startswith("plu") else PLANES_SRC) for k in REPLACES}
+SOURCES = {k: SCHUR_SRC if k.endswith("_em") else FLAT_SRC if k.endswith(
+    "_flat") else PLU_SRC if k.startswith("plu") else PLANES_SRC
+    for k in REPLACES}
 # The kernels of each mid-block path (the others launch no time there).
 RSLQR_MID = ("pgemm", "pchol", "pcho_solve", "schur3_update_planes")
 PSCAN_MID = ("pgemm", "plu_solve_multi")
@@ -97,6 +117,7 @@ LAUNCHES_FROM = {
     **{k: "rslqr quadruped" for k in RSLQR_MID},
     **{k: "pscan quadruped" for k in (
         "pgemm", "plu_solve_multi", "schur_update_planes")},
+    **{k: "rslqr flat N=256 B=1024" for k in REPLACES if k.endswith("_flat")},
 }
 n, m = 6, 3
 nn, mn = n * n, m * n
@@ -121,6 +142,15 @@ def tensors(x):
     if isinstance(x, (list, tuple)):
         return [t for a in x for t in tensors(a)]
     return [] if x is None else [x]
+
+
+def clone_args(args):
+    """Fresh copies of a kernel's (nested) argument list."""
+    return [
+        [x.clone() for x in a] if isinstance(a, (list, tuple))
+        else (None if a is None else a.clone())
+        for a in args
+    ]
 
 
 def bound(in_bytes: int, ops: float):
@@ -174,9 +204,9 @@ def sweep_ops(N, B, level, U, emitted=0, G2=0):
 
 
 class Smoke:
-    def __init__(self, torch, pt, schur, planes, dev):
+    def __init__(self, torch, pt, schur, planes, flat, dev):
         self.torch, self.pt, self.dev = torch, pt, dev
-        self.schur, self.planes = schur, planes
+        self.schur, self.planes, self.flat = schur, planes, flat
         self.failures = []
         self.launches = {}
         self.gen = torch.Generator().manual_seed(0)
@@ -222,21 +252,16 @@ class Smoke:
         return statistics.median(times[1:])
 
     def compare(self, name, case, fn, args, kwargs, ops, library=None,
-                moved=None, phase="phase2"):
+                moved=None, phase="phase2", twin=None):
         """Kernel vs plain on clones of ``args``; record error, times and
         the bound of the first case of each kernel. ``ops``: the FLOPs the
         call does; ``library``: ``(fn, args)`` of one PyTorch call on the
         same inputs, timed beside it; ``moved``: the bytes the call needs,
         where it needs less than every input read once and every output
-        written once."""
+        written once; ``twin``: ``(fn, args, kwargs)`` of another kernel
+        doing the same work, timed beside it."""
         t = self.torch
-
-        def clones():
-            return [
-                [x.clone() for x in a] if isinstance(a, (list, tuple))
-                else (None if a is None else a.clone())
-                for a in args
-            ]
+        clones = lambda: clone_args(args)
 
         def flat(out):
             res = []
@@ -268,14 +293,21 @@ class Smoke:
         plain_ms = self.time_call(
             lambda *a: fn(*a, kernels="off", **kwargs), clones
         )
-        lib_ms = None
+        lib_ms = twin_ms = None
         if library is not None:
             lib_fn, lib_args = library
             lib_ms = self.time_call(lib_fn, lambda: lib_args)
+        fmt = lambda x: x if x is None else f"{x:.4f}"
+        extra = ""
+        if twin is not None:
+            tw_fn, tw_args, tw_kw = twin
+            twin_ms = self.time_call(lambda *a: tw_fn(*a, **tw_kw),
+                                     lambda: clone_args(tw_args))
+            extra = f" em_twin_ms={twin_ms:.4f} ({tw_fn.__name__})"
         print(f"{phase} {name} {case}: max_abs_err={err:.3e} "
               f"rel_diff={err / scale:.3e} (bar {KERNEL_BAR}) "
               f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"library_ms={lib_ms if lib_ms is None else f'{lib_ms:.4f}'} "
+              f"library_ms={fmt(lib_ms)}{extra} "
               f"bound_ms={bound_ms:.4f} ({bound_by}: {moved / 1e9:.3f} GB, "
               f"{ops / 1e9:.3f} GFLOP)", flush=True)
         st = self.kernel_stats.setdefault(
@@ -283,6 +315,8 @@ class Smoke:
                    "plain_ms": plain_ms, "bound_ms": bound_ms,
                    "bound_by": bound_by, "library_ms": lib_ms}
         )
+        if twin is not None:
+            st.setdefault("em_twin_ms", twin_ms)
         st["max_abs_err"] = max(st["max_abs_err"], err)
 
     # -- phase 2 ---------------------------------------------------------
@@ -583,6 +617,100 @@ class Smoke:
                (self.mat_last(Fin), self.mat_last(FL), fsml))
         return [FL, fsol, Fin], dict(level=level, lam=lam), ops, lib, moved
 
+    # -- phase 2d --------------------------------------------------------
+    def flat_cases(self):
+        """B10-B12 at the flat path's shapes (N=256, B=1024 as [e, N*B/128,
+        128] planes): B11 at depth 8, B10 at levels 1 (emitting, U=6) and 2
+        (not, U=5), B12 at levels 0 and 5. Each beside its em twin on the
+        same data (B3, B1 without emission at level 2, B2), and B10/B12
+        beside one unmasked ``baddbmm`` over all their slab rows."""
+        t, f, s = self.torch, self.flat, self.schur
+        R = self.drand
+        N, B = N_MAIN, BATCH
+        depth = N.bit_length() - 1
+        rows = lambda G: G * B // 128
+        em = lambda x: x.view(x.shape[0], N, B)
+        gm = lambda x, G: x.view(x.shape[0], G, B).transpose(0, 1).contiguous()
+        pos = lambda e: 0.5 + t.rand((e, rows(N), 128), generator=self.dgen,
+                                     device=self.dev)
+
+        A, Bm = R(nn, rows(N), 128), R(n * m, rows(N), 128, scale=0.2)
+        q, r, S0 = pos(n), pos(m), R(nn, rows(N // 2), 128)
+        fs = [R(nn, rows(N // 2), 128, scale=0.1) for _ in range(depth - 1)]
+        As, Bs = R(nn, rows(N // 4), 128), R(n * m, rows(N // 4), 128)
+        kw = dict(depth=depth, n=n, m=m)
+        self.compare(
+            "leaf_schur_level0_flat", f"N={N} B={B}", f.leaf_schur_level0_flat,
+            [A, Bm, q, r, S0, fs, As, Bs], dict(kw, N=N),
+            sweep_ops(N, B, 0, depth - 1, depth - 1, N // 4), phase="phase2d",
+            twin=(s.leaf_schur_level0_em,
+                  [em(A), em(Bm), em(q), em(r), gm(S0, N // 2),
+                   [gm(x, N // 2) for x in fs], gm(As, N // 4),
+                   gm(Bs, N // 4)], kw),
+        )
+        del A, Bm, q, r, S0, fs, As, Bs
+        for level in (1, 2):
+            U = depth - level - 1
+            G, G2 = N >> (level + 1), N >> (level + 2)
+            emit = f._flat_emits(level, N)
+            FL = [R(nn, rows(N), 128), R(nn, rows(N), 128),
+                  R(mn, rows(N), 128)]
+            up = [[R(e, rows(N), 128) for _ in range(U)] for e in (nn, nn, mn)]
+            fs = [R(nn, rows(G), 128, scale=0.1) for _ in range(U)]
+            sep = [R(nn, rows(G2), 128), R(n * m, rows(G2), 128)]
+            kw = dict(level=level, n=n, m=m)
+            self.compare(
+                "schur_update_level_flat", f"N={N} B={B} level={level} U={U}",
+                f.schur_update_level_flat, [*FL, *up, fs, *sep],
+                dict(kw, N=N), sweep_ops(N, B, level, U, U if emit else 0, G2),
+                library=self.trio_library(FL, up, fs, level),
+                moved=update_moved(n, m, n, N, B, level, U)
+                + (emit_moved(G2, B, U) if emit else 0), phase="phase2d",
+                twin=(s.schur_update_level_em,
+                      [*map(em, FL), *[[em(x) for x in u] for u in up],
+                       [gm(x, G) for x in fs],
+                       *([gm(sep[0], G2), gm(sep[1], G2)] if emit
+                         else [None, None])], kw),
+            )
+            del FL, up, fs, sep
+        for level in (0, depth - 3):
+            G = N >> (level + 1)
+            FL = [R(nn, rows(N), 128), R(nn, rows(N), 128),
+                  R(mn, rows(N), 128)]
+            z = [R(n, rows(N), 128), R(n, rows(N), 128), R(m, rows(N), 128)]
+            zb = R(n, rows(G), 128, scale=0.1)
+            kw = dict(level=level, n=n, m=m)
+            self.compare(
+                "rhs_update_level_flat", f"N={N} B={B} level={level}",
+                f.rhs_update_level_flat, [*FL, *z, zb], dict(kw, N=N),
+                update_ops(n, m, 1, N, B, level, 1),
+                library=self.trio_library(FL, [[x] for x in z], [zb], level),
+                moved=update_moved(n, m, 1, N, B, level, 1), phase="phase2d",
+                twin=(s.rhs_update_level_em,
+                      [*map(em, FL), *map(em, z), gm(zb, G)], kw),
+            )
+
+    def trio_library(self, FL, up, fs, level):
+        """One unmasked ``baddbmm`` on mat-last views doing the update of
+        every upper trio of ``up`` (``[[l_u], [x_u], [u_u]]`` flat planes,
+        q columns each) by the level-``level`` multipliers ``FL`` and the
+        compact separators ``fs``: the U trios' columns side by side,
+        ``C[NB, 2n+m, qU] -= FL[NB, 2n+m, n] @ f[NB, n, qU]``."""
+        t = self.torch
+        N, B = N_MAIN, BATCH
+        span = 2 << level
+        q = up[0][0].shape[0] // n
+        FLml = t.cat([x.view(-1, n, N * B) for x in FL]).permute(
+            2, 0, 1).contiguous()
+        C = t.cat([t.cat([x.view(-1, q, N * B) for x in trio])
+                   for trio in zip(*up)], dim=1)
+        f = t.cat([x.view(n, q, N >> (level + 1), 1, B).expand(
+            n, q, N >> (level + 1), span, B).reshape(n, q, N * B)
+            for x in fs], dim=1)
+        return (lambda c, a, b: t.baddbmm(c, a, b, alpha=-1.0),
+                (C.permute(2, 0, 1).contiguous(), FLml,
+                 f.permute(2, 0, 1).contiguous()))
+
     # -- phase 3 ---------------------------------------------------------
     def batch(self, N, dtype):
         pt = self.pt
@@ -645,6 +773,8 @@ class Smoke:
                   f"{e64:.3e} (bar {bar64:.3e}) kkt_residual[0]={res:.4e} "
                   f"(plain {res_off:.4e}) max|x|={float(ref.abs().max()):.4e}",
                   flush=True)
+            if N == N_MAIN:
+                self.main_ric = ric
         self.main_batch = batches[N_MAIN]
         self.main_got = out[N_MAIN]
 
@@ -788,6 +918,94 @@ class Smoke:
               f"rel_diff_vs_rslqr={d_small:.3e} (reported) "
               f"f64_vs_riccati={e64:.3e} (bar {bar64:.3e})", flush=True)
 
+    # -- phase 3d --------------------------------------------------------
+    def flat_options(self, options=None):
+        """``flat_planes=True`` with ``options``' kernel mode."""
+        return self.pt.SolveOptions(
+            flat_planes=True,
+            kernels=options.kernels if options is not None else "auto")
+
+    def flat_solve(self, b, options=None):
+        """``solve_kkt`` on the flat schedule."""
+        return self.pt.solve_kkt(b, options=self.flat_options(options))
+
+    def refined_solve(self, b, options=None):
+        """``solve_refined`` (2 iterations, f32 factorization) on the flat
+        schedule: the f64 KKT vectors."""
+        return self.pt.solve_refined(
+            b, iterations=2, solve_dtype=self.torch.float32,
+            options=self.flat_options(options)).kkt_vector()
+
+    def flat_checks(self):
+        """The flat-plane slice on phase 3's N=256 batch, then refinement
+        of the same batch in f64 on the flat schedule."""
+        t, pt, f, s = self.torch, self.pt, self.flat, self.schur
+        b = self.main_batch
+        depth = N_MAIN.bit_length() - 1
+        expect = {"schur_update_level_flat": depth - 2,
+                  "leaf_schur_level0_flat": 1, "rhs_update_level_flat": depth}
+
+        def counted(run):
+            """``run()``'s result and the flat and em kernel launches it
+            made (counts set to 0 just before it)."""
+            s.reset_launch_counts()
+            f.reset_launch_counts()
+            out = run()
+            t.cuda.synchronize()
+            return out, f.launch_counts(), s.launch_counts()
+
+        got, counts, em_counts = counted(lambda: self.flat_solve(b))
+        for k in expect:
+            self.launches[k] = counts[k]
+        self.check(counts == expect and not any(em_counts.values()),
+                   f"flat: launches {counts} (want {expect}), em {em_counts}")
+        print(f"phase3d launches flat N={N_MAIN} B={BATCH}: "
+              f"{json.dumps(counts)} em kernels: {json.dumps(em_counts)}",
+              flush=True)
+        self.check(tuple(got.shape) == (BATCH, b.nvars) and bool(
+            t.isfinite(got).all()), "flat: output shape or non-finite")
+        ref = self.flat_solve(b, pt.SolveOptions(kernels="off"))
+        d_off, d_em = rel_err(got, ref), rel_err(got, self.main_got)
+        self.check(d_off <= SLICE_BAR and d_em <= SLICE_BAR,
+                   f"flat: rel diff vs off {d_off:.3e}, vs em {d_em:.3e}")
+        ric = self.main_ric
+        bar64 = F64_BAR * (1.0 + float(ric.abs().max()))
+        e_k = rel_err(got[:16].double(), ric)
+        e_p = rel_err(ref[:16].double(), ric)
+        self.check(e_k <= 2.0 * e_p + 1e-6,
+                   f"flat: f32 kernel err vs f64 Riccati {e_k:.3e} > 2 x "
+                   f"plain {e_p:.3e} + 1e-6")
+        print(f"phase3d flat N={N_MAIN} B={BATCH} f32: rel_diff_vs_off="
+              f"{d_off:.3e} rel_diff_vs_em={d_em:.3e} (bar {SLICE_BAR}) "
+              f"err_vs_f64_riccati={e_k:.3e} (plain {e_p:.3e})", flush=True)
+
+        b64 = b.to(dtype=t.float64)
+        self.main_batch64 = b64
+        rk, counts, em_counts = counted(lambda: self.refined_solve(b64))
+        want = dict(expect, rhs_update_level_flat=3 * depth)
+        self.check(counts == want and not any(em_counts.values()),
+                   f"refined: launches {counts} (want {want}), em "
+                   f"{em_counts}")
+        e_r = float((rk[:16] - ric).abs().max())
+        kh, res_h = pt.solve_refined_host(b64, iterations=3,
+                                          options=self.flat_options())
+        kd, res_d = pt.solve_refined_device(b64, iterations=3,
+                                            options=self.flat_options())
+        ric_np = ric.cpu().numpy()
+        e_h = float(abs(kh[:16] - ric_np).max())
+        e_d = float(abs(kd[:16] - ric_np).max())
+        for what, e in (("solve_refined", e_r), ("solve_refined_host", e_h),
+                        ("solve_refined_device", e_d)):
+            self.check(e <= bar64, f"{what} vs f64 Riccati {e:.3e} > "
+                                   f"{bar64:.3e}")
+        e_f32 = float((got[:16].double() - ric).abs().max())
+        print(f"phase3d refined flat N={N_MAIN} B={BATCH} f64 (f32 factor): "
+              f"launches {json.dumps(counts)}; max|x - riccati| over 16: "
+              f"solve_refined(2 it) {e_r:.3e}, host(3 it) {e_h:.3e} "
+              f"(kkt_residual {res_h:.3e}), device(3 it) {e_d:.3e} "
+              f"(kkt_residual {res_d:.3e}); bar {bar64:.3e} "
+              f"(one f32 solve: {e_f32:.3e})", flush=True)
+
     # -- phase 5 ---------------------------------------------------------
     def profile(self, b, label, solve=None, top=14):
         """Device kernel time of one batched solve by kernel name
@@ -837,7 +1055,8 @@ class Smoke:
                 t.cuda.synchronize()
                 acc.append(1e3 * (time.perf_counter() - t0))
         mk, mp = statistics.median(tk), statistics.median(tp)
-        print(f"{label} B={B} f32 on {card}: kernel path "
+        dt = str(b.x0.dtype).removeprefix("torch.")
+        print(f"{label} B={B} {dt} on {card}: kernel path "
               f"{mk:.3f} ms/solve ({B / mk * 1e3:.1f} solves/s), "
               f"kernels=off {mp:.3f} ms/solve ({B / mp * 1e3:.1f} "
               f"solves/s); median of {reps}, min {min(tk):.3f} / "
@@ -849,7 +1068,7 @@ def main() -> int:
         import torch
 
         import rslqr_tpu_torch as pt
-        from rslqr_tpu_torch.ops import _build, planes, schur
+        from rslqr_tpu_torch.ops import _build, flat, planes, schur
     except ImportError as exc:
         print(f"chip_smoke: cannot import the port: {exc}", file=sys.stderr)
         return 2
@@ -871,14 +1090,16 @@ def main() -> int:
           f"cuda={torch.version.cuda} build_s={build_s:.2f} lib={lib.name}",
           flush=True)
 
-    smoke = Smoke(torch, pt, schur, planes, dev)
+    smoke = Smoke(torch, pt, schur, planes, flat, dev)
     phases = (
         ("phase2", smoke.kernel_cases),
         ("phase2b", smoke.plane_cases),
         ("phase2c", smoke.scan_cases),
+        ("phase2d", smoke.flat_cases),
         ("phase3", smoke.slice_checks),
         ("phase3b", smoke.quad_checks),
         ("phase3c", smoke.pscan_checks),
+        ("phase3d", smoke.flat_checks),
         ("phase4", lambda: smoke.time_solves(
             card, smoke.main_batch, REPS, f"phase4 N={N_MAIN}")),
         ("phase4b", lambda: smoke.time_solves(
@@ -891,11 +1112,22 @@ def main() -> int:
             smoke.time_solves(card, smoke.quad_batch, QREPS,
                               f"phase4c pscan quadruped N={QN} nx={QX} "
                               f"nu={QU}", pt.solve_pscan_kkt))),
+        ("phase4d", lambda: (
+            smoke.time_solves(card, smoke.main_batch, REPS,
+                              f"phase4d flat N={N_MAIN}", smoke.flat_solve),
+            smoke.time_solves(card, smoke.main_batch64, QREPS,
+                              f"phase4d refined flat (2 iterations, f64) "
+                              f"N={N_MAIN}", smoke.refined_solve))),
         ("phase5", lambda: (
             smoke.profile(smoke.main_batch, f"N={N_MAIN} B={BATCH}"),
             smoke.profile(smoke.quad_batch, f"quadruped N={QN} B={QB}"),
             smoke.profile(smoke.quad_batch, f"pscan quadruped N={QN} B={QB}",
-                          pt.solve_pscan_kkt))),
+                          pt.solve_pscan_kkt),
+            smoke.profile(smoke.main_batch, f"flat N={N_MAIN} B={BATCH}",
+                          smoke.flat_solve),
+            smoke.profile(smoke.main_batch64,
+                          f"refined flat (2 iterations, f64) N={N_MAIN} "
+                          f"B={BATCH}", smoke.refined_solve))),
     )
     for name, run in phases:
         t0 = time.perf_counter()
@@ -915,7 +1147,8 @@ def main() -> int:
          "max_abs_err": st["max_abs_err"], "ms": st["ms"],
          "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
          "bound_by": st["bound_by"], "library_ms": st["library_ms"],
-         "case": st["case"], "launches_from": LAUNCHES_FROM.get(name)}
+         "case": st["case"], "launches_from": LAUNCHES_FROM.get(name),
+         **({"em_twin_ms": st["em_twin_ms"]} if "em_twin_ms" in st else {})}
         for name, st in smoke.kernel_stats.items()
     ]
     print(card)

@@ -41,6 +41,11 @@ class SolveOptions:
     # Two sweep levels per slab pass (rslqr_em._sweep_pair_em); False = one
     # level per pass.
     level_pairing: bool = True
+    # The flat-plane schedule of the small-block sweep (ops/flat.py; JAX's
+    # ops/schur_planes.py) for f32 batches with B % 1024 == 0: element-major
+    # compact separators and products, products emitted at levels 0-1 only,
+    # no level pairing. Off by default, as in the JAX package.
+    flat_planes: bool = False
     # Chunk size of the mid-block parallel scan (pscan._auto_chunk): 0 =
     # auto (the largest of 32, 16, 8, 4 that divides N, for N >= 64), 1 =
     # the unchunked leaf-pair scan, >= 2 = explicit (must divide N with at

@@ -25,6 +25,7 @@ SOURCES = (
     _PKG / "csrc" / "schur_kernels.cu",
     _PKG / "csrc" / "planes_kernels.cu",
     _PKG / "csrc" / "plu_kernels.cu",
+    _PKG / "csrc" / "flat_kernels.cu",
 )
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
@@ -142,6 +143,12 @@ def load() -> ctypes.CDLL:
         "rslqr_schur3_update_planes": [P] * 7 + [I] * 6 + [P],
         # csrc/plu_kernels.cu
         "rslqr_plu_solve_multi": [P, P, PP, PP, PI] + [I] * 3 + [P],
+        # csrc/flat_kernels.cu
+        "rslqr_flat_rhs_update_level": [P] * 7 + [I] * 5 + [P],
+        "rslqr_flat_schur_update_level": [P] * 3 + [PP] * 4 + [P] * 2 + [PP]
+        + [I] * 7 + [P],
+        "rslqr_flat_leaf_schur_level0": [P] * 5 + [PP] + [P] * 2 + [PP] * 4
+        + [I] * 5 + [P],
     }
     for name, args in sigs.items():
         fn = getattr(lib, name)

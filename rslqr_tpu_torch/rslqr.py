@@ -57,6 +57,25 @@ def _to_batch_last(prob: LQRProblem, nlead: int) -> LQRProblem:
     return prob.map(lambda x: _bl(x, nlead))
 
 
+def _leaf_rhs_transform(prob: LQRProblem, rhs):
+    """Leaf-solve an arbitrary RHS given in batch-last ``(zy, zx, zu)``
+    block form (``[N, n|m, *b]``) against batch-last ``prob``.
+
+    The z-vector half of ndlqr_SolveLeaf (nested_dissection.c:42-58,
+    79-90), a linear map independent of the factors, so it also serves
+    fresh right-hand sides (iterative refinement):
+
+      k = 0:   zy' = -Q0 zy - zx;  zx' = -zy;  zu' = R0^{-1} zu
+      k >= 1:  zx' = Qk^{-1} zx;   zu' = Rk^{-1} zu (k < N-1);  zy' = zy
+    """
+    zy, zx, zu = rhs
+    zy0 = zy[0]
+    zy = torch.cat([(-prob.Qdiag[0] * zy0 - zx[0])[None], zy[1:]])
+    zx = torch.cat([-zy0[None], zx[1:] * (1.0 / prob.Qdiag[1:])])
+    zu = torch.cat([zu[:-1] * (1.0 / prob.Rdiag[:-1]), zu[-1:]])
+    return zy, zx, zu
+
+
 def _lambda_mask(N: int, span: int, mid: int) -> np.ndarray:
     """calc_lambda (nested_dissection.c:173-177) as a static ``[G, span]``
     pattern: the left-range start (position 0) and right-range start
@@ -88,9 +107,21 @@ def solve(
     """
     from . import rslqr_em
 
+    flat, bshape = _one_batch_axis(prob)
+    sol = rslqr_em.solve_em(flat, tables, options=resolve_options(options))
+    unflat = lambda x: x.reshape(bshape + x.shape[1:])
+    return RsLqrSolution(
+        Y=unflat(sol.Y), X=unflat(sol.X), U=unflat(sol.U), fact=sol.fact
+    )
+
+
+def _one_batch_axis(prob: LQRProblem):
+    """The front door's preparation for the element-major path: TF32 off,
+    blocks up to ``MAX_BLOCK`` (larger ones raise ``NotImplementedError``),
+    leading batch axes flattened to one. Returns the flattened problem and
+    the batch shape."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    opts = resolve_options(options)
     n, m = prob.nstates, prob.ninputs
     if max(n, m) > MAX_BLOCK:
         raise NotImplementedError(
@@ -98,12 +129,7 @@ def solve(
             "route is not ported yet"
         )
     bshape = prob.batch_shape
-    flat = prob.map(lambda x: x.reshape((-1,) + x.shape[len(bshape):]))
-    sol = rslqr_em.solve_em(flat, tables, options=opts)
-    unflat = lambda x: x.reshape(bshape + x.shape[1:])
-    return RsLqrSolution(
-        Y=unflat(sol.Y), X=unflat(sol.X), U=unflat(sol.U), fact=sol.fact
-    )
+    return prob.map(lambda x: x.reshape((-1,) + x.shape[len(bshape):])), bshape
 
 
 def solve_kkt(

@@ -27,11 +27,20 @@ level (``planes.schur3_update_planes``); the RHS sweep solves its
 separators with ``pcho_solve`` (one column) and applies them with
 ``schur3_update_planes`` (one column).
 
-Only the kernel calls (``ops/schur.py``, ``ops/planes.py``) differ between
-devices: the plain PyTorch versions on CPU tensors (or under
+With ``SolveOptions.flat_planes`` (small blocks, f32, ``B % 1024 == 0``,
+N >= 8; :func:`_flat_path_ok`), the flat-plane schedule of the JAX module
+(rslqr_em.py:507-577, 716-734, 890-952): the fused leaf
+``leaf_schur_level0_flat``, single levels only (``schur_update_level_flat``,
+products emitted at levels 0-1), and ``rhs_update_level_flat`` in the RHS
+sweep, with element-major compact separators and products
+(``ops/flat.py``). Its kernels take the JAX kernels' flat planes
+``[pq, N*B/128, 128]`` (:func:`_flat`), the same bytes as the ``[pq, N, B]``
+slab views (:func:`_slab`) the other small-block kernels take.
+
+Only the kernel calls (``ops/schur.py``, ``ops/flat.py``, ``ops/planes.py``)
+differ between devices: the plain PyTorch versions on CPU tensors (or under
 ``kernels="off"``), the CUDA kernels on CUDA tensors. Everything else is
-plain PyTorch on compact ``[.., G, B]`` data. The flat-plane branches of
-the JAX module are not ported yet.
+plain PyTorch on compact ``[.., G, B]`` data.
 
 The slabs are updated in place by the kernels, as the TPU kernels alias
 them.
@@ -47,7 +56,7 @@ import torch
 
 from . import linalg as la
 from .config import SolveOptions, resolve_options
-from .ops import planes, schur
+from .ops import flat, planes, schur
 from .problem import LQRProblem, pack_solution
 from .rslqr import RsLqrSolution, _bf, _to_batch_last
 from .tree import TreeTables, build_tree_tables
@@ -199,10 +208,35 @@ def _sep_gm(M: torch.Tensor, level: int) -> torch.Tensor:
     return sep.transpose(0, 1).contiguous()
 
 
-def _flat(x: torch.Tensor) -> torch.Tensor:
+def _slab(x: torch.Tensor) -> torch.Tensor:
     """Kernel view of an element-major slab: ``[p, q, N, B] -> [pq, N, B]``
     (a view of the contiguous slab, so in-place updates land in it)."""
     return x.view(x.shape[0] * x.shape[1], x.shape[2], x.shape[3])
+
+
+def _flat(x: torch.Tensor) -> torch.Tensor:
+    """Flat-plane kernel view of an element-major block array (JAX's
+    ``_flat``): ``[p, q, N, B] -> [pq, N*B/128, 128]``, the same bytes as
+    :func:`_slab`'s view (a view, so in-place updates land in it)."""
+    p, q, N, B = x.shape
+    return x.view(p * q, N * B // 128, 128)
+
+
+def _flatv(x: torch.Tensor) -> torch.Tensor:
+    """Flat-plane view of element-major vectors: ``[p, N, B] ->
+    [p, N*B/128, 128]``."""
+    p, N, B = x.shape
+    return x.view(p, N * B // 128, 128)
+
+
+def _sep_flat(M: torch.Tensor, level: int) -> torch.Tensor:
+    """Dynamics at level-``level`` separator knots as compact flat planes:
+    ``[p, q, N, B] -> [pq, G*B/128, 128]`` with ``G = N / 2^{level+1}``."""
+    p, q, N, B = M.shape
+    span = 1 << (level + 1)
+    G = N // span
+    sep = M.reshape(p * q, G, span, B)[:, :, span // 2 - 1, :]
+    return sep.reshape(p * q, G * B // 128, 128)
 
 
 def _level_products_em(A, B, level, depth, Fls, Fxs, Fus, ex, n, opts):
@@ -210,7 +244,9 @@ def _level_products_em(A, B, level, depth, Fls, Fxs, Fus, ex, n, opts):
     nested_dissection.c:114-134): either the compact arrays emitted by the
     previous kernel or computed from slab slices."""
     if ex is not None:
-        return [_em_from_gm(S, n, n) for S in ex]
+        # Group-major [G, nn, B] from ops/schur.py's kernels, already
+        # element-major [n, n, G, B] from the flat path.
+        return [S if S.dim() == 4 else _em_from_gm(S, n, n) for S in ex]
     span = 1 << (level + 1)
     mid = (1 << level) - 1
     # Compact copies, made once per level (the products' kernels take
@@ -284,14 +320,56 @@ def _schur_kernel(A, B_dyn, level, depth, Fls, Fxs, Fus, fsols, n, m, opts):
         Asep = _sep_gm(A, level + 1)
         Bsep = _sep_gm(B_dyn, level + 1)
     *_, S_next = schur.schur_update_level_em(
-        _flat(Fls[level]), _flat(Fxs[level]), _flat(Fus[level]),
-        [_flat(Fls[u]) for u in us],
-        [_flat(Fxs[u]) for u in us],
-        [_flat(Fus[u]) for u in us],
+        _slab(Fls[level]), _slab(Fxs[level]), _slab(Fus[level]),
+        [_slab(Fls[u]) for u in us],
+        [_slab(Fxs[u]) for u in us],
+        [_slab(Fus[u]) for u in us],
         [_gm(fsols[u]) for u in us],
         Asep, Bsep, level=level, n=n, m=m, kernels=opts.kernels,
     )
     return S_next
+
+
+def _flat_path_ok(dtype, nb: int, N: int, b_shape, n: int,
+                  opts: Optional[SolveOptions] = None) -> bool:
+    """Whether the flat-plane schedule (``ops/flat.py``) runs: JAX's
+    ``_flat_path_ok`` (``flat_planes``, one batch axis, ``flat.flat_ok``:
+    f32 and ``B % 1024 == 0``) and the conditions under which its Pallas
+    Schur kernels run at all (``_pallas_schur_mode``: small blocks, N >= 8,
+    N % 8 == 0)."""
+    opts = resolve_options(opts)
+    return (
+        opts.flat_planes
+        and not _mid_block(n, opts)
+        and nb == 1
+        and N >= 8
+        and N % 8 == 0
+        and flat.flat_ok(N, b_shape[0], dtype)
+    )
+
+
+def _schur_flat(A, B_dyn, level, depth, Fls, Fxs, Fus, fsols, n, m, opts):
+    """The single-level Schur stage through ``schur_update_level_flat``
+    (counterpart of ``rslqr_em._schur_flat``); updates the slabs in place
+    and returns the next level's products as element-major
+    ``[n, n, G2, B]`` views (or None)."""
+    N, B = Fls[level].shape[2], Fls[level].shape[3]
+    us = list(range(level + 1, depth))
+    Asep = Bsep = None
+    if flat._flat_emits(level, N) and level + 2 <= depth:
+        Asep = _sep_flat(A, level + 1)
+        Bsep = _sep_flat(B_dyn, level + 1)
+    *_, S_next = flat.schur_update_level_flat(
+        _flat(Fls[level]), _flat(Fxs[level]), _flat(Fus[level]),
+        [_flat(Fls[u]) for u in us],
+        [_flat(Fxs[u]) for u in us],
+        [_flat(Fus[u]) for u in us],
+        [_flat(fsols[u].contiguous()) for u in us],
+        Asep, Bsep, level=level, n=n, m=m, N=N, kernels=opts.kernels,
+    )
+    if S_next is None:
+        return None
+    return [S.view(n, n, N >> (level + 2), B) for S in S_next]
 
 
 def _level_update_planes_em(level, depth, Fls, Fxs, Fus, fsols, opts):
@@ -320,9 +398,10 @@ def _sweep_level_em(A, B, level, depth, Fls, Fxs, Fus, n, m, ex, opts):
     if _mid_block(n, opts):
         _level_update_planes_em(level, depth, Fls, Fxs, Fus, fsols, opts)
         return Lc, None
-    return Lc, _schur_kernel(
-        A, B, level, depth, Fls, Fxs, Fus, fsols, n, m, opts
-    )
+    stage = (_schur_flat if _flat_path_ok(A.dtype, NB, A.shape[2],
+                                          A.shape[3:], n, opts)
+             else _schur_kernel)
+    return Lc, stage(A, B, level, depth, Fls, Fxs, Fus, fsols, n, m, opts)
 
 
 def _pair_prepass(A, B, level, depth, Fls, Fxs, Fus, fsols1, opts):
@@ -373,10 +452,10 @@ def _schur_kernel_pair(
         Asep = _sep_gm(A, level + 2)
         Bsep = _sep_gm(B_dyn, level + 2)
     *_, S_next = schur.schur_update_pair_em(
-        _flat(Fls[level]), _flat(Fxs[level]), _flat(Fus[level]),
-        [_flat(Fls[u]) for u in us],
-        [_flat(Fxs[u]) for u in us],
-        [_flat(Fus[u]) for u in us],
+        _slab(Fls[level]), _slab(Fxs[level]), _slab(Fus[level]),
+        [_slab(Fls[u]) for u in us],
+        [_slab(Fxs[u]) for u in us],
+        [_slab(Fus[u]) for u in us],
         [_gm(fsols1[u]) for u in us],
         _gm(Sbar2),
         [_gm(fsols2[u]) for u in us[1:]],
@@ -410,10 +489,11 @@ def _sweep_pair_em(A, B, level, depth, Fls, Fxs, Fus, n, m, ex, opts):
 def _rhs_level_em(A, B, level, Fl, Fx, Fu, Lc, zy, zx, zu, opts):
     """One level of the RHS sweep (ref solve.c:137-182): the compact
     separator solve (plain ops; ``pcho_solve`` for mid blocks), then one
-    kernel pass over the level's slabs (``rhs_update_level_em``; for mid
-    blocks ``schur3_update_planes`` with one column, JAX rslqr_em.py:751-774).
-    Vectors are ``[n|m, N, B]``; returns the updated ``(zy, zx, zu)``
-    (updated in place)."""
+    kernel pass over the level's slabs (``rhs_update_level_em``, or
+    ``rhs_update_level_flat`` on the flat path; for mid blocks
+    ``schur3_update_planes`` with one column, JAX rslqr_em.py:751-774).
+    Vectors are contiguous ``[n|m, N, B]``; returns the updated
+    ``(zy, zx, zu)`` (updated in place)."""
     span = 1 << (level + 1)
     mid = (1 << level) - 1
     nk = NB + 1
@@ -436,8 +516,16 @@ def _rhs_level_em(A, B, level, Fl, Fx, Fu, Lc, zy, zx, zu, opts):
         )
         return zy, zx, zu
     zbar = la.bcho_solve_vec(Lc, znew, nk, opts)  # [n, G, B]
+    N, B_ = zy.shape[1], zy.shape[2]
+    if _flat_path_ok(Fl.dtype, NB, N, (B_,), n, opts):
+        flat.rhs_update_level_flat(
+            _flat(Fl), _flat(Fx), _flat(Fu), _flatv(zy), _flatv(zx),
+            _flatv(zu), _flatv(zbar.contiguous()),  # element-major [n, G, B]
+            level=level, n=n, m=m, N=N, kernels=opts.kernels,
+        )
+        return zy, zx, zu
     return schur.rhs_update_level_em(
-        _flat(Fl), _flat(Fx), _flat(Fu), zy, zx, zu,
+        _slab(Fl), _slab(Fx), _slab(Fu), zy, zx, zu,
         zbar.transpose(0, 1).contiguous(),
         level=level, n=n, m=m, kernels=opts.kernels,
     )
@@ -501,6 +589,7 @@ def factorize_em(
     N, Bb = pbl.A.shape[0], pbl.A.shape[3]
 
     mid = _mid_block(n, opts)
+    use_flat = _flat_path_ok(pbl.A.dtype, NB, N, (Bb,), n, opts)
     if t.depth >= 2 and not mid:
         # Fused leaf + level 0: level-0 products from compact gathers, then
         # ONE kernel writes every slab in its post-level-0 state and emits
@@ -510,13 +599,23 @@ def factorize_em(
         fsols0 = _cholsolve_stacked(Lc0, Ss[1:], opts)
         A = A.contiguous()
         B = B.contiguous()
-        Fls, Fxs, Fus, ex = schur.leaf_schur_level0_em(
-            A.view(n * n, N, Bb), B.view(n * m, N, Bb),
-            qinv.contiguous(), rinv.contiguous(),
-            _gm(Ss[0]), [_gm(f) for f in fsols0],
-            _sep_gm(A, 1), _sep_gm(B, 1),
-            depth=t.depth, n=n, m=m, kernels=opts.kernels,
-        )
+        if use_flat:
+            Fls, Fxs, Fus, ex = flat.leaf_schur_level0_flat(
+                _flat(A), _flat(B), _flatv(qinv.contiguous()),
+                _flatv(rinv.contiguous()), _flat(Ss[0].contiguous()),
+                [_flat(f.contiguous()) for f in fsols0],
+                _sep_flat(A, 1), _sep_flat(B, 1),
+                depth=t.depth, n=n, m=m, N=N, kernels=opts.kernels,
+            )
+            ex = [S.view(n, n, N // 4, Bb) for S in ex]
+        else:
+            Fls, Fxs, Fus, ex = schur.leaf_schur_level0_em(
+                A.view(n * n, N, Bb), B.view(n * m, N, Bb),
+                qinv.contiguous(), rinv.contiguous(),
+                _gm(Ss[0]), [_gm(f) for f in fsols0],
+                _sep_gm(A, 1), _sep_gm(B, 1),
+                depth=t.depth, n=n, m=m, kernels=opts.kernels,
+            )
         Fls = [x.view(n, n, N, Bb) for x in Fls]
         Fxs = [x.view(n, n, N, Bb) for x in Fxs]
         Fus = [x.view(m, n, N, Bb) for x in Fus]
@@ -533,8 +632,10 @@ def factorize_em(
     while level < t.depth:
         # Level pairing: two sweep levels per slab pass, whenever level+1
         # still has upper levels to update (small blocks only: the pair
-        # kernel is a small-block kernel).
-        if level <= t.depth - 3 and opts.level_pairing and not mid:
+        # kernel is a small-block kernel; the flat path never pairs, as in
+        # JAX, rslqr_em.py:943-952).
+        if (level <= t.depth - 3 and opts.level_pairing and not mid
+                and not use_flat):
             Lc1, Lc2, ex = _sweep_pair_em(
                 A, B, level, t.depth, Fls, Fxs, Fus, n, m, ex, opts
             )
@@ -561,27 +662,42 @@ def solve_rhs_em(
 ) -> RsLqrSolution:
     """Cached-factorization RHS solve (ref solve.c:137-182). ``rhs`` is the
     leaf-solved element-major RHS from :func:`factorize_em` or
-    :func:`leaf_rhs_em`; its planes are updated in place."""
+    :func:`leaf_rhs_em`; its planes are updated in place. ``tables`` is
+    taken for the JAX signature: the sweep's depth is the factorization's."""
     opts = resolve_options(options)
     pbl = _to_batch_last(prob, 1)
-    t = tables or build_tree_tables(pbl.A.shape[0])
-    A, B = _em(pbl.A), _em(pbl.B)
-    zy, zx, zu = (z.contiguous() for z in rhs)
-    for level in range(t.depth):
-        zy, zx, zu = _rhs_level_em(
-            A, B, level, fact.Fls[level], fact.Fxs[level], fact.Fus[level],
-            fact.chols[level], zy, zx, zu, opts,
-        )
+    zy, zx, zu = rhs_sweep_em(_em(pbl.A), _em(pbl.B), fact, rhs, opts)
     Y, X, U = _emv_bl(zy), _emv_bl(zx), _emv_bl(zu)
     return RsLqrSolution(
         Y=_bf(Y, 1), X=_bf(X, 1), U=_bf(U[:-1], 1), fact=fact
     )
 
 
+def rhs_sweep_em(A, B, fact: EmFactorization, rhs: Tuple,
+                 opts: SolveOptions) -> Tuple:
+    """Every level of the RHS sweep over ``fact`` (ref solve.c:137-182),
+    with element-major dynamics ``A``/``B``; ``rhs`` is an element-major
+    leaf-solved RHS (made contiguous, then updated in place). Returns
+    ``(zy, zx, zu)``."""
+    zy, zx, zu = (z.contiguous() for z in rhs)
+    for level in range(len(fact.chols)):
+        zy, zx, zu = _rhs_level_em(
+            A, B, level, fact.Fls[level], fact.Fxs[level], fact.Fus[level],
+            fact.chols[level], zy, zx, zu, opts,
+        )
+    return zy, zx, zu
+
+
 def leaf_rhs_em(prob: LQRProblem) -> Tuple:
     """Leaf-solve a fresh RHS into element-major planes (multi-RHS mode;
     the z-vector half of ndlqr_SolveLeaf, nested_dissection.c:42-90)."""
     return _leaf_z(_to_batch_last(prob, 1))
+
+
+def em_rhs_from_bl(rhs: Tuple) -> Tuple:
+    """A batch-last leaf-solved RHS ``[N, n|m, B]`` as element-major
+    ``[n|m, N, B]`` planes."""
+    return tuple(_emv(z) for z in rhs)
 
 
 def solve_em(

@@ -13,7 +13,9 @@ every branch: odd batch widths (ragged last block of batch columns), B=1,
 the shortest horizons, emission on and off, and emission groups larger than
 one block of knots. The mid-block plane kernels run at n=12 and 36 (and the
 limit, 64), with one right-hand column (w=1, q=1), ragged planes, and
-Schur updates at level 0 and the top level. The parallel scan's kernels:
+Schur updates at level 0 and the top level. The flat-plane kernels run at
+the main path's shapes (N=256, B=1024), B10 emitting and not. The parallel
+scan's kernels:
 ``pgemm`` with each of its flags alone and in every combination the scan
 calls (and all at once at width 64), ``schur_update_planes`` masked and not,
 ``plu_solve_multi`` at widths 12, 36 and 64 with 1-4 right-hand sides, and
@@ -24,7 +26,7 @@ the pscan slice at small sizes. Bar: ``max|kernel - plain| <= 1e-4 * (1 + max|pl
 import pytest
 import torch
 
-from rslqr_tpu_torch.ops import planes, schur
+from rslqr_tpu_torch.ops import flat, planes, schur
 
 pytestmark = pytest.mark.cuda
 
@@ -51,7 +53,7 @@ def _both(fn, args, kwargs):
             return [x.clone() for x in a]
         return None if a is None else a.clone()
 
-    def flat(out):
+    def tensors(out):
         res = []
         for o in out:
             if isinstance(o, (list, tuple)):
@@ -63,7 +65,7 @@ def _both(fn, args, kwargs):
     k = fn(*[clone(a) for a in args], **kwargs)
     torch.cuda.synchronize()
     p = fn(*[clone(a) for a in args], kernels="off", **kwargs)
-    return flat(k), flat(p), k, p
+    return tensors(k), tensors(p), k, p
 
 
 def _assert_match(ks, ps):
@@ -162,6 +164,94 @@ def test_solve_kernel_path_matches_plain(dev):
     counts = schur.launch_counts()
     ref = pt.solve_kkt(batch, options=pt.SolveOptions(kernels="off"))
     assert all(c > 0 for c in counts.values()), counts
+    scale = 1.0 + ref.abs().max().item()
+    assert (got - ref).abs().max().item() <= 1e-4 * scale
+
+
+# ---------------------------------------------------------------------------
+# Flat-plane kernels (ops/flat.py, csrc/flat_kernels.cu), at the main path's
+# shapes: N=256, B=1024 as [e, N*B/128, 128] flat planes.
+# ---------------------------------------------------------------------------
+
+FN, FB = 256, 1024
+FR = FN * FB // 128
+
+
+def _frows(G):
+    return G * FB // 128
+
+
+@pytest.mark.parametrize("level", [0, 1, 2])
+def test_flat_level_kernel(dev, level):
+    """B10 with the next-level separator dynamics given: emits (and folds)
+    at levels 0 and 1, not at 2."""
+    g = torch.Generator().manual_seed(600 + level)
+    U = FN.bit_length() - 1 - level - 1
+    G, G2 = FN >> (level + 1), FN >> (level + 2)
+    R = lambda *s: _rand(g, dev, *s)
+    args = [R(nn, FR, 128), R(nn, FR, 128), R(mn, FR, 128),
+            [R(nn, FR, 128) for _ in range(U)],
+            [R(nn, FR, 128) for _ in range(U)],
+            [R(mn, FR, 128) for _ in range(U)],
+            [0.1 * R(nn, _frows(G), 128) for _ in range(U)],
+            R(nn, _frows(G2), 128), R(n * m, _frows(G2), 128)]
+    before = flat.schur_update_level_flat.launches
+    ks, ps, k, p = _both(flat.schur_update_level_flat, args,
+                         dict(level=level, n=n, m=m, N=FN))
+    assert flat.schur_update_level_flat.launches == before + 1
+    assert (k[3] is not None) == (p[3] is not None) == (level < 2)
+    _assert_match(ks, ps)
+
+
+def test_flat_leaf_kernel(dev):
+    """B11 at depth 8."""
+    g = torch.Generator().manual_seed(700)
+    depth = FN.bit_length() - 1
+    R = lambda *s: _rand(g, dev, *s)
+    pos = lambda *s: (0.5 + torch.rand(s, generator=g)).to(dev)
+    args = [R(nn, FR, 128), R(n * m, FR, 128), pos(n, FR, 128),
+            pos(m, FR, 128), R(nn, _frows(FN // 2), 128),
+            [0.1 * R(nn, _frows(FN // 2), 128) for _ in range(depth - 1)],
+            R(nn, _frows(FN // 4), 128), R(n * m, _frows(FN // 4), 128)]
+    before = flat.leaf_schur_level0_flat.launches
+    ks, ps, *_ = _both(flat.leaf_schur_level0_flat, args,
+                       dict(depth=depth, n=n, m=m, N=FN))
+    assert flat.leaf_schur_level0_flat.launches == before + 1
+    _assert_match(ks, ps)
+
+
+@pytest.mark.parametrize("level", [0, 5])
+def test_flat_rhs_kernel(dev, level):
+    """B12 at level 0 and level 5."""
+    g = torch.Generator().manual_seed(800 + level)
+    G = FN >> (level + 1)
+    args = [_rand(g, dev, *s) for s in (
+        (nn, FR, 128), (nn, FR, 128), (mn, FR, 128), (n, FR, 128),
+        (n, FR, 128), (m, FR, 128), (n, _frows(G), 128))]
+    before = flat.rhs_update_level_flat.launches
+    ks, ps, *_ = _both(flat.rhs_update_level_flat, args,
+                       dict(level=level, n=n, m=m, N=FN))
+    assert flat.rhs_update_level_flat.launches == before + 1
+    _assert_match(ks, ps)
+
+
+def test_flat_solve_kernel_path_matches_plain(dev):
+    """The flat schedule at N=32, B=1024: B11 once, B10 at levels 1-3, B12
+    at every level, no B1-B4; the kernel path agrees with
+    ``kernels="off"``."""
+    import rslqr_tpu_torch as pt
+
+    prob = pt.double_integrator_problem(32, dtype=torch.float32, device=dev)
+    batch = pt.batch_problems(prob, FB, torch.Generator().manual_seed(0))
+    flat.reset_launch_counts()
+    schur.reset_launch_counts()
+    got = pt.solve_kkt(batch, options=pt.SolveOptions(flat_planes=True))
+    assert flat.launch_counts() == {"schur_update_level_flat": 3,
+                                    "leaf_schur_level0_flat": 1,
+                                    "rhs_update_level_flat": 5}
+    assert sum(schur.launch_counts().values()) == 0
+    ref = pt.solve_kkt(batch, options=pt.SolveOptions(flat_planes=True,
+                                                      kernels="off"))
     scale = 1.0 + ref.abs().max().item()
     assert (got - ref).abs().max().item() <= 1e-4 * scale
 

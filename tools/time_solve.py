@@ -3,13 +3,15 @@
 kernels) on one GPU, for comparing two versions of the package on one card.
 
     python3 tools/time_solve.py [--root DIR] [--config small|quad]
-                                [--reps 20] [--kernels]
+                                [--solver rslqr|pscan] [--reps 20]
+                                [--kernels]
 
 Imports ``rslqr_tpu_torch`` from ``DIR`` (default: the checkout this script
 lies in), builds its kernels, and prints the card's name and power limit,
-then one line: the median and the minimum ms per batched ``solve_kkt``,
-host clock around each solve with the device synchronized, on one of
-chip_smoke.py's configurations (f32, the kernel path):
+then one line: the median and the minimum ms per batched ``solve_kkt``
+(``--solver pscan``: ``solve_pscan_kkt``), host clock around each solve with
+the device synchronized, on one of chip_smoke.py's configurations (f32, the
+kernel path):
 
 * ``small``: double integrator, N=256, B=1024 perturbed instances;
 * ``quad``: the quadruped config, ``random_problem`` nx=36, nu=12, N=512,
@@ -72,6 +74,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--config", choices=sorted(CONFIGS), default="small")
+    ap.add_argument("--solver", choices=("rslqr", "pscan"), default="rslqr")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--kernels", action="store_true")
     args = ap.parse_args()
@@ -107,17 +110,18 @@ def main() -> int:
         prob = pt.random_problem(torch.Generator().manual_seed(1), N, nx, nu,
                                  dtype=torch.float32, device="cuda")
         b = pt.batch_problems(prob, B, torch.Generator().manual_seed(0))
+    solve = pt.solve_kkt if args.solver == "rslqr" else pt.solve_pscan_kkt
     for _ in range(3):
-        pt.solve_kkt(b)
+        solve(b)
     torch.cuda.synchronize()
     times = []
     for _ in range(args.reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        pt.solve_kkt(b)
+        solve(b)
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
-    print(f"time_solve root={root.name} rslqr {args.config} N={N} "
+    print(f"time_solve root={root.name} {args.solver} {args.config} N={N} "
           f"nx={nx} nu={nu} B={B} f32 kernel path: median "
           f"{statistics.median(times):.3f} ms/solve, min {min(times):.3f} "
           f"ms, over {args.reps} solves (build/load {build_s:.1f} s) on "
