@@ -11,7 +11,8 @@ Phases, each printing one line of numbers:
 2. each of the four small-block sweep kernels (B1-B4) against its plain
    PyTorch version on clones of the same random f32 inputs, at the small
    path's shapes (N=256, B=1024; B1 at N=128 and with level pairing off),
-   with the median time of each over 10 launches;
+   with the median time of each over 10 launches, and for B1 and B2 one
+   unmasked ``baddbmm`` on mat-last views (as B10, B12 in phase 2d);
 2b. each of the four mid-block plane kernels (B5 pgemm, B6 pchol, B7
    pcho_solve, B9 schur3_update_planes) the same way, at the quadruped
    path's shapes (nx=36, nu=12, N=512, B=256) and once at n=12, m=4, with
@@ -50,13 +51,26 @@ Phases, each printing one line of numbers:
    (``solve_refined`` with 2 iterations: B11 1 / B10 6 / B12 24;
    ``solve_refined_host`` and ``solve_refined_device`` with 3), each held
    to the f64 bar against the f64 Riccati oracle on 16 instances;
+2e. the two probe kernels of ``probes/probe_pgemm.py`` the same way, at
+   the probe's shapes: P1 ``pgemm_ib`` (p = K = q = 36, F = 512*128) at
+   every ib (1, 2, 4) and t1 (8, 16 warps per block), each beside one
+   ``torch.matmul`` on mat-last views, and P2 ``fma_peak`` at a shape that
+   fills the card (F = 132*2048*4, reps = 32768) and at the probe's (F =
+   512*128, reps = 4096);
 4. time per batched solve of both slices, kernel path and
    ``kernels="off"``; 4c the same for the parallel scan; 4d for the flat
    solve and the refined solve;
 5. one batched solve of each slice (and one quadruped pscan solve, one flat
    solve and one refined solve) traced with ``torch.profiler``: device time
    by kernel, device kernel launches, and the device's busy share of the
-   solve's wall time.
+   solve's wall time;
+6. the kernel-measurement entry points: ``bench_kernels``' six sections
+   (update, leaf, rhs, sep, prod, planes) at their defaults, one JSON row
+   per stage and level (chained, graph-replayed times with the card's name),
+   with the launch counts of that run (set to 0 just before it); 6b
+   ``probe_pgemm.main(["--rounds", "1"])``, with the probe kernels' launch
+   counts of that run (wrapper calls: the eager warm-ups and the graph
+   captures; replays launch without counting).
 
 Then a JSON line with every kernel's launches, error, times and bound, and
 last ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
@@ -86,6 +100,10 @@ SCHUR_SRC = "rslqr_tpu_torch/csrc/schur_kernels.cu"
 PLANES_SRC = "rslqr_tpu_torch/csrc/planes_kernels.cu"
 PLU_SRC = "rslqr_tpu_torch/csrc/plu_kernels.cu"
 FLAT_SRC = "rslqr_tpu_torch/csrc/flat_kernels.cu"
+PROBE_SRC = "rslqr_tpu_torch/csrc/probe_kernels.cu"
+# The probe's shape (probes/probe_pgemm.py:27-28): 36x36 blocks over a
+# 512 x 128 plane.
+PROBE_BLK, PROBE_F = 36, 512 * 128
 REPLACES = {
     "schur_update_level_em": "rslqr_tpu/ops/schur_pallas.py:373",
     "rhs_update_level_em": "rslqr_tpu/ops/schur_pallas.py:303",
@@ -100,10 +118,13 @@ REPLACES = {
     "schur_update_level_flat": "rslqr_tpu/ops/schur_planes.py:338",
     "leaf_schur_level0_flat": "rslqr_tpu/ops/schur_planes.py:429",
     "rhs_update_level_flat": "rslqr_tpu/ops/schur_planes.py:518",
+    "pgemm_ib": "probes/probe_pgemm.py:54",
+    "fma_peak": "probes/probe_pgemm.py:83",
 }
-SOURCES = {k: SCHUR_SRC if k.endswith("_em") else FLAT_SRC if k.endswith(
-    "_flat") else PLU_SRC if k.startswith("plu") else PLANES_SRC
-    for k in REPLACES}
+PROBES = ("pgemm_ib", "fma_peak")
+SOURCES = {k: PROBE_SRC if k in PROBES else SCHUR_SRC if k.endswith("_em")
+           else FLAT_SRC if k.endswith("_flat") else PLU_SRC
+           if k.startswith("plu") else PLANES_SRC for k in REPLACES}
 # The kernels of each mid-block path (the others launch no time there).
 RSLQR_MID = ("pgemm", "pchol", "pcho_solve", "schur3_update_planes")
 PSCAN_MID = ("pgemm", "plu_solve_multi")
@@ -118,6 +139,13 @@ LAUNCHES_FROM = {
     **{k: "pscan quadruped" for k in (
         "pgemm", "plu_solve_multi", "schur_update_planes")},
     **{k: "rslqr flat N=256 B=1024" for k in REPLACES if k.endswith("_flat")},
+    **{k: "probe_pgemm --rounds 1 (on no solver path)" for k in PROBES},
+}
+# The kernels of each bench_kernels section (phase 6).
+BENCH_KERNELS = {
+    "update": ("schur_update_level_em",), "leaf": ("leaf_schur_level0_em",),
+    "rhs": ("rhs_update_level_em",),
+    "planes": ("pgemm", "schur_update_planes"),
 }
 n, m = 6, 3
 nn, mn = n * n, m * n
@@ -204,9 +232,10 @@ def sweep_ops(N, B, level, U, emitted=0, G2=0):
 
 
 class Smoke:
-    def __init__(self, torch, pt, schur, planes, flat, dev):
+    def __init__(self, torch, pt, schur, planes, flat, probe, dev):
         self.torch, self.pt, self.dev = torch, pt, dev
         self.schur, self.planes, self.flat = schur, planes, flat
+        self.probe = probe
         self.failures = []
         self.launches = {}
         self.gen = torch.Generator().manual_seed(0)
@@ -338,13 +367,15 @@ class Smoke:
         # B2 at levels 0, 3, 7 (the first, a middle and the top level).
         for level in (0, 3, depth - 1):
             G = N >> (level + 1)
+            args = [R(nn, N, B), R(nn, N, B), R(mn, N, B), R(n, N, B),
+                    R(n, N, B), R(m, N, B), R(G, n, B, scale=0.1)]
             self.compare(
                 "rhs_update_level_em", f"N={N} B={B} level={level}",
-                s.rhs_update_level_em,
-                [R(nn, N, B), R(nn, N, B), R(mn, N, B), R(n, N, B),
-                 R(n, N, B), R(m, N, B), R(G, n, B, scale=0.1)],
-                dict(level=level, n=n, m=m),
+                s.rhs_update_level_em, args, dict(level=level, n=n, m=m),
                 update_ops(n, m, 1, N, B, level, 1),
+                library=self.trio_library(
+                    args[:3], [[z] for z in args[3:6]],
+                    [args[6].transpose(0, 1).contiguous()], level, N, B),
                 moved=update_moved(n, m, 1, N, B, level, 1),
             )
         # B4 at levels 1 and 5 (the first and last pair of the main path;
@@ -379,6 +410,10 @@ class Smoke:
                 s.schur_update_level_em, args,
                 dict(level=level, n=n, m=m),
                 sweep_ops(NN, B, level, U, emitted, G2),
+                library=self.trio_library(
+                    args[:3], args[3:6],
+                    [f.transpose(0, 1).contiguous() for f in args[6]], level,
+                    NN, B),
                 moved=update_moved(n, m, n, NN, B, level, U)
                 + (emit_moved(G2, B, emitted) if emitted else 0),
             )
@@ -690,14 +725,14 @@ class Smoke:
                       [*map(em, FL), *map(em, z), gm(zb, G)], kw),
             )
 
-    def trio_library(self, FL, up, fs, level):
+    def trio_library(self, FL, up, fs, level, N=N_MAIN, B=BATCH):
         """One unmasked ``baddbmm`` on mat-last views doing the update of
-        every upper trio of ``up`` (``[[l_u], [x_u], [u_u]]`` flat planes,
-        q columns each) by the level-``level`` multipliers ``FL`` and the
-        compact separators ``fs``: the U trios' columns side by side,
+        every upper trio of ``up`` (``[[l_u], [x_u], [u_u]]`` element-major
+        slabs, flat or ``[e, N, B]``, q columns each) by the level-``level``
+        multipliers ``FL`` and the element-major compact separators ``fs``:
+        the U trios' columns side by side,
         ``C[NB, 2n+m, qU] -= FL[NB, 2n+m, n] @ f[NB, n, qU]``."""
         t = self.torch
-        N, B = N_MAIN, BATCH
         span = 2 << level
         q = up[0][0].shape[0] // n
         FLml = t.cat([x.view(-1, n, N * B) for x in FL]).permute(
@@ -710,6 +745,37 @@ class Smoke:
         return (lambda c, a, b: t.baddbmm(c, a, b, alpha=-1.0),
                 (C.permute(2, 0, 1).contiguous(), FLml,
                  f.permute(2, 0, 1).contiguous()))
+
+    # -- phase 2e --------------------------------------------------------
+    def probe_cases(self):
+        """P1 at every ib and t1, beside one ``torch.matmul`` on mat-last
+        views; P2 at the card-filling shape (its JSON entry), then at the
+        probe's. P2's inputs lie in (-0.5, -0.1), where the chain stays
+        bounded (``probe_pgemm.fma_chain``)."""
+        from rslqr_tpu_torch.probe_pgemm import FMA_CASES
+
+        t, pr, R = self.torch, self.probe, self.drand
+        p = K = q = PROBE_BLK
+        F = PROBE_F
+        A, Bm = R(p, K, F), R(K, q, F)
+        lib = (t.matmul, (self.mat_last(A), self.mat_last(Bm)))
+        for t1 in pr.T1S:
+            for ib in pr.IBS:
+                self.compare(
+                    "pgemm_ib", f"ib={ib} t1={t1} {p}x{K}.{K}x{q} F={F}",
+                    lambda a, b, **k: (pr.pgemm_ib(a, b, **k),), [A, Bm],
+                    dict(ib=ib, t1=t1), 2 * p * K * q * F, lib,
+                    phase="phase2e",
+                )
+        del A, Bm, lib
+        for Fx, reps in FMA_CASES[::-1]:
+            X = -0.5 + 0.4 * t.rand((1, Fx), generator=self.dgen,
+                                    device=self.dev)
+            self.compare(
+                "fma_peak", f"F={Fx} reps={reps}",
+                lambda x, **k: (pr.fma_peak(x, **k),), [X], dict(reps=reps),
+                2 * reps * Fx, phase="phase2e",
+            )
 
     # -- phase 3 ---------------------------------------------------------
     def batch(self, N, dtype):
@@ -1034,6 +1100,50 @@ class Smoke:
             print(f"phase5   {e.self_device_time_total / 1e3:9.3f} ms "
                   f"{e.count:5d}x {e.key[:90]}", flush=True)
 
+    # -- phase 6 ---------------------------------------------------------
+    def bench_sections(self):
+        """``bench_kernels``' six sections at their defaults: every section
+        gives rows, each with the card's name and a finite positive time,
+        and runs its kernels (counts set to 0 just before the run)."""
+        from rslqr_tpu_torch import bench_kernels as bk
+
+        t = self.torch
+        self.schur.reset_launch_counts()
+        self.planes.reset_launch_counts()
+        rows = bk.run(bk.SECTIONS, self.dev)
+        t.cuda.synchronize()
+        counts = {**self.schur.launch_counts(),
+                  **self.planes.launch_counts()}
+        card = t.cuda.get_device_name(0)
+        for r in rows:
+            print(f"phase6 {json.dumps(r)}", flush=True)
+            ms = r["ms_per_call"]
+            self.check(r["device"] == card and ms == ms and 0 < ms < 1e4,
+                       f"bench_kernels row {r}")
+        stages = {r["stage"].split("_")[0] for r in rows}
+        self.check(stages == set(bk.SECTIONS),
+                   f"bench_kernels sections {sorted(stages)}")
+        for section, names in BENCH_KERNELS.items():
+            for k in names:
+                self.check(counts[k] > 0,
+                           f"bench_kernels {section}: {k} launched no time")
+        print(f"phase6 launches: {json.dumps(counts)}", flush=True)
+
+    def probe_entry(self):
+        """``probe_pgemm``'s entry point with one round; the probe kernels'
+        counts set to 0 just before it and read just after."""
+        from rslqr_tpu_torch import probe_pgemm
+
+        self.probe.reset_launch_counts()
+        rc = probe_pgemm.main(["--rounds", "1"])
+        self.torch.cuda.synchronize()
+        counts = self.probe.launch_counts()
+        self.check(rc == 0, f"probe_pgemm exited with {rc}")
+        for k in PROBES:
+            self.launches[k] = counts[k]
+            self.check(counts[k] > 0, f"probe_pgemm: {k} launched no time")
+        print(f"phase6b launches: {json.dumps(counts)}", flush=True)
+
     # -- phase 4 ---------------------------------------------------------
     def time_solves(self, card, b, reps, label, solve=None):
         """Median host-clock ms per batched solve (CUDA-synchronized), the
@@ -1068,7 +1178,7 @@ def main() -> int:
         import torch
 
         import rslqr_tpu_torch as pt
-        from rslqr_tpu_torch.ops import _build, flat, planes, schur
+        from rslqr_tpu_torch.ops import _build, flat, planes, probe, schur
     except ImportError as exc:
         print(f"chip_smoke: cannot import the port: {exc}", file=sys.stderr)
         return 2
@@ -1090,12 +1200,13 @@ def main() -> int:
           f"cuda={torch.version.cuda} build_s={build_s:.2f} lib={lib.name}",
           flush=True)
 
-    smoke = Smoke(torch, pt, schur, planes, flat, dev)
+    smoke = Smoke(torch, pt, schur, planes, flat, probe, dev)
     phases = (
         ("phase2", smoke.kernel_cases),
         ("phase2b", smoke.plane_cases),
         ("phase2c", smoke.scan_cases),
         ("phase2d", smoke.flat_cases),
+        ("phase2e", smoke.probe_cases),
         ("phase3", smoke.slice_checks),
         ("phase3b", smoke.quad_checks),
         ("phase3c", smoke.pscan_checks),
@@ -1128,6 +1239,8 @@ def main() -> int:
             smoke.profile(smoke.main_batch64,
                           f"refined flat (2 iterations, f64) N={N_MAIN} "
                           f"B={BATCH}", smoke.refined_solve))),
+        ("phase6", smoke.bench_sections),
+        ("phase6b", smoke.probe_entry),
     )
     for name, run in phases:
         t0 = time.perf_counter()

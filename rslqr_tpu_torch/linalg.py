@@ -166,6 +166,12 @@ def transpose_block(A: torch.Tensor, nbatch: int = 1) -> torch.Tensor:
     return A.transpose(-(nbatch + 2), -(nbatch + 1))
 
 
+def beye(n: int, like: torch.Tensor, nbatch: int = 1) -> torch.Tensor:
+    """Identity block broadcastable against ``[..., n, n, *b]`` arrays."""
+    return torch.eye(n, dtype=like.dtype, device=like.device).reshape(
+        (n, n) + (1,) * nbatch)
+
+
 def bgemm_tt(
     A: torch.Tensor,
     B: torch.Tensor,

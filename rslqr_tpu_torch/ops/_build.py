@@ -26,6 +26,7 @@ SOURCES = (
     _PKG / "csrc" / "planes_kernels.cu",
     _PKG / "csrc" / "plu_kernels.cu",
     _PKG / "csrc" / "flat_kernels.cu",
+    _PKG / "csrc" / "probe_kernels.cu",
 )
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
@@ -119,6 +120,20 @@ def build(extra_flags=()) -> Path:
     return out
 
 
+def ptxas_report(source: Path) -> str:
+    """Compile one source with ``-Xptxas -v`` (registers, shared memory and
+    spills of each kernel) and return the compiler's report."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = _tmp(".o")
+    try:
+        out = subprocess.run(
+            [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", tmp,
+             str(source)], capture_output=True, text=True, check=True)
+    finally:
+        os.unlink(tmp)
+    return out.stdout + out.stderr
+
+
 @functools.lru_cache(maxsize=None)
 def load() -> ctypes.CDLL:
     """Build if needed, load, and declare every C entry point's types."""
@@ -149,6 +164,9 @@ def load() -> ctypes.CDLL:
         + [I] * 7 + [P],
         "rslqr_flat_leaf_schur_level0": [P] * 5 + [PP] + [P] * 2 + [PP] * 4
         + [I] * 5 + [P],
+        # csrc/probe_kernels.cu
+        "rslqr_pgemm_ib": [P] * 3 + [I] * 6 + [P],
+        "rslqr_fma_peak": [P] * 2 + [I] * 2 + [P],
     }
     for name, args in sigs.items():
         fn = getattr(lib, name)

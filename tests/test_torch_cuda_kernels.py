@@ -19,14 +19,17 @@ scan's kernels:
 ``pgemm`` with each of its flags alone and in every combination the scan
 calls (and all at once at width 64), ``schur_update_planes`` masked and not,
 ``plu_solve_multi`` at widths 12, 36 and 64 with 1-4 right-hand sides, and
-the pscan slice at small sizes. Bar: ``max|kernel - plain| <= 1e-4 * (1 + max|plain|)``
+the pscan slice at small sizes. The probe kernels (``ops/probe.py``):
+``pgemm_ib`` at every ``ib`` and ``t1``, with rows left over past a
+multiple of ``ib``, two column chunks and the 12-column chunk that a long
+contraction forces, and ``fma_peak`` with a ragged tail. Bar: ``max|kernel - plain| <= 1e-4 * (1 + max|plain|)``
 (summation order only; the f32 atol of tests/test_pallas_ops.py:110-118).
 """
 
 import pytest
 import torch
 
-from rslqr_tpu_torch.ops import flat, planes, schur
+from rslqr_tpu_torch.ops import flat, planes, probe, schur
 
 pytestmark = pytest.mark.cuda
 
@@ -466,3 +469,30 @@ def test_pscan_kernel_path_matches_plain(dev, n, m, N, B, chunk, batched):
         assert counts["pchol"] > 0 and counts["pcho_solve"] > 0, counts
     scale = 1.0 + ref.abs().max().item()
     assert (got - ref).abs().max().item() <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("ib", probe.IBS)
+@pytest.mark.parametrize("t1", probe.T1S)
+@pytest.mark.parametrize(
+    "p,K,q,plane", [(36, 36, 36, (16, 40)), (13, 12, 12, (5, 33)),
+                    (7, 64, 64, (2, 33)), (3, 5, 1, (1, 1))],
+)
+def test_pgemm_ib_kernel(dev, ib, t1, p, K, q, plane):
+    g = torch.Generator().manual_seed(p * K + q)
+    args = [_rand(g, dev, p, K, *plane), _rand(g, dev, K, q, *plane)]
+    before = probe.pgemm_ib.launches
+    ks, ps, *_ = _both(lambda *a, **k: (probe.pgemm_ib(*a, **k),), args,
+                       dict(ib=ib, t1=t1))
+    assert probe.pgemm_ib.launches == before + 1
+    _assert_match(ks, ps)
+
+
+@pytest.mark.parametrize("F,reps", [(1, 0), (1000, 37), (65536, 64)])
+def test_fma_peak_kernel(dev, F, reps):
+    g = torch.Generator().manual_seed(F)
+    X = (-0.5 + 0.4 * torch.rand((1, F), generator=g)).to(dev)
+    before = probe.fma_peak.launches
+    ks, ps, *_ = _both(lambda *a, **k: (probe.fma_peak(*a, **k),), [X],
+                       dict(reps=reps))
+    assert probe.fma_peak.launches == before + 1
+    _assert_match(ks, ps)
