@@ -21,11 +21,14 @@ Phases, each printing one line of numbers:
    (the double integrator, nx=6, nu=3, N=256, perturbed into B=1024
    instances, f32) and again at N=128 so that B1 launches, with launch
    counts, agreement with ``kernels="off"`` and with the f64 Riccati
-   oracle, and the KKT residual;
+   oracle, and the KKT residual; then one default-option f64 solve, where
+   no kernel applies (f64 runs the plain stages: no launch, equal to
+   ``kernels="off"``; so in 3b and 3c);
 2c. the parallel scan's kernels the same way: every flag combination of B5
    (``pgemm`` with ``ta``/``tbt``/``Cin``/``diag``/``dconst``/``sym``/
-   ``kscale``) that ``solve_pscan`` calls, at its shapes, B5's
-   ``schur_update_planes`` (lambda masked and not) and B8
+   ``kscale``: ``flagged_kernel``) that ``solve_pscan`` calls, at its
+   shapes, each also chained (CUDA-graph replays, kernel and library call),
+   B5's ``schur_update_planes`` (lambda masked and not) and B8
    ``plu_solve_multi`` with each right-hand-side pattern of the path;
 3b. the mid-block slice: ``solve_kkt`` on BASELINE.json's quadruped config
    (``random_problem`` nx=36, nu=12, N=512, perturbed into B=256 instances,
@@ -39,7 +42,7 @@ Phases, each printing one line of numbers:
    relative KKT residual), and on the small-block batch of phase 3 (f64 vs
    Riccati on 16 instances; f32 difference to rsLQR, reported);
 2d. the three flat-plane kernels (B10 ``schur_update_level_flat`` at
-   levels 1 and 2, B11 ``leaf_schur_level0_flat``, B12
+   levels 1-6, also chained, B11 ``leaf_schur_level0_flat``, B12
    ``rhs_update_level_flat`` at levels 0 and 5) the same way at the flat
    path's shapes (N=256, B=1024), each beside its em twin (B1, B3, B2 on
    the same data with group-major compacts) and, for B10 and B12, one
@@ -57,6 +60,11 @@ Phases, each printing one line of numbers:
    ``torch.matmul`` on mat-last views, and P2 ``fma_peak`` at a shape that
    fills the card (F = 132*2048*4, reps = 32768) and at the probe's (F =
    512*128, reps = 4096);
+2f. B1-B4 and B10-B12 the same way at the other small block sizes, (n, m)
+   = (4, 2), (8, 8) and (5, 4) (the generic instantiations of
+   ``csrc/small_blocks.cuh``), at the small path's shapes;
+3e. default-option f32 solves at those block sizes, em and flat schedule,
+   with their launch counts and agreement with ``kernels="off"``;
 4. time per batched solve of both slices, kernel path and
    ``kernels="off"``; 4c the same for the parallel scan; 4d for the flat
    solve and the refined solve;
@@ -88,6 +96,10 @@ N_MAIN, N_ODD, BATCH = 256, 128, 1024
 QN, QX, QU, QB = 512, 36, 12, 256
 REPS = 10
 QREPS = 5
+# Chained device times (phases 2c, 2d): CUDA-graph replays of CHAIN_K
+# back-to-back calls against one call, min over CHAIN_REPS
+# (bench_kernels.chain_diff).
+CHAIN_K, CHAIN_REPS = 10, 3
 KERNEL_BAR = 1e-4     # max|k - p| <= 1e-4 (1 + max|p|): summation order only
 SLICE_BAR = 1e-4      # vs kernels="off" (__graft_entry__.dryrun_multichip)
 QUAD_SLICE_BAR = 3e-3  # two f32 solvers on the quadruped config (bench.py:322)
@@ -98,6 +110,7 @@ F64_BAR = 1e-6        # f64 rsLQR vs f64 Riccati (tests/test_rslqr.py:143-148)
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 SCHUR_SRC = "rslqr_tpu_torch/csrc/schur_kernels.cu"
 PLANES_SRC = "rslqr_tpu_torch/csrc/planes_kernels.cu"
+FLAGGED_SRC = "rslqr_tpu_torch/csrc/flagged_kernels.cu"
 PLU_SRC = "rslqr_tpu_torch/csrc/plu_kernels.cu"
 FLAT_SRC = "rslqr_tpu_torch/csrc/flat_kernels.cu"
 PROBE_SRC = "rslqr_tpu_torch/csrc/probe_kernels.cu"
@@ -110,6 +123,7 @@ REPLACES = {
     "leaf_schur_level0_em": "rslqr_tpu/ops/schur_pallas.py:705",
     "schur_update_pair_em": "rslqr_tpu/ops/schur_pallas.py:601",
     "pgemm": "rslqr_tpu/ops/planes_pallas.py:185",
+    "pgemm_flagged": "rslqr_tpu/ops/planes_pallas.py:185",
     "pchol": "rslqr_tpu/ops/planes_pallas.py:377",
     "pcho_solve": "rslqr_tpu/ops/planes_pallas.py:400",
     "schur3_update_planes": "rslqr_tpu/ops/planes_pallas.py:503",
@@ -124,10 +138,11 @@ REPLACES = {
 PROBES = ("pgemm_ib", "fma_peak")
 SOURCES = {k: PROBE_SRC if k in PROBES else SCHUR_SRC if k.endswith("_em")
            else FLAT_SRC if k.endswith("_flat") else PLU_SRC
-           if k.startswith("plu") else PLANES_SRC for k in REPLACES}
+           if k.startswith("plu") else FLAGGED_SRC if k == "pgemm_flagged"
+           else PLANES_SRC for k in REPLACES}
 # The kernels of each mid-block path (the others launch no time there).
 RSLQR_MID = ("pgemm", "pchol", "pcho_solve", "schur3_update_planes")
-PSCAN_MID = ("pgemm", "plu_solve_multi")
+PSCAN_MID = ("pgemm", "pgemm_flagged", "plu_solve_multi")
 # The solve each kernel's JSON ``launches`` count comes from (counts set to
 # 0 just before it, read just after).
 LAUNCHES_FROM = {
@@ -137,7 +152,7 @@ LAUNCHES_FROM = {
     "schur_update_level_em": "rslqr N=128 B=1024",
     **{k: "rslqr quadruped" for k in RSLQR_MID},
     **{k: "pscan quadruped" for k in (
-        "pgemm", "plu_solve_multi", "schur_update_planes")},
+        "pgemm", "pgemm_flagged", "plu_solve_multi", "schur_update_planes")},
     **{k: "rslqr flat N=256 B=1024" for k in REPLACES if k.endswith("_flat")},
     **{k: "probe_pgemm --rounds 1 (on no solver path)" for k in PROBES},
 }
@@ -149,6 +164,10 @@ BENCH_KERNELS = {
 }
 n, m = 6, 3
 nn, mn = n * n, m * n
+# The block sizes of the generic small-block instantiations held against
+# their plain versions (phase 2f) and solved (phases 3 and 3d): (4, 2) in
+# the (4, 4) capacity, (8, 8) and (5, 4) in the (8, 8) one.
+EXTRA_BLOCKS = ((4, 2), (8, 8), (5, 4))
 
 
 def nvidia_smi() -> str:
@@ -224,11 +243,11 @@ def emit_moved(G2, B, S):
     return 4 * G2 * B * ((nn + n * m) + 2 * S * nn + nn)
 
 
-def sweep_ops(N, B, level, U, emitted=0, G2=0):
+def sweep_ops(N, B, level, U, emitted=0, G2=0, nx=n, nu=m):
     """FLOPs of a small-block sweep kernel at one level: U slab-trio
     updates plus the emitted products."""
-    return update_ops(n, m, n, N, B, level, U) \
-        + 2 * (n + m) * n * n * G2 * B * emitted
+    return update_ops(nx, nu, nx, N, B, level, U) \
+        + 2 * (nx + nu) * nx * nx * G2 * B * emitted
 
 
 class Smoke:
@@ -262,33 +281,35 @@ class Smoke:
         return (0.5 + t.rand(shape, generator=self.gen)).to(self.dev)
 
     # -- timing ----------------------------------------------------------
-    def time_call(self, fn, make_args):
-        """Median ms of ``fn(*make_args())`` over REPS launches, CUDA
-        events around each call; inputs are re-made (untimed) before each
-        call since the kernels update them in place."""
-        t = self.torch
-        times = []
-        for _ in range(REPS + 1):
-            args = make_args()
-            t.cuda.synchronize()
-            a = t.cuda.Event(enable_timing=True)
-            b = t.cuda.Event(enable_timing=True)
-            a.record()
-            fn(*args)
-            b.record()
-            t.cuda.synchronize()
-            times.append(a.elapsed_time(b))
-        return statistics.median(times[1:])
+    @staticmethod
+    def time_call(fn, make_args):
+        """Median ms of ``fn(*make_args())`` over REPS launches
+        (``bench_kernels.launch_ms``: CUDA events around each call; inputs
+        re-made, untimed, before each call since the kernels update them in
+        place)."""
+        from rslqr_tpu_torch.bench_kernels import launch_ms
+
+        return launch_ms(fn, make_args, REPS)
+
+    def chained(self, call):
+        """Device ms of one ``call()`` chained (``bench_kernels.chain_ms``:
+        CUDA-graph replays of CHAIN_K back-to-back calls against one, min
+        over CHAIN_REPS)."""
+        from rslqr_tpu_torch.bench_kernels import chain_ms
+
+        return chain_ms(call, self.dev, CHAIN_K, CHAIN_REPS)
 
     def compare(self, name, case, fn, args, kwargs, ops, library=None,
-                moved=None, phase="phase2", twin=None):
+                moved=None, phase="phase2", twin=None, chain=False):
         """Kernel vs plain on clones of ``args``; record error, times and
         the bound of the first case of each kernel. ``ops``: the FLOPs the
         call does; ``library``: ``(fn, args)`` of one PyTorch call on the
         same inputs, timed beside it; ``moved``: the bytes the call needs,
         where it needs less than every input read once and every output
         written once; ``twin``: ``(fn, args, kwargs)`` of another kernel
-        doing the same work, timed beside it."""
+        doing the same work, timed beside it; ``chain``: also the chained
+        device times of the kernel and the library call (the single-launch
+        times include the wrapper's host time while the card idles)."""
         t = self.torch
         clones = lambda: clone_args(args)
 
@@ -333,6 +354,14 @@ class Smoke:
             twin_ms = self.time_call(lambda *a: tw_fn(*a, **tw_kw),
                                      lambda: clone_args(tw_args))
             extra = f" em_twin_ms={twin_ms:.4f} ({tw_fn.__name__})"
+        ch_ms = ch_lib = None
+        if chain:
+            a = clones()
+            ch_ms = self.chained(lambda: fn(*a, **kwargs))
+            if library is not None:
+                ch_lib = self.chained(lambda: lib_fn(*lib_args))
+            extra += (f" chained_ms={ch_ms:.4f} library_chained_ms="
+                      f"{fmt(ch_lib)}")
         print(f"{phase} {name} {case}: max_abs_err={err:.3e} "
               f"rel_diff={err / scale:.3e} (bar {KERNEL_BAR}) "
               f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
@@ -346,6 +375,9 @@ class Smoke:
         )
         if twin is not None:
             st.setdefault("em_twin_ms", twin_ms)
+        if chain:
+            st.setdefault("chained_ms", ch_ms)
+            st.setdefault("library_chained_ms", ch_lib)
         st["max_abs_err"] = max(st["max_abs_err"], err)
 
     # -- phase 2 ---------------------------------------------------------
@@ -418,36 +450,137 @@ class Smoke:
                 + (emit_moved(G2, B, emitted) if emitted else 0),
             )
 
-    def level_args(self, N, B, level):
-        R = self.rand
+    def level_args(self, N, B, level, nx=n, nu=m, R=None):
+        R = R or self.rand
+        xx, ux = nx * nx, nu * nx
         depth = N.bit_length() - 1
         U = depth - level - 1
         G, G2 = N >> (level + 1), N >> (level + 2)
         emit = self.schur._level_emits(level, N) and level + 2 <= depth
-        return [R(nn, N, B), R(nn, N, B), R(mn, N, B),
-                [R(nn, N, B) for _ in range(U)],
-                [R(nn, N, B) for _ in range(U)],
-                [R(mn, N, B) for _ in range(U)],
-                [R(G, nn, B, scale=0.1) for _ in range(U)],
-                R(G2, nn, B) if emit else None,
-                R(G2, n * m, B) if emit else None]
+        return [R(xx, N, B), R(xx, N, B), R(ux, N, B),
+                [R(xx, N, B) for _ in range(U)],
+                [R(xx, N, B) for _ in range(U)],
+                [R(ux, N, B) for _ in range(U)],
+                [R(G, xx, B, scale=0.1) for _ in range(U)],
+                R(G2, xx, B) if emit else None,
+                R(G2, ux, B) if emit else None]
 
-    def pair_args(self, N, B, level):
-        R = self.rand
+    def pair_args(self, N, B, level, nx=n, nu=m, R=None):
+        R = R or self.rand
+        xx, ux = nx * nx, nu * nx
         depth = N.bit_length() - 1
         U = depth - level - 1
         G1, G2, G3 = N >> (level + 1), N >> (level + 2), N >> (level + 3)
-        emit = (self.schur._pair_emits(level, N, B, U, n, m)
+        emit = (self.schur._pair_emits(level, N, B, U, nx, nu)
                 and level + 2 <= depth - 1)
-        return [R(nn, N, B), R(nn, N, B), R(mn, N, B),
-                [R(nn, N, B) for _ in range(U)],
-                [R(nn, N, B) for _ in range(U)],
-                [R(mn, N, B) for _ in range(U)],
-                [R(G1, nn, B, scale=0.1) for _ in range(U)],
-                R(G2, nn, B),
-                [R(G2, nn, B, scale=0.1) for _ in range(U - 1)],
-                R(G3, nn, B) if emit else None,
-                R(G3, n * m, B) if emit else None]
+        return [R(xx, N, B), R(xx, N, B), R(ux, N, B),
+                [R(xx, N, B) for _ in range(U)],
+                [R(xx, N, B) for _ in range(U)],
+                [R(ux, N, B) for _ in range(U)],
+                [R(G1, xx, B, scale=0.1) for _ in range(U)],
+                R(G2, xx, B),
+                [R(G2, xx, B, scale=0.1) for _ in range(U - 1)],
+                R(G3, xx, B) if emit else None,
+                R(G3, ux, B) if emit else None]
+
+    def block_cases(self):
+        """B1-B4 and B10-B12 at the block sizes of the generic
+        instantiations (``csrc/small_blocks.cuh``): (4, 2) in the (4, 4)
+        capacity, (8, 8) and (5, 4) in the (8, 8) one (B10's last row
+        groups masked at (4, 2) and (5, 4)), at the small path's shapes
+        (N=256, B=1024; B1 at N=128)."""
+        s, f, R = self.schur, self.flat, self.drand
+        N, B = N_MAIN, BATCH
+        depth = N.bit_length() - 1
+        rows = lambda G: G * B // 128
+        for nx, nu in EXTRA_BLOCKS:
+            xx, ux = nx * nx, nu * nx
+            blk = dict(n=nx, m=nu)
+            tag = f"n={nx} m={nu}"
+            self.compare(
+                "leaf_schur_level0_em", f"{tag} N={N} B={B}",
+                s.leaf_schur_level0_em,
+                [R(xx, N, B), R(ux, N, B, scale=0.2), self.pos(nx, N, B),
+                 self.pos(nu, N, B), R(N // 2, xx, B),
+                 [R(N // 2, xx, B, scale=0.1) for _ in range(depth - 1)],
+                 R(N // 4, xx, B), R(N // 4, ux, B)],
+                dict(blk, depth=depth),
+                sweep_ops(N, B, 0, depth - 1, depth - 1, N // 4, nx, nu),
+                phase="phase2f",
+            )
+            self.compare(
+                "rhs_update_level_em", f"{tag} N={N} B={B} level=0",
+                s.rhs_update_level_em,
+                [R(xx, N, B), R(xx, N, B), R(ux, N, B), R(nx, N, B),
+                 R(nx, N, B), R(nu, N, B), R(N // 2, nx, B, scale=0.1)],
+                dict(blk, level=0), update_ops(nx, nu, 1, N, B, 0, 1),
+                phase="phase2f",
+            )
+            U = depth - 2
+            args = self.pair_args(N, B, 1, nx, nu, R)
+            self.compare(
+                "schur_update_pair_em", f"{tag} N={N} B={B} level=1",
+                s.schur_update_pair_em, args, dict(blk, level=1),
+                sweep_ops(N, B, 1, U, 0 if args[-1] is None else U - 1,
+                          N >> 4, nx, nu)
+                + update_ops(nx, nu, nx, N, B, 2, U - 1),
+                phase="phase2f",
+            )
+            for level in (1, N_ODD.bit_length() - 3):
+                U = N_ODD.bit_length() - 1 - level - 1
+                args = self.level_args(N_ODD, B, level, nx, nu, R)
+                self.compare(
+                    "schur_update_level_em",
+                    f"{tag} N={N_ODD} B={B} level={level}",
+                    s.schur_update_level_em, args, dict(blk, level=level),
+                    sweep_ops(N_ODD, B, level, U,
+                              0 if args[-1] is None else U,
+                              N_ODD >> (level + 2), nx, nu),
+                    phase="phase2f",
+                )
+            q, r = self.pos(nx, rows(N), 128), self.pos(nu, rows(N), 128)
+            self.compare(
+                "leaf_schur_level0_flat", f"{tag} N={N} B={B}",
+                f.leaf_schur_level0_flat,
+                [R(xx, rows(N), 128), R(ux, rows(N), 128, scale=0.2), q, r,
+                 R(xx, rows(N // 2), 128),
+                 [R(xx, rows(N // 2), 128, scale=0.1)
+                  for _ in range(depth - 1)],
+                 R(xx, rows(N // 4), 128), R(ux, rows(N // 4), 128)],
+                dict(blk, depth=depth, N=N),
+                sweep_ops(N, B, 0, depth - 1, depth - 1, N // 4, nx, nu),
+                phase="phase2f",
+            )
+            for level in (1, 3):
+                U = depth - level - 1
+                G, G2 = N >> (level + 1), N >> (level + 2)
+                emit = f._flat_emits(level, N)
+                self.compare(
+                    "schur_update_level_flat",
+                    f"{tag} N={N} B={B} level={level} U={U}",
+                    f.schur_update_level_flat,
+                    [R(xx, rows(N), 128), R(xx, rows(N), 128),
+                     R(ux, rows(N), 128),
+                     [R(xx, rows(N), 128) for _ in range(U)],
+                     [R(xx, rows(N), 128) for _ in range(U)],
+                     [R(ux, rows(N), 128) for _ in range(U)],
+                     [R(xx, rows(G), 128, scale=0.1) for _ in range(U)],
+                     R(xx, rows(G2), 128) if emit else None,
+                     R(ux, rows(G2), 128) if emit else None],
+                    dict(blk, level=level, N=N),
+                    sweep_ops(N, B, level, U, U if emit else 0, G2, nx, nu),
+                    phase="phase2f",
+                )
+            self.compare(
+                "rhs_update_level_flat", f"{tag} N={N} B={B} level=0",
+                f.rhs_update_level_flat,
+                [R(xx, rows(N), 128), R(xx, rows(N), 128),
+                 R(ux, rows(N), 128), R(nx, rows(N), 128),
+                 R(nx, rows(N), 128), R(nu, rows(N), 128),
+                 R(nx, rows(N // 2), 128, scale=0.1)],
+                dict(blk, level=0, N=N), update_ops(nx, nu, 1, N, B, 0, 1),
+                phase="phase2f",
+            )
 
     # -- phase 2b --------------------------------------------------------
     def spd(self, d, *plane):
@@ -594,9 +727,11 @@ class Smoke:
             flags = "+".join(k for k in fl if k != "sub") + (
                 "(add)" if fl.get("sub") is False else "")
             self.compare(
-                "pgemm", f"{label} {p}x{K}.{K}x{q} {flags} plane={plane}",
+                "pgemm_flagged",
+                f"{label} {p}x{K}.{K}x{q} {flags} plane={plane}",
                 lambda a, b, c, d, s, **k: (pl.pgemm(a, b, c, d, s, **k),),
                 [A, Bm, cin, diag, ks], kw, ops, lib, moved, phase="phase2c",
+                chain=True,
             )
         for lam in (True, False):
             self.compare(
@@ -655,10 +790,11 @@ class Smoke:
     # -- phase 2d --------------------------------------------------------
     def flat_cases(self):
         """B10-B12 at the flat path's shapes (N=256, B=1024 as [e, N*B/128,
-        128] planes): B11 at depth 8, B10 at levels 1 (emitting, U=6) and 2
-        (not, U=5), B12 at levels 0 and 5. Each beside its em twin on the
-        same data (B3, B1 without emission at level 2, B2), and B10/B12
-        beside one unmasked ``baddbmm`` over all their slab rows."""
+        128] planes): B11 at depth 8, B10 at levels 1-6 (level 1 emitting,
+        U=6; then U=5..1, not), B12 at levels 0 and 5. Each beside its em
+        twin on the same data (B3, B1 without emission at levels 2-6, B2),
+        and B10/B12 beside one unmasked ``baddbmm`` over all their slab
+        rows; B10 also chained, kernel and ``baddbmm``."""
         t, f, s = self.torch, self.flat, self.schur
         R = self.drand
         N, B = N_MAIN, BATCH
@@ -684,7 +820,7 @@ class Smoke:
                    gm(Bs, N // 4)], kw),
         )
         del A, Bm, q, r, S0, fs, As, Bs
-        for level in (1, 2):
+        for level in range(1, depth - 1):
             U = depth - level - 1
             G, G2 = N >> (level + 1), N >> (level + 2)
             emit = f._flat_emits(level, N)
@@ -701,6 +837,7 @@ class Smoke:
                 library=self.trio_library(FL, up, fs, level),
                 moved=update_moved(n, m, n, N, B, level, U)
                 + (emit_moved(G2, B, U) if emit else 0), phase="phase2d",
+                chain=True,
                 twin=(s.schur_update_level_em,
                       [*map(em, FL), *[[em(x) for x in u] for u in up],
                        [gm(x, G) for x in fs],
@@ -778,6 +915,29 @@ class Smoke:
             )
 
     # -- phase 3 ---------------------------------------------------------
+    def default_f64(self, label, solve, b64):
+        """One default-option f64 solve (no kernel applies: the plain
+        stages on the card) against ``kernels="off"``, with every wrapper's
+        launches counted from 0 just before it; returns the rel diff."""
+        t, pt = self.torch, self.pt
+        mods = (self.schur, self.flat, self.planes)
+        for mod in mods:
+            mod.reset_launch_counts()
+        got = solve(b64)
+        t.cuda.synchronize()
+        launched = {k: v for mod in mods
+                    for k, v in mod.launch_counts().items() if v}
+        ref = solve(b64, options=pt.SolveOptions(kernels="off"))
+        d = rel_err(got, ref)
+        self.check(not launched and got.dtype == t.float64
+                   and bool(t.isfinite(got).all()) and d <= SLICE_BAR,
+                   f"{label}: default-option f64 solve launched {launched}, "
+                   f"rel diff vs off {d:.3e}")
+        print(f"{label} default options f64 B={b64.x0.shape[0]}: "
+              f"rel_diff_vs_off={d:.3e} (bar {SLICE_BAR}) launches "
+              f"{json.dumps(launched)}", flush=True)
+        return d
+
     def batch(self, N, dtype):
         pt = self.pt
         prob = pt.double_integrator_problem(N, dtype=dtype, device=self.dev)
@@ -829,6 +989,7 @@ class Smoke:
             self.check(e64 <= bar64,
                        f"N={N}: f64 plain vs f64 Riccati {e64:.3e} > "
                        f"{bar64:.3e}")
+            self.default_f64(f"phase3 N={N}", pt.solve_kkt, sub64)
             one = b.map(lambda x: x[0])
             res = float(pt.kkt_residual(one, got[0]))
             res_off = float(pt.kkt_residual(one, ref[0]))
@@ -889,6 +1050,7 @@ class Smoke:
         bar64 = F64_BAR * (1.0 + float(ric.abs().max()))
         self.check(e64 <= bar64, f"quadruped: f64 plain vs f64 Riccati "
                                  f"{e64:.3e} > {bar64:.3e}")
+        self.default_f64(f"phase3b quadruped N={QN}", pt.solve_kkt, sub64)
         res = max(float(pt.kkt_residual(b.map(lambda x: x[i]), got[i]))
                   for i in range(2))
         scale = max(float(got[:2].abs().max()), 1.0)
@@ -923,7 +1085,8 @@ class Smoke:
         peak = t.cuda.max_memory_allocated()
         # B5 (its flags) and B8 are this path's; schur_update_planes runs
         # on no path of either package.
-        for k in ("pgemm", "plu_solve_multi", "schur_update_planes"):
+        for k in ("pgemm", "pgemm_flagged", "plu_solve_multi",
+                  "schur_update_planes"):
             self.launches[k] = counts[k]
         for k in PSCAN_MID:
             self.check(counts[k] > 0,
@@ -954,6 +1117,8 @@ class Smoke:
         bar64 = F64_BAR * (1.0 + float(ric.abs().max()))
         self.check(e64 <= bar64, f"pscan quadruped: f64 plain vs f64 "
                                  f"Riccati {e64:.3e} > {bar64:.3e}")
+        self.default_f64(f"phase3c pscan quadruped N={QN}",
+                         pt.solve_pscan_kkt, self.quad_sub64)
         self.planes.reset_launch_counts()
         bi = pt.solve_pscan_kkt(
             b, options=pt.SolveOptions(pscan_batched_interior=True))
@@ -1071,6 +1236,44 @@ class Smoke:
               f"(kkt_residual {res_h:.3e}), device(3 it) {e_d:.3e} "
               f"(kkt_residual {res_d:.3e}); bar {bar64:.3e} "
               f"(one f32 solve: {e_f32:.3e})", flush=True)
+
+    # -- phase 3e --------------------------------------------------------
+    def block_solves(self):
+        """Default-option f32 solves at the generic block sizes: the em
+        schedule (``solve_kkt``, N=256: B2-B4 launch) and the flat one (B10-
+        B12 launch, no B1-B4), each against ``kernels="off"``; counts set to
+        0 just before each solve."""
+        t, pt, s, f = self.torch, self.pt, self.schur, self.flat
+        N, B = N_MAIN, BATCH
+        off = pt.SolveOptions(kernels="off")
+        for nx, nu in EXTRA_BLOCKS:
+            prob = (pt.double_integrator_problem(
+                N, nx, nu, dtype=t.float32, device=self.dev) if nx == 2 * nu
+                else pt.random_problem(t.Generator().manual_seed(nx), N, nx,
+                                       nu, dtype=t.float32, device=self.dev))
+            b = pt.batch_problems(prob, B, t.Generator().manual_seed(N + nx))
+            for label, opts in (("em", None),
+                                ("flat", pt.SolveOptions(flat_planes=True))):
+                s.reset_launch_counts()
+                f.reset_launch_counts()
+                got = pt.solve_kkt(b, options=opts)
+                t.cuda.synchronize()
+                em, fl = s.launch_counts(), f.launch_counts()
+                ref_opts = off if opts is None else pt.SolveOptions(
+                    flat_planes=True, kernels="off")
+                d = rel_err(got, pt.solve_kkt(b, options=ref_opts))
+                want = (("rhs_update_level_em", "leaf_schur_level0_em",
+                         "schur_update_pair_em") if opts is None
+                        else tuple(fl))
+                ran = {**em, **fl}
+                ok = (all(ran[k] > 0 for k in want) and d <= SLICE_BAR
+                      and bool(t.isfinite(got).all())
+                      and (opts is None or not any(em.values())))
+                self.check(ok, f"n={nx} m={nu} {label}: launches {ran}, rel "
+                               f"diff vs off {d:.3e}")
+                print(f"phase3e {label} n={nx} m={nu} N={N} B={B} f32 "
+                      f"default options: rel_diff_vs_off={d:.3e} (bar "
+                      f"{SLICE_BAR}) launches {json.dumps(ran)}", flush=True)
 
     # -- phase 5 ---------------------------------------------------------
     def profile(self, b, label, solve=None, top=14):
@@ -1207,10 +1410,12 @@ def main() -> int:
         ("phase2c", smoke.scan_cases),
         ("phase2d", smoke.flat_cases),
         ("phase2e", smoke.probe_cases),
+        ("phase2f", smoke.block_cases),
         ("phase3", smoke.slice_checks),
         ("phase3b", smoke.quad_checks),
         ("phase3c", smoke.pscan_checks),
         ("phase3d", smoke.flat_checks),
+        ("phase3e", smoke.block_solves),
         ("phase4", lambda: smoke.time_solves(
             card, smoke.main_batch, REPS, f"phase4 N={N_MAIN}")),
         ("phase4b", lambda: smoke.time_solves(
@@ -1261,7 +1466,8 @@ def main() -> int:
          "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
          "bound_by": st["bound_by"], "library_ms": st["library_ms"],
          "case": st["case"], "launches_from": LAUNCHES_FROM.get(name),
-         **({"em_twin_ms": st["em_twin_ms"]} if "em_twin_ms" in st else {})}
+         **{k: st[k] for k in ("em_twin_ms", "chained_ms",
+                               "library_chained_ms") if k in st}}
         for name, st in smoke.kernel_stats.items()
     ]
     print(card)

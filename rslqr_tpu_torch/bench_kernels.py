@@ -34,13 +34,16 @@ them, where the port reads the compact ones.
 
 The chains (``*_chain``: ``make_run(Kc)`` -> a callable) are built apart
 from the clock, so the CPU tests run them with the plain versions. A
-measurement needs a card: :func:`chain_diff` raises without one.
+measurement needs a card: :func:`chain_diff` raises without one. The same
+clock times single calls and chains for ``chip_smoke.py`` and
+``tools/time_solve.py`` (:func:`launch_ms`, :func:`chain_ms`).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import statistics
 import sys
 import time
 
@@ -375,6 +378,41 @@ def chain_diff(make_run, K, reps, device):
         del f1, fK  # the graphs and their memory pools
     torch.cuda.empty_cache()
     return min(ts), first_s
+
+
+def chain_ms(call, device="cuda", K: int = 10, reps: int = 3) -> float:
+    """Device ms of one ``call()`` chained: :func:`chain_diff` of ``K``
+    back-to-back calls against one, min over ``reps`` (the calls read the
+    same inputs; an in-place kernel updates them again)."""
+    def make_run(Kc):
+        def run():
+            out = None
+            for _ in range(Kc):
+                out = call()
+            return out
+        return run
+    return 1e3 * chain_diff(make_run, K, reps, device)[0]
+
+
+def launch_ms(fn, make_args, reps: int = 10) -> float:
+    """Median ms of ``fn(*make_args())`` over ``reps`` single launches after
+    one warm-up, CUDA events around each call with the card synchronized
+    before it (so the time holds the wrapper's host time while the card
+    idles); inputs are re-made, untimed, before each call."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("launch_ms times on a CUDA device")
+    times = []
+    for _ in range(reps + 1):
+        args = make_args()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn(*args)
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times[1:])
 
 
 # ---------------------------------------------------------------------------

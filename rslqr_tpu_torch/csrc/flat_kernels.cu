@@ -12,23 +12,26 @@
 // schur_kernels.cu (the [nn, N, B] suite, B1-B4) is the schedule: compact
 // solved separators and emitted products are element-major [e, G, B] (there
 // group-major [G, e, B]), products are emitted at levels 0 and 1 only, and
-// there is no level pairing. float32 only; block sizes n, m are template
-// parameters (instantiated for n=6, m=3).
+// there is no level pairing. float32 only. Block sizes: every 1 <= n, m <= 8,
+// through the instantiations of small_blocks.cuh (the exact (6, 3), and the
+// (4, 4) and (8, 8) capacities with n, m at run time).
 //
-// Mapping: one thread per (knot, batch column). A block is TB=32 batch
-// columns (one warp, so every slab load and store is a coalesced 128-byte
-// line) by KPT knots, KPT = the JAX tile's knots per tile (_kpt_for: 4 at
-// level 0, 8 above, at most N). Blocks start at multiples of KPT, so at an
-// emitting level (2 * span == KPT) a block holds exactly one next-level
-// group, its separator row r = span - 1 and the row r + 1 after it.
+// Mapping of the leaf and RHS kernels: one thread per (knot, batch column).
+// A block is TB=32 batch columns (one warp, so every slab load and store is
+// a coalesced 128-byte line) by KPT knots, KPT = the JAX tile's knots per
+// tile (_kpt_for: 4 at level 0, 8 above, at most N). Blocks start at
+// multiples of KPT, so at an emitting level (2 * span == KPT) a block holds
+// exactly one next-level group, its separator row r = span - 1 and the row
+// r + 1 after it. The level kernel splits each knot's rows over several
+// threads instead (see its note below).
 //
-// Every slab element is written once. The row-r thread stages its new x/u
-// blocks in shared memory; the row-(r+1) thread stages its new lambda/x
-// blocks and holds back its lambda store. After a __syncthreads() the
-// row-(r+1) thread forms S = A_sep @ x[r] + B_sep @ u[r] - x[r+1] - l[r+1]
-// (ndlqr_FactorInnerProduct, nested_dissection.c:114-134), writes S and
-// stores its lambda row: S on the next level's own slab (the Sbar fold,
-// ref solve.c:92-97), else the staged value.
+// Every slab element is written once. In the leaf kernel the row-r thread
+// stages its new x/u blocks in shared memory; the row-(r+1) thread stages
+// its new lambda/x blocks and holds back its lambda store. After a
+// __syncthreads() the row-(r+1) thread forms S = A_sep @ x[r] + B_sep @ u[r]
+// - x[r+1] - l[r+1] (ndlqr_FactorInnerProduct, nested_dissection.c:114-134),
+// writes S and stores its lambda row: S on the next level's own slab (the
+// Sbar fold, ref solve.c:92-97), else the staged value.
 //
 // Bound: bandwidth. Per knot and batch column and upper level a kernel reads
 // and writes about 90 floats of slab against ~6 FMAs per slab element (about
@@ -43,7 +46,13 @@
 #include <cuda_runtime.h>
 #include <cstddef>
 
+#include "small_blocks.cuh"
+
 namespace {
+
+using small_blocks::dot_row;
+using small_blocks::load_blk;
+using small_blocks::with_block;
 
 constexpr int MAXU = 24;  // upper slabs per launch (matches ops/schur.py)
 constexpr int TB = 32;    // batch columns per block
@@ -77,60 +86,59 @@ __device__ __forceinline__ size_t cidx(int e, int g, int G, int B, int b) {
   return ((size_t)e * G + g) * B + b;
 }
 
-template <int E>
-__device__ __forceinline__ void load_planes(float (&r)[E], const float* src,
-                                            const Site& s) {
-#pragma unroll
-  for (int e = 0; e < E; ++e) r[e] = src[e * s.plane + s.idx];
+// A rows x cols block of this thread's knot from element-major planes.
+template <int R, int C>
+__device__ __forceinline__ void load_planes(float (&r)[R * C],
+                                            const float* src, int rows,
+                                            int cols, const Site& s) {
+  load_blk<R, C>(r, rows, cols,
+                 [&](int e) { return src[e * s.plane + s.idx]; });
 }
 
-template <int E>
-__device__ __forceinline__ void load_compact(float (&r)[E], const float* src,
-                                             int g, int G, int B, int b) {
-#pragma unroll
-  for (int e = 0; e < E; ++e) r[e] = src[cidx(e, g, G, B, b)];
-}
-
-// (M @ f)[i, c] for a p x n block M (row-major planes) and n x n block f.
-template <int n>
-__device__ __forceinline__ float dot_row(const float* M, int i,
-                                         const float* f, int c) {
-  float acc = M[i * n] * f[c];
-#pragma unroll
-  for (int j = 1; j < n; ++j) acc += M[i * n + j] * f[j * n + c];
-  return acc;
+// A rows x cols block of group g of an element-major compact array.
+template <int R, int C>
+__device__ __forceinline__ void load_compact(float (&r)[R * C],
+                                             const float* src, int rows,
+                                             int cols, int g, int G, int B,
+                                             int b) {
+  load_blk<R, C>(r, rows, cols,
+                 [&](int e) { return src[cidx(e, g, G, B, b)]; });
 }
 
 // Shared-memory staging of one next-level group's rows r (x, u) and r+1
 // (lambda, x), per batch column of the block.
-template <int n, int m>
+template <class K>
 struct Stage {
-  float xr[n * n][TB];
-  float ur[m * n][TB];
-  float lr1[n * n][TB];
-  float xr1[n * n][TB];
+  float xr[K::NP * K::NP][TB];
+  float ur[K::MP * K::NP][TB];
+  float lr1[K::NP * K::NP][TB];
+  float xr1[K::NP * K::NP][TB];
 };
 
 enum Role { kPlain = 0, kSepRow = 1, kAfterSep = 2 };
 
 // One level's update of one upper slab trio at this thread's knot, from the
-// trio's current values (in_l/in_x/in_u: element -> value), written once:
+// trio's current values (in_l/in_x/in_u: block row, column -> value),
+// written once:
 //   l = sep ? f : (keep ? l - ML@f : l);  x -= MX@f;  u -= MU@f.
 // kSepRow stages its new x/u; kAfterSep stages its new lambda/x and leaves
 // its lambda store to emit_products.
-template <int n, int m, class InL, class InX, class InU>
+template <class K, class InL, class InX, class InU>
 __device__ __forceinline__ void update_trio(
     const float* ml, const float* mx, const float* mu, const float* f,
     bool keep, bool sep, InL in_l, InX in_x, InU in_u, float* ol, float* ox,
-    float* ou, Stage<n, m>& st, int role, const Site& s) {
+    float* ou, Stage<K>& st, int role, const Site& s, int n, int m) {
+  constexpr int NP = K::NP, MP = K::MP;
   const int t = threadIdx.x;
 #pragma unroll
-  for (int i = 0; i < n; ++i) {
+  for (int i = 0; i < NP; ++i) {
 #pragma unroll
-    for (int c = 0; c < n; ++c) {
+    for (int c = 0; c < NP; ++c) {
+      if (i >= n || c >= n) continue;
       const int e = i * n + c;
-      const float l = in_l(e);
-      const float v = sep ? f[e] : (keep ? l - dot_row<n>(ml, i, f, c) : l);
+      const float l = in_l(i, c);
+      const float v =
+          sep ? f[i * NP + c] : (keep ? l - dot_row<NP>(ml, i, f, c) : l);
       if (role == kAfterSep)
         st.lr1[e][t] = v;
       else
@@ -138,22 +146,24 @@ __device__ __forceinline__ void update_trio(
     }
   }
 #pragma unroll
-  for (int i = 0; i < n; ++i) {
+  for (int i = 0; i < NP; ++i) {
 #pragma unroll
-    for (int c = 0; c < n; ++c) {
+    for (int c = 0; c < NP; ++c) {
+      if (i >= n || c >= n) continue;
       const int e = i * n + c;
-      const float v = in_x(e) - dot_row<n>(mx, i, f, c);
+      const float v = in_x(i, c) - dot_row<NP>(mx, i, f, c);
       ox[e * s.plane + s.idx] = v;
       if (role == kSepRow) st.xr[e][t] = v;
       if (role == kAfterSep) st.xr1[e][t] = v;
     }
   }
 #pragma unroll
-  for (int i = 0; i < m; ++i) {
+  for (int i = 0; i < MP; ++i) {
 #pragma unroll
-    for (int c = 0; c < n; ++c) {
+    for (int c = 0; c < NP; ++c) {
+      if (i >= m || c >= n) continue;
       const int e = i * n + c;
-      const float v = in_u(e) - dot_row<n>(mu, i, f, c);
+      const float v = in_u(i, c) - dot_row<NP>(mu, i, f, c);
       ou[e * s.plane + s.idx] = v;
       if (role == kSepRow) st.ur[e][t] = v;
     }
@@ -163,27 +173,30 @@ __device__ __forceinline__ void update_trio(
 // The row-(r+1) thread's product emission and lambda store (see header):
 // S into group g2 of the compact [nn, G2, B] output, and its lambda row as
 // S (``fold``) or as the staged updated value.
-template <int n, int m>
-__device__ void emit_products(const Stage<n, m>& st,
+template <class K>
+__device__ void emit_products(const Stage<K>& st,
                               const float* __restrict__ Asep,
                               const float* __restrict__ Bsep, float* Sout,
                               float* ol, bool fold, int g2, int G2, int B,
-                              const Site& s) {
-  constexpr int nn = n * n;
-  float a[nn], bm[n * m];
-  load_compact(a, Asep, g2, G2, B, s.b);
-  load_compact(bm, Bsep, g2, G2, B, s.b);
+                              const Site& s, int n, int m) {
+  constexpr int NP = K::NP, MP = K::MP;
+  float a[NP * NP], bm[NP * MP];
+  load_compact<NP, NP>(a, Asep, n, n, g2, G2, B, s.b);
+  load_compact<NP, MP>(bm, Bsep, n, m, g2, G2, B, s.b);
   const int t = threadIdx.x;
 #pragma unroll
-  for (int i = 0; i < n; ++i) {
+  for (int i = 0; i < NP; ++i) {
 #pragma unroll
-    for (int c = 0; c < n; ++c) {
+    for (int c = 0; c < NP; ++c) {
+      if (i >= n || c >= n) continue;
       const int e = i * n + c;
-      float acc = a[i * n] * st.xr[c][t];
+      float acc = a[i * NP] * st.xr[c][t];
 #pragma unroll
-      for (int j = 1; j < n; ++j) acc += a[i * n + j] * st.xr[j * n + c][t];
+      for (int j = 1; j < NP; ++j)
+        if (j < n) acc += a[i * NP + j] * st.xr[j * n + c][t];
 #pragma unroll
-      for (int j = 0; j < m; ++j) acc += bm[i * m + j] * st.ur[j * n + c][t];
+      for (int j = 0; j < MP; ++j)
+        if (j < m) acc += bm[i * MP + j] * st.ur[j * n + c][t];
       acc = acc - st.xr1[e][t] - st.lr1[e][t];
       Sout[cidx(e, g2, G2, B, s.b)] = acc;
       ol[e * s.plane + s.idx] = fold ? acc : st.lr1[e][t];
@@ -201,90 +214,224 @@ __device__ __forceinline__ int role_of(bool emit, const Site& s, int level) {
 // ---------------------------------------------------------------------------
 // B12: RHS sweep, one level.
 // ---------------------------------------------------------------------------
-template <int n, int m>
+
+// (F @ zb)[i] for rows i of a slab F with n columns, zb zero past n.
+template <int NP>
+__device__ __forceinline__ float dot_plane(const float* F, int i, int n,
+                                           const float* zb, const Site& s) {
+  float acc = F[(i * n) * s.plane + s.idx] * zb[0];
+#pragma unroll
+  for (int j = 1; j < NP; ++j)
+    if (j < n) acc += F[(i * n + j) * s.plane + s.idx] * zb[j];
+  return acc;
+}
+
+template <class K>
 __global__ void flat_rhs_kernel(const float* __restrict__ Fl,
                                 const float* __restrict__ Fx,
                                 const float* __restrict__ Fu, float* zy,
                                 float* zx, float* zu,
                                 const float* __restrict__ zbar, int N, int B,
-                                int level) {
+                                int level, int n_, int m_) {
+  constexpr int NP = K::NP, MP = K::MP;
+  const int n = K::EX ? NP : n_, m = K::EX ? MP : m_;
   const Site s = site(N, B);
   if (!s.live) return;
   const int k = s.k, half = 1 << level;
   const bool keep = (k & (half - 1)) != 0 || k == 0;
   const bool sep = (k & (2 * half - 1)) == half;
-  float zb[n];
-  load_compact(zb, zbar, k >> (level + 1), N >> (level + 1), B, s.b);
+  float zb[NP];
+  load_compact<1, NP>(zb, zbar, 1, n, k >> (level + 1), N >> (level + 1), B,
+                      s.b);
 #pragma unroll
-  for (int i = 0; i < n; ++i) {
-    float acc = Fl[(i * n) * s.plane + s.idx] * zb[0];
-#pragma unroll
-    for (int j = 1; j < n; ++j) acc += Fl[(i * n + j) * s.plane + s.idx] * zb[j];
+  for (int i = 0; i < NP; ++i) {
+    if (i >= n) continue;
+    const float acc = dot_plane<NP>(Fl, i, n, zb, s);
     const size_t o = i * s.plane + s.idx;
     const float v = zy[o];
     zy[o] = sep ? zb[i] : (keep ? v - acc : v);
   }
 #pragma unroll
-  for (int i = 0; i < n; ++i) {
-    float acc = Fx[(i * n) * s.plane + s.idx] * zb[0];
+  for (int i = 0; i < NP; ++i)
+    if (i < n) zx[i * s.plane + s.idx] -= dot_plane<NP>(Fx, i, n, zb, s);
 #pragma unroll
-    for (int j = 1; j < n; ++j) acc += Fx[(i * n + j) * s.plane + s.idx] * zb[j];
-    zx[i * s.plane + s.idx] -= acc;
-  }
-#pragma unroll
-  for (int i = 0; i < m; ++i) {
-    float acc = Fu[(i * n) * s.plane + s.idx] * zb[0];
-#pragma unroll
-    for (int j = 1; j < n; ++j) acc += Fu[(i * n + j) * s.plane + s.idx] * zb[j];
-    zu[i * s.plane + s.idx] -= acc;
-  }
+  for (int i = 0; i < MP; ++i)
+    if (i < m) zu[i * s.plane + s.idx] -= dot_plane<NP>(Fu, i, n, zb, s);
 }
 
 // ---------------------------------------------------------------------------
 // B10: one level's Schur update of every upper slab.
+//
+// Mapping: a thread owns RPT = 3 rows of one slab at one (knot, batch
+// column), and holds only those rows of the level-L multiplier (3n floats)
+// for every upper slab; a thread that held all 2n + m rows would need ~200
+// registers at (6, 3) and leave 8 warps per SM. A slab of r rows has
+// ceil(r / 3) row groups; rows past r in its last group are masked (none at
+// (6, 3): 2 + 2 + 1 = 5 groups). A block is TB = 32 batch columns (one warp
+// per row group and knot: coalesced 128-byte lines) by the row groups by
+// LKB = 2 knots; at (6, 3) that is 320 threads, capped at 64 registers, so
+// that three blocks (30 warps) fit an SM: a cap of 48 (four blocks) spilled
+// 176-196 bytes and ran 1.2-1.9x slower (PERF.md). The solved separator f of
+// the knot's group is read by all the column's threads through L1.
+//
+// Each thread keeps its 3n slab loads of an upper slab independent (the
+// column loop is unrolled), so they are in flight together. A lambda row
+// that calc_lambda leaves unchanged (not kept, not a separator knot) is
+// neither read nor written: every slab element the level changes is written
+// once, and the others are not touched.
+//
+// Emission (levels 0-1; its own instantiation, so that the levels without
+// it carry none of its registers): knot tiles are shifted by one (the plan's
+// ``shift``), so a block holds the pair (r, r + 1) of a next-level group,
+// r = span - 1 odd, whenever r is a separator row. After the update of an
+// upper slab, one __syncthreads() (per block, not per SM) makes the new x
+// and u rows of r and x rows of r + 1 visible to the block, and the lambda
+// threads of r + 1 form their rows of
+//   S = A_sep @ x[r] + B_sep @ u[r] - x[r+1] - l[r+1]
+// (ndlqr_FactorInnerProduct, nested_dissection.c:114-134) from device
+// memory (L1/L2), write them to the compact product and, on the next
+// level's own slab (u = 0), into the lambda row of r + 1, which the level
+// itself leaves unchanged there (the Sbar fold, ref solve.c:92-97).
 // ---------------------------------------------------------------------------
-template <int n, int m>
-__global__ void flat_level_kernel(const float* __restrict__ FLl,
-                                  const float* __restrict__ FLx,
-                                  const float* __restrict__ FLu, Ptrs Fls,
-                                  Ptrs Fxs, Ptrs Fus, CPtrs fsol,
-                                  const float* __restrict__ Asep,
-                                  const float* __restrict__ Bsep, Ptrs Sout,
-                                  int U, int N, int B, int level, int emit) {
-  constexpr int nn = n * n, mn = m * n;
-  __shared__ Stage<n, m> st;
-  const Site s = site(N, B);
-  const int k = s.k, half = 1 << level;
+constexpr int RPT = 3;  // slab rows per thread
+constexpr int LKB = 2;  // knots per block (ops/flat.py:_level_plan)
+
+// Row groups of a slab of ``rows`` rows (ops/flat.py:_row_groups).
+__host__ __device__ constexpr int groups_of(int rows) {
+  return (rows + RPT - 1) / RPT;
+}
+
+template <class K>
+__host__ __device__ constexpr int level_threads() {
+  return TB * (2 * groups_of(K::NP) + groups_of(K::MP)) * LKB;
+}
+
+// Blocks per SM the register cap aims at: 30 warps at (6, 3).
+template <class K>
+__host__ __device__ constexpr int level_min_blocks() {
+  return 960 / level_threads<K>() > 1 ? 960 / level_threads<K>() : 1;
+}
+
+template <class K, bool EMIT>
+__global__ void __launch_bounds__(level_threads<K>(), level_min_blocks<K>())
+    flat_level_kernel(const float* __restrict__ FLl,
+                      const float* __restrict__ FLx,
+                      const float* __restrict__ FLu, Ptrs Fls, Ptrs Fxs,
+                      Ptrs Fus, CPtrs fsol, const float* __restrict__ Asep,
+                      const float* __restrict__ Bsep, Ptrs Sout, int U, int N,
+                      int B, int level, int shift, int n_, int m_) {
+  constexpr int NP = K::NP, MP = K::MP;
+  const int n = K::EX ? NP : n_, m = K::EX ? MP : m_;
+  // Every row group whole: nothing to mask.
+  constexpr bool WHOLE = K::EX && NP % RPT == 0 && MP % RPT == 0;
+  const int NL = groups_of(n), NX = groups_of(n);  // lambda, x row groups
+  const int b = blockIdx.x * TB + threadIdx.x;
+  const int rg = threadIdx.y;
+  const int k = blockIdx.y * LKB - shift + (int)threadIdx.z;
+  const bool live = b < B && k >= 0 && k < N;
+  const size_t plane = (size_t)N * B;
+  const size_t idx = live ? (size_t)k * B + b : 0;
+  const int half = 1 << level;
   const bool keep = (k & (half - 1)) != 0 || k == 0;
   const bool sep = (k & (2 * half - 1)) == half;
   const int g = k >> (level + 1), G = N >> (level + 1);
-  const int role = role_of(emit, s, level);
-  float ml[nn], mx[nn], mu[mn];
-  if (s.live) {
-    load_planes(ml, FLl, s);
-    load_planes(mx, FLx, s);
-    load_planes(mu, FLu, s);
+  // This thread's slab (0 lambda, 1 x, 2 u), its first row there, and which
+  // of its RPT rows the slab has.
+  const int slab = rg < NL ? 0 : (rg < NL + NX ? 1 : 2);
+  const int i0 = (rg - (slab == 0 ? 0 : (slab == 1 ? NL : NL + NX))) * RPT;
+  const int rows = slab == 2 ? m : n;
+  bool row_ok[RPT];
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) row_ok[r] = WHOLE || i0 + r < rows;
+  const bool lam = slab == 0;
+  const bool upd = live && !(lam && (sep || !keep));  // reads M and its rows
+  const bool put = live && lam && sep;                // writes f's rows
+  // Emission: the lambda threads of knot r + 1.
+  const int span = 2 << level;
+  const bool erow = EMIT && live && lam && (k & (2 * span - 1)) == span;
+  float mrow[RPT][NP];
+  if (upd) {
+    const float* M = slab == 0 ? FLl : (slab == 1 ? FLx : FLu);
+#pragma unroll
+    for (int r = 0; r < RPT; ++r)
+#pragma unroll
+      for (int j = 0; j < NP; ++j)
+        mrow[r][j] = row_ok[r] && j < n
+                         ? M[((i0 + r) * n + j) * plane + idx]
+                         : 0.0f;
   }
   for (int u = 0; u < U; ++u) {
-    if (s.live) {
-      float f[nn];
-      load_compact(f, fsol.p[u], g, G, B, s.b);
-      float* ol = Fls.p[u];
-      float* ox = Fxs.p[u];
-      float* ou = Fus.p[u];
-      update_trio<n, m>(
-          ml, mx, mu, f, keep, sep,
-          [&](int e) { return ol[e * s.plane + s.idx]; },
-          [&](int e) { return ox[e * s.plane + s.idx]; },
-          [&](int e) { return ou[e * s.plane + s.idx]; }, ol, ox, ou, st,
-          role, s);
+    const float* fu = fsol.p[u];
+    float* out = slab == 0 ? Fls.p[u] : (slab == 1 ? Fxs.p[u] : Fus.p[u]);
+    if (upd) {
+#pragma unroll
+      for (int c = 0; c < NP; ++c) {
+        if (c >= n) continue;
+        float fc[NP], v[RPT];
+#pragma unroll
+        for (int j = 0; j < NP; ++j)
+          fc[j] = j < n ? fu[cidx(j * n + c, g, G, B, b)] : 0.0f;
+#pragma unroll
+        for (int r = 0; r < RPT; ++r)
+          v[r] = row_ok[r] ? out[((i0 + r) * n + c) * plane + idx] : 0.0f;
+        // v - M @ f with the product summed first, as the plain version
+        // (and B1) sum it: subtracting term by term moved the flat solve of
+        // the double integrator 100x further from kernels="off" (PERF.md).
+#pragma unroll
+        for (int r = 0; r < RPT; ++r) {
+          float acc = mrow[r][0] * fc[0];
+#pragma unroll
+          for (int j = 1; j < NP; ++j) acc = fmaf(mrow[r][j], fc[j], acc);
+          if (row_ok[r]) out[((i0 + r) * n + c) * plane + idx] = v[r] - acc;
+        }
+      }
+    } else if (put) {
+#pragma unroll
+      for (int r = 0; r < RPT; ++r)
+#pragma unroll
+        for (int c = 0; c < NP; ++c) {
+          if (!row_ok[r] || c >= n) continue;
+          const int e = (i0 + r) * n + c;
+          out[e * plane + idx] = fu[cidx(e, g, G, B, b)];
+        }
     }
-    if (emit) {
+    if constexpr (EMIT) {
       __syncthreads();
-      if (role == kAfterSep)
-        emit_products<n, m>(st, Asep, Bsep, Sout.p[u], Fls.p[u], u == 0,
-                            k >> (level + 2), N >> (level + 2), B, s);
-      __syncthreads();
+      if (erow) {
+        const size_t ir = idx - B;  // knot r = k - 1
+        const int g2 = k >> (level + 2), G2 = N >> (level + 2);
+        const float* xs = Fxs.p[u];
+        const float* us = Fus.p[u];
+        float* ls = Fls.p[u];
+        float* so = Sout.p[u];
+#pragma unroll 1
+        for (int c = 0; c < n; ++c) {
+          float xr[NP], ur[MP];
+#pragma unroll
+          for (int j = 0; j < NP; ++j)
+            xr[j] = j < n ? xs[(j * n + c) * plane + ir] : 0.0f;
+#pragma unroll
+          for (int j = 0; j < MP; ++j)
+            ur[j] = j < m ? us[(j * n + c) * plane + ir] : 0.0f;
+#pragma unroll
+          for (int r = 0; r < RPT; ++r) {
+            if (!row_ok[r]) continue;
+            const int i = i0 + r, e = i * n + c;
+            float acc = Asep[cidx(i * n, g2, G2, B, b)] * xr[0];
+#pragma unroll
+            for (int j = 1; j < NP; ++j)
+              if (j < n)
+                acc = fmaf(Asep[cidx(i * n + j, g2, G2, B, b)], xr[j], acc);
+#pragma unroll
+            for (int j = 0; j < MP; ++j)
+              if (j < m)
+                acc = fmaf(Bsep[cidx(i * m + j, g2, G2, B, b)], ur[j], acc);
+            acc = acc - xs[e * plane + idx] - ls[e * plane + idx];
+            so[cidx(e, g2, G2, B, b)] = acc;
+            if (u == 0) ls[e * plane + idx] = acc;
+          }
+        }
+      }
     }
   }
 }
@@ -295,8 +442,9 @@ __global__ void flat_level_kernel(const float* __restrict__ FLl,
 
 // Level-L leaf values at knot k (ndlqr_SolveLeaf, nested_dissection.c:
 // 10-105; level(k) = trailing zeros of k+1, binary_tree.c:65-73), element
-// e = (i, j):  fx = own ? Q^-1 A' : 0  - (prev ? Q^-1 : 0),
-//              fu = ownu ? R^-1 B' : 0.
+// (i, j):  fx = own ? Q^-1 A' : 0  - (prev ? Q^-1 : 0),
+//          fu = ownu ? R^-1 B' : 0,
+// from register blocks a (stride NP) and bm (stride MP).
 struct LeafMask {
   bool own, prev, ownu;
 };
@@ -310,23 +458,21 @@ __device__ __forceinline__ LeafMask leaf_mask(int L, int k, int N) {
   return lm;
 }
 
-template <int n>
+template <int NP>
 __device__ __forceinline__ float leaf_x(const float* a, const float* qi,
-                                        LeafMask lm, int e) {
-  const int i = e / n, j = e % n;
-  float v = lm.own ? a[j * n + i] * qi[i] : 0.0f;
+                                        LeafMask lm, int i, int j) {
+  float v = lm.own ? a[j * NP + i] * qi[i] : 0.0f;
   if (i == j) v -= lm.prev ? qi[i] : 0.0f;
   return v;
 }
 
-template <int n, int m>
+template <int MP>
 __device__ __forceinline__ float leaf_u(const float* bm, const float* ri,
-                                        LeafMask lm, int e) {
-  const int i = e / n, j = e % n;
-  return lm.ownu ? bm[j * m + i] * ri[i] : 0.0f;
+                                        LeafMask lm, int i, int j) {
+  return lm.ownu ? bm[j * MP + i] * ri[i] : 0.0f;
 }
 
-template <int n, int m>
+template <class K>
 __global__ void flat_leaf_kernel(const float* __restrict__ A,
                                  const float* __restrict__ Bm,
                                  const float* __restrict__ qinv,
@@ -335,55 +481,74 @@ __global__ void flat_leaf_kernel(const float* __restrict__ A,
                                  const float* __restrict__ Asep,
                                  const float* __restrict__ Bsep, Ptrs Fls,
                                  Ptrs Fxs, Ptrs Fus, Ptrs Sout, int depth,
-                                 int N, int B) {
-  constexpr int nn = n * n, mn = m * n;
-  __shared__ Stage<n, m> st;
+                                 int N, int B, int n_, int m_) {
+  constexpr int NP = K::NP, MP = K::MP;
+  const int n = K::EX ? NP : n_, m = K::EX ? MP : m_;
+  __shared__ Stage<K> st;
   const Site s = site(N, B);
   const int k = s.k;
   const bool keep = k == 0;       // level-0 calc_lambda
   const bool sep = (k & 1) == 1;  // level-0 sep+1 rows
   const int g = k >> 1, G0 = N >> 1;
   const int role = role_of(true, s, 0);
-  float a[nn], bm[n * m], qi[n], ri[m];
-  float fl0[nn], fx0[nn], fu0[mn];
+  float a[NP * NP], bm[NP * MP], qi[NP], ri[MP];
+  float fl0[NP * NP], fx0[NP * NP], fu0[MP * NP];
   if (s.live) {
-    load_planes(a, A, s);
-    load_planes(bm, Bm, s);
-    load_planes(qi, qinv, s);
-    load_planes(ri, rinv, s);
+    load_planes<NP, NP>(a, A, n, n, s);
+    load_planes<NP, MP>(bm, Bm, n, m, s);
+    load_planes<1, NP>(qi, qinv, 1, n, s);
+    load_planes<1, MP>(ri, rinv, 1, m, s);
     const LeafMask lm0 = leaf_mask(0, k, N);
 #pragma unroll
-    for (int e = 0; e < nn; ++e) {
-      fx0[e] = leaf_x<n>(a, qi, lm0, e);
-      fl0[e] = k == 0 ? -a[(e % n) * n + e / n] : 0.0f;
+    for (int i = 0; i < NP; ++i) {
+#pragma unroll
+      for (int j = 0; j < NP; ++j) {
+        const bool in = i < n && j < n;
+        fx0[i * NP + j] = in ? leaf_x<NP>(a, qi, lm0, i, j) : 0.0f;
+        fl0[i * NP + j] = in && k == 0 ? -a[j * NP + i] : 0.0f;
+      }
     }
 #pragma unroll
-    for (int e = 0; e < mn; ++e) fu0[e] = leaf_u<n, m>(bm, ri, lm0, e);
+    for (int i = 0; i < MP; ++i)
+#pragma unroll
+      for (int j = 0; j < NP; ++j)
+        fu0[i * NP + j] =
+            i < m && j < n ? leaf_u<MP>(bm, ri, lm0, i, j) : 0.0f;
     // Slab 0: leaf values, with level 0's own Sbar at its sep+1 rows.
 #pragma unroll
-    for (int e = 0; e < nn; ++e) {
-      Fls.p[0][e * s.plane + s.idx] = sep ? S0[cidx(e, g, G0, B, s.b)] : fl0[e];
-      Fxs.p[0][e * s.plane + s.idx] = fx0[e];
+    for (int i = 0; i < NP; ++i) {
+#pragma unroll
+      for (int j = 0; j < NP; ++j) {
+        if (i >= n || j >= n) continue;
+        const int e = i * n + j;
+        Fls.p[0][e * s.plane + s.idx] =
+            sep ? S0[cidx(e, g, G0, B, s.b)] : fl0[i * NP + j];
+        Fxs.p[0][e * s.plane + s.idx] = fx0[i * NP + j];
+      }
     }
 #pragma unroll
-    for (int e = 0; e < mn; ++e) Fus.p[0][e * s.plane + s.idx] = fu0[e];
+    for (int i = 0; i < MP; ++i)
+#pragma unroll
+      for (int j = 0; j < NP; ++j)
+        if (i < m && j < n)
+          Fus.p[0][(i * n + j) * s.plane + s.idx] = fu0[i * NP + j];
   }
   for (int u = 1; u < depth; ++u) {
     if (s.live) {
-      float f[nn];
-      load_compact(f, fsol.p[u - 1], g, G0, B, s.b);
+      float f[NP * NP];
+      load_compact<NP, NP>(f, fsol.p[u - 1], n, n, g, G0, B, s.b);
       const LeafMask lm = leaf_mask(u, k, N);
       // Upper lambda slabs start at zero; x/u at the level-u leaf values.
-      update_trio<n, m>(
-          fl0, fx0, fu0, f, keep, sep, [](int) { return 0.0f; },
-          [&](int e) { return leaf_x<n>(a, qi, lm, e); },
-          [&](int e) { return leaf_u<n, m>(bm, ri, lm, e); }, Fls.p[u],
-          Fxs.p[u], Fus.p[u], st, role, s);
+      update_trio<K>(
+          fl0, fx0, fu0, f, keep, sep, [](int, int) { return 0.0f; },
+          [&](int i, int j) { return leaf_x<NP>(a, qi, lm, i, j); },
+          [&](int i, int j) { return leaf_u<MP>(bm, ri, lm, i, j); },
+          Fls.p[u], Fxs.p[u], Fus.p[u], st, role, s, n, m);
     }
     __syncthreads();
     if (role == kAfterSep)
-      emit_products<n, m>(st, Asep, Bsep, Sout.p[u - 1], Fls.p[u], u == 1,
-                          k >> 2, N >> 2, B, s);
+      emit_products<K>(st, Asep, Bsep, Sout.p[u - 1], Fls.p[u], u == 1,
+                       k >> 2, N >> 2, B, s, n, m);
     __syncthreads();
   }
 }
@@ -415,20 +580,19 @@ CPtrs cptrs(void* const* src) {
 
 }  // namespace
 
-#define RSLQR_FLAT_BLOCKS_OK(n, m) ((n) == 6 && (m) == 3)
-
 extern "C" {
 
 int rslqr_flat_rhs_update_level(const float* Fl, const float* Fx,
                                 const float* Fu, float* zy, float* zx,
                                 float* zu, const float* zbar, int N, int B,
                                 int level, int n, int m, void* stream) {
-  if (!RSLQR_FLAT_BLOCKS_OK(n, m)) return static_cast<int>(cudaErrorInvalidValue);
   const int kpt = kpt_for(level, N);
-  flat_rhs_kernel<6, 3><<<grid_for(N, B, kpt), dim3(TB, kpt), 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      Fl, Fx, Fu, zy, zx, zu, zbar, N, B, level);
-  return static_cast<int>(cudaGetLastError());
+  const auto st = static_cast<cudaStream_t>(stream);
+  return with_block(n, m, [&](auto k) {
+    using K = decltype(k);
+    flat_rhs_kernel<K><<<grid_for(N, B, kpt), dim3(TB, kpt), 0, st>>>(
+        Fl, Fx, Fu, zy, zx, zu, zbar, N, B, level, n, m);
+  });
 }
 
 int rslqr_flat_schur_update_level(const float* FLl, const float* FLx,
@@ -437,17 +601,28 @@ int rslqr_flat_schur_update_level(const float* FLl, const float* FLx,
                                   void* const* fsol, const float* Asep,
                                   const float* Bsep, void* const* S, int U,
                                   int N, int B, int level, int emit, int n,
-                                  int m, void* stream) {
-  const int kpt = kpt_for(level, N);
-  // Emission needs one whole next-level group per block.
-  if (!RSLQR_FLAT_BLOCKS_OK(n, m) || U < 0 || U > MAXU ||
-      (emit && kpt != (2 << (level + 1))))
+                                  int m, int shift, int gy, int rgs,
+                                  void* stream) {
+  // The plan (ops/flat.py:_level_plan): gy rows of LKB knots starting at
+  // knot -shift cover every knot; emission needs each (odd r, r + 1) pair in
+  // one block, so a shift of one; rgs row groups cover the 2n + m rows.
+  if (U < 0 || U > MAXU || level < 0 || (N >> (level + 1)) < 1 ||
+      shift < 0 || shift >= LKB || (long long)gy * LKB - shift < N ||
+      (emit && shift != 1) || rgs != 2 * groups_of(n) + groups_of(m))
     return static_cast<int>(cudaErrorInvalidValue);
-  flat_level_kernel<6, 3><<<grid_for(N, B, kpt), dim3(TB, kpt), 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      FLl, FLx, FLu, ptrs(Fls), ptrs(Fxs), ptrs(Fus), cptrs(fsol), Asep, Bsep,
-      ptrs(S), U, N, B, level, emit);
-  return static_cast<int>(cudaGetLastError());
+  const dim3 grid((B + TB - 1) / TB, gy), block(TB, rgs, LKB);
+  const auto st = static_cast<cudaStream_t>(stream);
+  return with_block(n, m, [&](auto k) {
+    using K = decltype(k);
+    if (emit)
+      flat_level_kernel<K, true><<<grid, block, 0, st>>>(
+          FLl, FLx, FLu, ptrs(Fls), ptrs(Fxs), ptrs(Fus), cptrs(fsol), Asep,
+          Bsep, ptrs(S), U, N, B, level, shift, n, m);
+    else
+      flat_level_kernel<K, false><<<grid, block, 0, st>>>(
+          FLl, FLx, FLu, ptrs(Fls), ptrs(Fxs), ptrs(Fus), cptrs(fsol), Asep,
+          Bsep, ptrs(S), U, N, B, level, shift, n, m);
+  });
 }
 
 int rslqr_flat_leaf_schur_level0(const float* A, const float* Bm,
@@ -458,13 +633,15 @@ int rslqr_flat_leaf_schur_level0(const float* A, const float* Bm,
                                  void* const* Fus, void* const* S, int depth,
                                  int N, int B, int n, int m, void* stream) {
   const int kpt = kpt_for(0, N);
-  if (!RSLQR_FLAT_BLOCKS_OK(n, m) || depth < 2 || depth > MAXU || kpt != 4)
+  if (depth < 2 || depth > MAXU || kpt != 4)
     return static_cast<int>(cudaErrorInvalidValue);
-  flat_leaf_kernel<6, 3><<<grid_for(N, B, kpt), dim3(TB, kpt), 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      A, Bm, qinv, rinv, S0, cptrs(fsol), Asep, Bsep, ptrs(Fls), ptrs(Fxs),
-      ptrs(Fus), ptrs(S), depth, N, B);
-  return static_cast<int>(cudaGetLastError());
+  const auto st = static_cast<cudaStream_t>(stream);
+  return with_block(n, m, [&](auto k) {
+    using K = decltype(k);
+    flat_leaf_kernel<K><<<grid_for(N, B, kpt), dim3(TB, kpt), 0, st>>>(
+        A, Bm, qinv, rinv, S0, cptrs(fsol), Asep, Bsep, ptrs(Fls), ptrs(Fxs),
+        ptrs(Fus), ptrs(S), depth, N, B, n, m);
+  });
 }
 
 }  // extern "C"

@@ -1,12 +1,12 @@
 // Hand-written Hopper kernels for the mid-block (8 < n <= 64) element-plane
 // linear algebra of the rsLQR path.
 //
-// Four kernels for four TPU kernels of rslqr_tpu/ops/planes_pallas.py (B8,
-// plu_solve_multi, is in plu_kernels.cu):
+// Three kernels for four TPU kernels of rslqr_tpu/ops/planes_pallas.py (B8,
+// plu_solve_multi, is in plu_kernels.cu; _pgemm_call with its flags, the
+// pscan combines' product, in flagged_kernels.cu):
 //   rows_kernel        <- _pgemm_call / pgemm        (C = A @ B, no flags)
 //                      <- schur3_update_planes       (fused lambda/x/u update)
 //                      <- schur_update_planes        (one slab of the same)
-//   flagged_kernel     <- _pgemm_call with its flags (the pscan combines)
 //   pchol_kernel       <- pchol                      (Cholesky, lower L)
 //   pcho_solve_kernel  <- pcho_solve                 ((L L') X = B in place)
 //
@@ -31,19 +31,6 @@
 // lane's knot group. Shared-memory bandwidth is not what bounds it: a
 // variant that feeds two rows from each shared-memory load ran slower, and
 // unrolling 16 terms instead of 8 changed nothing (PERF.md).
-//
-// flagged_kernel (the product with _pgemm_call's flags) is rows_kernel's
-// product loop as a kernel of its own, so that rows_kernel compiles as it
-// did (a template flag on rows_kernel slowed its rsLQR launches by ~5%,
-// PERF.md). ``ta`` and ``tbt`` change only the strides of the row loads and
-// of the staging loads (each still one coalesced line per lane); ``kscale``
-// scales the staged rows of B once per block (the TPU kernel scales the A
-// side per (i, k): the same product up to rounding); ``Cin`` is read from
-// its own pointer and C written to a fresh output, so the caller's operand
-// is never overwritten; ``diag`` and ``dconst`` are added at (i, i) after
-// ``Cin``; ``sym`` runs 12-column chunks, skips every chunk above a row's
-// diagonal, and stores each lower-triangle value at (i, j) and (j, i), with
-// no mirror pass.
 //
 // pcho_solve_kernel: one thread per (plane element, right-hand column),
 // the column in registers, L staged per block in shared memory (see the
@@ -241,105 +228,6 @@ int launch_rows(const RowsArgs& a, cudaStream_t st) {
   }
 }
 
-// The flagged product: C = Cin -/+ op(A) diag(ks) op(B), plus diag and
-// dconst at (i, i); op(A) [p, K], op(B) [K, q], all [., ., F] planes.
-struct FlaggedArgs {
-  const float* A;     // [p, K, F], or [K, p, F] with ta
-  const float* B;     // [K, q, F], or [q, K, F] with tbt
-  const float* Cin;   // [p, q, F] or null
-  const float* diag;  // [p, F] or null
-  const float* ks;    // [K, F] or null
-  float* C;           // [p, q, F], a fresh output
-  int p, K, q, F;
-  int ta, tbt, sub, sym;  // sub: Cin - (else Cin +)
-  float dconst;
-};
-
-// Two blocks per SM for the narrow chunks (at most 64 registers), as
-// rows_kernel's 12-column instantiation reaches by itself.
-template <int QC>
-__global__ void __launch_bounds__(LANES * ROW_WARPS, QC <= 12 ? 2 : 1)
-    flagged_kernel(const FlaggedArgs a) {
-  extern __shared__ float Rs[];  // [K][QC][LANES]
-  const int lane = threadIdx.x;
-  const int warp = threadIdx.y;
-  const int f0 = blockIdx.x * LANES + lane;
-  const bool live = f0 < a.F;
-  const size_t f = live ? f0 : a.F - 1;  // dead lanes load a valid address
-  const size_t F = a.F;
-  // op(A)[i, k] at (i*ai + k*ak)*F, op(B)[k, j] at (k*bk + j*bj)*F; the
-  // element offsets (< 64*64) stay 32-bit, only their product with F is
-  // 64-bit.
-  const int ai = a.ta ? 1 : a.K, bk = a.tbt ? 1 : a.q, bj = a.tbt ? a.K : 1;
-  const size_t ak = (size_t)(a.ta ? a.p : 1) * F;
-  for (int j0 = 0; j0 < a.q; j0 += QC) {
-    const int qc = a.q - j0 < QC ? a.q - j0 : QC;
-    // Stage op(B)[:, j0:j0+QC] (times ks) for the block's lanes.
-    __syncthreads();
-#pragma unroll 8
-    for (int t = warp; t < a.K * QC; t += ROW_WARPS) {
-      const int k = t / QC, j = t - k * QC;
-      float v = 0.f;
-      if (j < qc) {
-        v = a.B[(size_t)(k * bk + (j0 + j) * bj) * F + f];
-        if (a.ks) v *= a.ks[(size_t)k * F + f];
-      }
-      Rs[t * LANES + lane] = v;
-    }
-    __syncthreads();
-    for (int i = warp; i < a.p; i += ROW_WARPS) {
-      if (a.sym && i < j0) continue;  // the chunk lies above the diagonal
-      float acc[QC];
-#pragma unroll
-      for (int j = 0; j < QC; ++j) acc[j] = 0.f;
-      const float* arow = a.A + (size_t)(i * ai) * F + f;
-#pragma unroll 8
-      for (int k = 0; k < a.K; ++k) {
-        const float v = arow[(size_t)k * ak];
-        const float* rk = Rs + k * QC * LANES + lane;
-#pragma unroll
-        for (int j = 0; j < QC; ++j) acc[j] = fmaf(v, rk[j * LANES], acc[j]);
-      }
-      if (!live) continue;
-#pragma unroll
-      for (int j = 0; j < QC; ++j) {
-        const int c = j0 + j;
-        if (j < qc && (!a.sym || c <= i)) {
-          const size_t o = ((size_t)i * a.q + c) * F + f;
-          float v = acc[j];
-          if (a.Cin) v = a.sub ? a.Cin[o] - v : a.Cin[o] + v;
-          if (c == i) {
-            if (a.diag) v += a.diag[(size_t)i * F + f];
-            if (a.dconst != 0.f) v += a.dconst;
-          }
-          a.C[o] = v;
-          if (a.sym && c != i) a.C[((size_t)c * a.q + i) * F + f] = v;
-        }
-      }
-    }
-  }
-}
-
-// Column chunk width of the flagged product: 1, 12 or 36 as chunk_for,
-// and 12 for a symmetric output (so that whole chunks above the diagonal
-// are skipped) or where 36 would not fit.
-int chunk_for_flagged(int q, int K, bool sym) {
-  if (q <= 1) return 1;
-  if (q <= 12 || sym) return 12;
-  return chunk_for(q, K) == 36 ? 36 : 12;
-}
-
-template <int QC>
-int launch_flagged_qc(const FlaggedArgs& a, cudaStream_t st) {
-  const int smem = a.K * QC * LANES * (int)sizeof(float);
-  const cudaError_t e = cudaFuncSetAttribute(
-      flagged_kernel<QC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  flagged_kernel<QC><<<(a.F + LANES - 1) / LANES, dim3(LANES, ROW_WARPS),
-                       smem, st>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // Left-looking Cholesky (the TPU kernel's _chol_kernel): column j is
 // A[j:, j] - L[j:, :j] L[j, :j]', scaled by 1/sqrt of its first entry. Row j
 // of L (columns < j) is held in registers; the rows below are read back
@@ -486,28 +374,6 @@ int rslqr_pgemm(const float* A, const float* B, float* C, int p, int K, int q,
   a.q = q;
   a.F = F;
   return launch_rows(a, static_cast<cudaStream_t>(stream));
-}
-
-// C = Cin -/+ op(A) diag(ks) op(B) (+ diag, + dconst on the diagonal), sym
-// or not; Cin, diag and ks may be null. C must not alias any input.
-int rslqr_pgemm_flagged(const float* A, const float* B, const float* Cin,
-                        const float* diag, const float* ks, float* C, int p,
-                        int K, int q, int F, int ta, int tbt, int sub, int sym,
-                        float dconst, void* stream) {
-  if (!dims_ok(p) || !dims_ok(K) || !dims_ok(q) || F < 1 ||
-      ((sym || diag || dconst != 0.f) && p != q))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const FlaggedArgs a = {A, B, Cin, diag, ks, C, p, K, q, F,
-                         ta, tbt, sub, sym, dconst};
-  const auto st = static_cast<cudaStream_t>(stream);
-  switch (chunk_for_flagged(q, K, sym != 0)) {
-    case 1:
-      return launch_flagged_qc<1>(a, st);
-    case 12:
-      return launch_flagged_qc<12>(a, st);
-    default:
-      return launch_flagged_qc<36>(a, st);
-  }
 }
 
 // One slab of the Schur update, in place on C, through rows_kernel's Schur

@@ -9,17 +9,19 @@
 // Layout (as in the JAX package): factor slabs are element-major planes
 // [e, N, B] (element e of knot k, batch column b at e*N*B + k*B + b);
 // solved separator blocks and emitted products are group-major [G, e, B].
-// float32 only. Block sizes n, m are template parameters (instantiated for
-// n=6, m=3), so every small block product unrolls into register FMAs.
+// float32 only. Block sizes: every 1 <= n, m <= 8, through the
+// instantiations of small_blocks.cuh (the exact (6, 3), and the (4, 4) and
+// (8, 8) capacities with n, m at run time).
 //
 // Mapping: one thread per (knot, batch column). A block is TB=32 batch
 // columns (one warp, so every slab load/store is a coalesced 128-byte line)
-// by TK=8 knots. Knot tiles are shifted by one: block row y covers knots
-// y*TK-1 .. y*TK+TK-2, so each (odd knot, odd knot + 1) pair lies in one
-// block. The next-level product emission needs exactly such a pair (the
-// separator row r, always odd, and r+1) and nothing else across knots: the
-// thread of row r stages its updated x/u blocks in shared memory, and after
-// a __syncthreads() the thread of row r+1 forms
+// by TK=8 knots (4 at the (8, 8) capacity, whose staging of 8 knots would
+// pass the 48 KB of static shared memory). Knot tiles are shifted by one:
+// block row y covers knots y*TK-1 .. y*TK+TK-2, so each (odd knot, odd
+// knot + 1) pair lies in one block. The next-level product emission needs
+// exactly such a pair (the separator row r, always odd, and r+1) and nothing
+// else across knots: the thread of row r stages its updated x/u blocks in
+// shared memory, and after a __syncthreads() the thread of row r+1 forms
 //   S = A_sep @ Fx[r] + B_sep @ Fu[r] - Fx[r+1] - Fl[r+1]
 // (ndlqr_FactorInnerProduct, nested_dissection.c:114-134), writes S and,
 // for the next level's own slab, folds it into its lambda row.
@@ -32,11 +34,22 @@
 #include <cuda_runtime.h>
 #include <cstddef>
 
+#include "small_blocks.cuh"
+
 namespace {
+
+using small_blocks::dot_row;
+using small_blocks::load_blk;
+using small_blocks::with_block;
 
 constexpr int MAXU = 24;  // upper slabs per launch (matches ops/schur.py)
 constexpr int TB = 32;    // batch columns per block
-constexpr int TK = 8;     // knots per block (even: holds whole odd/even pairs)
+
+// Knots per block (even: holds whole odd/even pairs).
+template <class K>
+__host__ __device__ constexpr int tk_of() {
+  return K::NP * K::NP + K::MP * K::NP > 64 ? 4 : 8;
+}
 
 struct Ptrs {
   float* p[MAXU];
@@ -51,6 +64,7 @@ struct Site {
   size_t idx, plane;
 };
 
+template <int TK>
 __device__ __forceinline__ Site site(int N, int B) {
   Site s;
   s.b = blockIdx.x * TB + threadIdx.x;
@@ -66,60 +80,59 @@ __device__ __forceinline__ size_t gidx(int g, int E, int e, int B, int b) {
   return ((size_t)g * E + e) * B + b;
 }
 
-template <int E>
-__device__ __forceinline__ void load_planes(float (&r)[E], const float* src,
-                                            const Site& s) {
-#pragma unroll
-  for (int e = 0; e < E; ++e) r[e] = src[e * s.plane + s.idx];
+// A rows x cols block of this thread's knot from element-major planes.
+template <int R, int C>
+__device__ __forceinline__ void load_planes(float (&r)[R * C],
+                                            const float* src, int rows,
+                                            int cols, const Site& s) {
+  load_blk<R, C>(r, rows, cols,
+                 [&](int e) { return src[e * s.plane + s.idx]; });
 }
 
-template <int E>
-__device__ __forceinline__ void load_group(float (&r)[E], const float* src,
-                                           int g, int B, int b) {
-#pragma unroll
-  for (int e = 0; e < E; ++e) r[e] = src[gidx(g, E, e, B, b)];
-}
-
-// (M @ f)[i, c] for a p x n block M (row-major planes) and n x n block f.
-template <int n>
-__device__ __forceinline__ float dot_row(const float* M, int i,
-                                         const float* f, int c) {
-  float acc = M[i * n] * f[c];
-#pragma unroll
-  for (int j = 1; j < n; ++j) acc += M[i * n + j] * f[j * n + c];
-  return acc;
+// A rows x cols block of group g of a group-major array.
+template <int R, int C>
+__device__ __forceinline__ void load_group(float (&r)[R * C],
+                                           const float* src, int rows,
+                                           int cols, int g, int B, int b) {
+  const int E = rows * cols;
+  load_blk<R, C>(r, rows, cols,
+                 [&](int e) { return src[gidx(g, E, e, B, b)]; });
 }
 
 // Shared-memory staging of separator rows: one slot per odd/even knot pair.
-template <int n, int m>
+template <class K>
 struct Stage {
-  float x[TK / 2][n * n][TB];
-  float u[TK / 2][m * n][TB];
+  float x[tk_of<K>() / 2][K::NP * K::NP][TB];
+  float u[tk_of<K>() / 2][K::MP * K::NP][TB];
 };
 
 // The row-(r+1) thread's product emission and optional fold (see header).
 // ``ol``/``ox`` are its own lambda/x slab pointers (already written).
-template <int n, int m>
-__device__ void emit_products(const Stage<n, m>& st, int slot,
+template <class K>
+__device__ void emit_products(const Stage<K>& st, int slot,
                               const float* __restrict__ Asep,
                               const float* __restrict__ Bsep, float* Sout,
                               float* ol, const float* ox, bool fold, int g2,
-                              int B, const Site& s) {
-  constexpr int nn = n * n;
-  float a[nn], bm[n * m];
-  load_group(a, Asep, g2, B, s.b);
-  load_group(bm, Bsep, g2, B, s.b);
+                              int B, const Site& s, int n, int m) {
+  constexpr int NP = K::NP, MP = K::MP;
+  const int nn = n * n;
+  float a[NP * NP], bm[NP * MP];
+  load_group<NP, NP>(a, Asep, n, n, g2, B, s.b);
+  load_group<NP, MP>(bm, Bsep, n, m, g2, B, s.b);
   const int t = threadIdx.x;
 #pragma unroll
-  for (int i = 0; i < n; ++i) {
+  for (int i = 0; i < NP; ++i) {
 #pragma unroll
-    for (int c = 0; c < n; ++c) {
+    for (int c = 0; c < NP; ++c) {
+      if (i >= n || c >= n) continue;
       const int e = i * n + c;
-      float acc = a[i * n] * st.x[slot][c][t];
+      float acc = a[i * NP] * st.x[slot][c][t];
 #pragma unroll
-      for (int j = 1; j < n; ++j) acc += a[i * n + j] * st.x[slot][j * n + c][t];
+      for (int j = 1; j < NP; ++j)
+        if (j < n) acc += a[i * NP + j] * st.x[slot][j * n + c][t];
 #pragma unroll
-      for (int j = 0; j < m; ++j) acc += bm[i * m + j] * st.u[slot][j * n + c][t];
+      for (int j = 0; j < MP; ++j)
+        if (j < m) acc += bm[i * MP + j] * st.u[slot][j * n + c][t];
       acc = acc - ox[e * s.plane + s.idx] - ol[e * s.plane + s.idx];
       Sout[gidx(g2, nn, e, B, s.b)] = acc;
       if (fold) ol[e * s.plane + s.idx] = acc;
@@ -132,103 +145,111 @@ __device__ void emit_products(const Stage<n, m>& st, int slot,
 // ``ml``/``mx``/``mu`` hold the multiplier blocks. The slab values are read
 // from and written back to ``ol``/``ox``/``ou`` in place; for a separator
 // row r (``stage``) the new x/u blocks also go to the staging slot.
-template <int n, int m>
+template <class K>
 __device__ __forceinline__ void update_trio(
     const float* ml, const float* mx, const float* mu, const float* f,
-    bool keep, bool sep, float* ol, float* ox, float* ou, Stage<n, m>& st,
-    int slot, bool stage, const Site& s) {
-  constexpr int nn = n * n;
+    bool keep, bool sep, float* ol, float* ox, float* ou, Stage<K>& st,
+    int slot, bool stage, const Site& s, int n, int m) {
+  constexpr int NP = K::NP, MP = K::MP;
   const int t = threadIdx.x;
 #pragma unroll
-  for (int i = 0; i < n; ++i) {
+  for (int i = 0; i < NP; ++i) {
 #pragma unroll
-    for (int c = 0; c < n; ++c) {
-      const int e = i * n + c;
-      const size_t o = e * s.plane + s.idx;
+    for (int c = 0; c < NP; ++c) {
+      if (i >= n || c >= n) continue;
+      const size_t o = (i * n + c) * s.plane + s.idx;
       const float v = ol[o];
-      ol[o] = sep ? f[e] : (keep ? v - dot_row<n>(ml, i, f, c) : v);
+      ol[o] = sep ? f[i * NP + c] : (keep ? v - dot_row<NP>(ml, i, f, c) : v);
     }
   }
 #pragma unroll
-  for (int i = 0; i < n; ++i) {
+  for (int i = 0; i < NP; ++i) {
 #pragma unroll
-    for (int c = 0; c < n; ++c) {
+    for (int c = 0; c < NP; ++c) {
+      if (i >= n || c >= n) continue;
       const int e = i * n + c;
       const size_t o = e * s.plane + s.idx;
-      const float v = ox[o] - dot_row<n>(mx, i, f, c);
+      const float v = ox[o] - dot_row<NP>(mx, i, f, c);
       ox[o] = v;
       if (stage) st.x[slot][e][t] = v;
     }
   }
 #pragma unroll
-  for (int i = 0; i < m; ++i) {
+  for (int i = 0; i < MP; ++i) {
 #pragma unroll
-    for (int c = 0; c < n; ++c) {
+    for (int c = 0; c < NP; ++c) {
+      if (i >= m || c >= n) continue;
       const int e = i * n + c;
       const size_t o = e * s.plane + s.idx;
-      const float v = ou[o] - dot_row<n>(mu, i, f, c);
+      const float v = ou[o] - dot_row<NP>(mu, i, f, c);
       ou[o] = v;
       if (stage) st.u[slot][e][t] = v;
     }
   }
-  (void)nn;
 }
 
 // ---------------------------------------------------------------------------
 // B2: RHS sweep, one level.
 // ---------------------------------------------------------------------------
-template <int n, int m>
+
+// (F @ zb)[i] for rows i of a slab F with n columns, zb zero past n.
+template <int NP>
+__device__ __forceinline__ float dot_plane(const float* F, int i, int n,
+                                           const float* zb, const Site& s) {
+  float acc = F[(i * n) * s.plane + s.idx] * zb[0];
+#pragma unroll
+  for (int j = 1; j < NP; ++j)
+    if (j < n) acc += F[(i * n + j) * s.plane + s.idx] * zb[j];
+  return acc;
+}
+
+template <class K>
 __global__ void rhs_kernel(const float* __restrict__ Fl,
                            const float* __restrict__ Fx,
                            const float* __restrict__ Fu, float* zy, float* zx,
                            float* zu, const float* __restrict__ zbar, int N,
-                           int B, int level) {
-  const Site s = site(N, B);
+                           int B, int level, int n_, int m_) {
+  constexpr int NP = K::NP, MP = K::MP;
+  const int n = K::EX ? NP : n_, m = K::EX ? MP : m_;
+  const Site s = site<tk_of<K>()>(N, B);
   if (!s.live) return;
   const int k = s.k, half = 1 << level;
   const bool keep = (k & (half - 1)) != 0 || k == 0;
   const bool sep = (k & (2 * half - 1)) == half;
-  float zb[n];
-  load_group(zb, zbar, k >> (level + 1), B, s.b);
+  float zb[NP];
+  load_group<1, NP>(zb, zbar, 1, n, k >> (level + 1), B, s.b);
 #pragma unroll
-  for (int i = 0; i < n; ++i) {
-    float acc = Fl[(i * n) * s.plane + s.idx] * zb[0];
-#pragma unroll
-    for (int j = 1; j < n; ++j) acc += Fl[(i * n + j) * s.plane + s.idx] * zb[j];
+  for (int i = 0; i < NP; ++i) {
+    if (i >= n) continue;
+    const float acc = dot_plane<NP>(Fl, i, n, zb, s);
     const size_t o = i * s.plane + s.idx;
     const float v = zy[o];
     zy[o] = sep ? zb[i] : (keep ? v - acc : v);
   }
 #pragma unroll
-  for (int i = 0; i < n; ++i) {
-    float acc = Fx[(i * n) * s.plane + s.idx] * zb[0];
+  for (int i = 0; i < NP; ++i)
+    if (i < n) zx[i * s.plane + s.idx] -= dot_plane<NP>(Fx, i, n, zb, s);
 #pragma unroll
-    for (int j = 1; j < n; ++j) acc += Fx[(i * n + j) * s.plane + s.idx] * zb[j];
-    zx[i * s.plane + s.idx] -= acc;
-  }
-#pragma unroll
-  for (int i = 0; i < m; ++i) {
-    float acc = Fu[(i * n) * s.plane + s.idx] * zb[0];
-#pragma unroll
-    for (int j = 1; j < n; ++j) acc += Fu[(i * n + j) * s.plane + s.idx] * zb[j];
-    zu[i * s.plane + s.idx] -= acc;
-  }
+  for (int i = 0; i < MP; ++i)
+    if (i < m) zu[i * s.plane + s.idx] -= dot_plane<NP>(Fu, i, n, zb, s);
 }
 
 // ---------------------------------------------------------------------------
 // B1: one level's Schur update of every upper slab.
 // ---------------------------------------------------------------------------
-template <int n, int m>
+template <class K>
 __global__ void level_kernel(const float* __restrict__ FLl,
                              const float* __restrict__ FLx,
                              const float* __restrict__ FLu, Ptrs Fls,
                              Ptrs Fxs, Ptrs Fus, CPtrs fsol,
                              const float* __restrict__ Asep,
                              const float* __restrict__ Bsep, Ptrs Sout, int U,
-                             int N, int B, int level, int emit) {
-  constexpr int nn = n * n, mn = m * n;
-  __shared__ Stage<n, m> st;
-  const Site s = site(N, B);
+                             int N, int B, int level, int emit, int n_,
+                             int m_) {
+  constexpr int NP = K::NP, MP = K::MP;
+  const int n = K::EX ? NP : n_, m = K::EX ? MP : m_;
+  __shared__ Stage<K> st;
+  const Site s = site<tk_of<K>()>(N, B);
   const int k = s.k, half = 1 << level, span = 2 * half;
   const bool keep = (k & (half - 1)) != 0 || k == 0;
   const bool sep = (k & (span - 1)) == half;
@@ -238,24 +259,24 @@ __global__ void level_kernel(const float* __restrict__ FLl,
   const bool er = emit && s.live && pos == span - 1;
   const bool er1 = emit && s.live && pos == span;
   const int slot = threadIdx.y >> 1;
-  float ml[nn], mx[nn], mu[mn];
+  float ml[NP * NP], mx[NP * NP], mu[MP * NP];
   if (s.live) {
-    load_planes(ml, FLl, s);
-    load_planes(mx, FLx, s);
-    load_planes(mu, FLu, s);
+    load_planes<NP, NP>(ml, FLl, n, n, s);
+    load_planes<NP, NP>(mx, FLx, n, n, s);
+    load_planes<MP, NP>(mu, FLu, m, n, s);
   }
   for (int u = 0; u < U; ++u) {
     if (s.live) {
-      float f[nn];
-      load_group(f, fsol.p[u], g, B, s.b);
-      update_trio<n, m>(ml, mx, mu, f, keep, sep, Fls.p[u], Fxs.p[u],
-                        Fus.p[u], st, slot, er, s);
+      float f[NP * NP];
+      load_group<NP, NP>(f, fsol.p[u], n, n, g, B, s.b);
+      update_trio<K>(ml, mx, mu, f, keep, sep, Fls.p[u], Fxs.p[u], Fus.p[u],
+                     st, slot, er, s, n, m);
     }
     if (emit) {
       __syncthreads();
       if (er1)
-        emit_products<n, m>(st, slot, Asep, Bsep, Sout.p[u], Fls.p[u],
-                            Fxs.p[u], u == 0, k >> (level + 2), B, s);
+        emit_products<K>(st, slot, Asep, Bsep, Sout.p[u], Fls.p[u],
+                         Fxs.p[u], u == 0, k >> (level + 2), B, s, n, m);
       __syncthreads();
     }
   }
@@ -264,7 +285,17 @@ __global__ void level_kernel(const float* __restrict__ FLl,
 // ---------------------------------------------------------------------------
 // B4: levels L and L+1 in one pass.
 // ---------------------------------------------------------------------------
-template <int n, int m>
+
+// Row i of a slab M (n columns) at this thread's knot, zero past n.
+template <int NP>
+__device__ __forceinline__ void load_row(float (&r)[NP], const float* M,
+                                         int i, int n, const Site& s) {
+#pragma unroll
+  for (int j = 0; j < NP; ++j)
+    r[j] = j < n ? M[(i * n + j) * s.plane + s.idx] : 0.0f;
+}
+
+template <class K>
 __global__ void pair_kernel(const float* __restrict__ FLl,
                             const float* __restrict__ FLx,
                             const float* __restrict__ FLu, Ptrs Fls, Ptrs Fxs,
@@ -272,10 +303,13 @@ __global__ void pair_kernel(const float* __restrict__ FLl,
                             const float* __restrict__ Sbar2, CPtrs fsol2,
                             const float* __restrict__ Asep3,
                             const float* __restrict__ Bsep3, Ptrs Sout, int U,
-                            int N, int B, int level, int emit) {
-  constexpr int nn = n * n, mn = m * n;
-  __shared__ Stage<n, m> st;
-  const Site s = site(N, B);
+                            int N, int B, int level, int emit, int n_,
+                            int m_) {
+  constexpr int NP = K::NP, MP = K::MP;
+  const int n = K::EX ? NP : n_, m = K::EX ? MP : m_;
+  const int nn = n * n;
+  __shared__ Stage<K> st;
+  const Site s = site<tk_of<K>()>(N, B);
   const int k = s.k, half = 1 << level, span = 2 * half, span2 = 2 * span;
   const bool keep1 = (k & (half - 1)) != 0 || k == 0;
   const bool sep1 = (k & (span - 1)) == half;
@@ -287,20 +321,21 @@ __global__ void pair_kernel(const float* __restrict__ FLl,
   const bool er1 = emit && s.live && pos == span2;
   const int slot = threadIdx.y >> 1;
   const int t = threadIdx.x;
-  float ml[nn], mx[nn], mu[mn];
+  float ml[NP * NP], mx[NP * NP], mu[MP * NP];
   if (s.live) {
-    load_planes(ml, FLl, s);
-    load_planes(mx, FLx, s);
-    load_planes(mu, FLu, s);
+    load_planes<NP, NP>(ml, FLl, n, n, s);
+    load_planes<NP, NP>(mx, FLx, n, n, s);
+    load_planes<MP, NP>(mu, FLu, m, n, s);
     // Slab L+1: level-L update, then its Sbar at the level-(L+1) sep+1 rows.
-    float f[nn];
-    load_group(f, fsol1.p[0], g1, B, s.b);
-    update_trio<n, m>(ml, mx, mu, f, keep1, sep1, Fls.p[0], Fxs.p[0],
-                      Fus.p[0], st, slot, false, s);
+    float f[NP * NP];
+    load_group<NP, NP>(f, fsol1.p[0], n, n, g1, B, s.b);
+    update_trio<K>(ml, mx, mu, f, keep1, sep1, Fls.p[0], Fxs.p[0], Fus.p[0],
+                   st, slot, false, s, n, m);
     if (sep2) {
 #pragma unroll
-      for (int e = 0; e < nn; ++e)
-        Fls.p[0][e * s.plane + s.idx] = Sbar2[gidx(g2, nn, e, B, s.b)];
+      for (int e = 0; e < NP * NP; ++e)
+        if (e < nn)
+          Fls.p[0][e * s.plane + s.idx] = Sbar2[gidx(g2, nn, e, B, s.b)];
     }
   }
   // Upper slabs: level-L update, then level L+1 with slab L+1 (this
@@ -310,59 +345,62 @@ __global__ void pair_kernel(const float* __restrict__ FLl,
   const float* M2u = Fus.p[0];
   for (int uu = 1; uu < U; ++uu) {
     if (s.live) {
-      float f1[nn], f2[nn];
-      load_group(f1, fsol1.p[uu], g1, B, s.b);
-      load_group(f2, fsol2.p[uu - 1], g2, B, s.b);
+      float f1[NP * NP], f2[NP * NP];
+      load_group<NP, NP>(f1, fsol1.p[uu], n, n, g1, B, s.b);
+      load_group<NP, NP>(f2, fsol2.p[uu - 1], n, n, g2, B, s.b);
       float* ol = Fls.p[uu];
       float* ox = Fxs.p[uu];
       float* ou = Fus.p[uu];
 #pragma unroll
-      for (int i = 0; i < n; ++i) {
-        float r2[n];
+      for (int i = 0; i < NP; ++i) {
+        if (i >= n) continue;
+        float r2[NP];
+        load_row<NP>(r2, M2l, i, n, s);
 #pragma unroll
-        for (int j = 0; j < n; ++j) r2[j] = M2l[(i * n + j) * s.plane + s.idx];
-#pragma unroll
-        for (int c = 0; c < n; ++c) {
-          const int e = i * n + c;
-          const size_t o = e * s.plane + s.idx;
+        for (int c = 0; c < NP; ++c) {
+          if (c >= n) continue;
+          const size_t o = (i * n + c) * s.plane + s.idx;
           float v = ol[o];
-          v = sep1 ? f1[e] : (keep1 ? v - dot_row<n>(ml, i, f1, c) : v);
+          v = sep1 ? f1[i * NP + c]
+                   : (keep1 ? v - dot_row<NP>(ml, i, f1, c) : v);
           float acc2 = r2[0] * f2[c];
 #pragma unroll
-          for (int j = 1; j < n; ++j) acc2 += r2[j] * f2[j * n + c];
-          ol[o] = sep2 ? f2[e] : (keep2 ? v - acc2 : v);
+          for (int j = 1; j < NP; ++j) acc2 += r2[j] * f2[j * NP + c];
+          ol[o] = sep2 ? f2[i * NP + c] : (keep2 ? v - acc2 : v);
         }
       }
 #pragma unroll
-      for (int i = 0; i < n; ++i) {
-        float r2[n];
+      for (int i = 0; i < NP; ++i) {
+        if (i >= n) continue;
+        float r2[NP];
+        load_row<NP>(r2, M2x, i, n, s);
 #pragma unroll
-        for (int j = 0; j < n; ++j) r2[j] = M2x[(i * n + j) * s.plane + s.idx];
-#pragma unroll
-        for (int c = 0; c < n; ++c) {
+        for (int c = 0; c < NP; ++c) {
+          if (c >= n) continue;
           const int e = i * n + c;
           const size_t o = e * s.plane + s.idx;
           float acc2 = r2[0] * f2[c];
 #pragma unroll
-          for (int j = 1; j < n; ++j) acc2 += r2[j] * f2[j * n + c];
-          const float v = (ox[o] - dot_row<n>(mx, i, f1, c)) - acc2;
+          for (int j = 1; j < NP; ++j) acc2 += r2[j] * f2[j * NP + c];
+          const float v = (ox[o] - dot_row<NP>(mx, i, f1, c)) - acc2;
           ox[o] = v;
           if (er) st.x[slot][e][t] = v;
         }
       }
 #pragma unroll
-      for (int i = 0; i < m; ++i) {
-        float r2[n];
+      for (int i = 0; i < MP; ++i) {
+        if (i >= m) continue;
+        float r2[NP];
+        load_row<NP>(r2, M2u, i, n, s);
 #pragma unroll
-        for (int j = 0; j < n; ++j) r2[j] = M2u[(i * n + j) * s.plane + s.idx];
-#pragma unroll
-        for (int c = 0; c < n; ++c) {
+        for (int c = 0; c < NP; ++c) {
+          if (c >= n) continue;
           const int e = i * n + c;
           const size_t o = e * s.plane + s.idx;
           float acc2 = r2[0] * f2[c];
 #pragma unroll
-          for (int j = 1; j < n; ++j) acc2 += r2[j] * f2[j * n + c];
-          const float v = (ou[o] - dot_row<n>(mu, i, f1, c)) - acc2;
+          for (int j = 1; j < NP; ++j) acc2 += r2[j] * f2[j * NP + c];
+          const float v = (ou[o] - dot_row<NP>(mu, i, f1, c)) - acc2;
           ou[o] = v;
           if (er) st.u[slot][e][t] = v;
         }
@@ -371,9 +409,8 @@ __global__ void pair_kernel(const float* __restrict__ FLl,
     if (emit) {
       __syncthreads();
       if (er1)
-        emit_products<n, m>(st, slot, Asep3, Bsep3, Sout.p[uu - 1],
-                            Fls.p[uu], Fxs.p[uu], uu == 1, k >> (level + 3),
-                            B, s);
+        emit_products<K>(st, slot, Asep3, Bsep3, Sout.p[uu - 1], Fls.p[uu],
+                         Fxs.p[uu], uu == 1, k >> (level + 3), B, s, n, m);
       __syncthreads();
     }
   }
@@ -385,33 +422,52 @@ __global__ void pair_kernel(const float* __restrict__ FLl,
 
 // Level-L leaf values at knot k (ndlqr_SolveLeaf, nested_dissection.c:
 // 10-105; level(k) = trailing zeros of k+1, binary_tree.c:65-73):
-//   fx = own ? Q^-1 A' : 0  - (prev ? Q^-1 : 0),  fu = ownu ? R^-1 B' : 0.
-template <int n, int m>
+//   fx = own ? Q^-1 A' : 0  - (prev ? Q^-1 : 0),  fu = ownu ? R^-1 B' : 0,
+// as register blocks (stride NP), zero past n and m.
+template <class K>
 __device__ __forceinline__ void leaf_values(const float* a, const float* bm,
                                             const float* qi, const float* ri,
                                             int L, int k, int N, float* fx,
-                                            float* fu) {
+                                            float* fu, int n, int m) {
+  constexpr int NP = K::NP, MP = K::MP;
   const int mask = (2 << L) - 1;
   const bool own = ((k + 1) & mask) == (1 << L) && k >= 1 && k < N - 1;
   const bool prev = (k & mask) == (1 << L);
   const bool ownu = own || (L == 0 && k == 0);
 #pragma unroll
-  for (int i = 0; i < n; ++i) {
+  for (int i = 0; i < NP; ++i) {
 #pragma unroll
-    for (int j = 0; j < n; ++j) {
-      float v = own ? a[j * n + i] * qi[i] : 0.0f;
-      if (i == j) v -= prev ? qi[i] : 0.0f;
-      fx[i * n + j] = v;
+    for (int j = 0; j < NP; ++j) {
+      float v = 0.0f;
+      if (i < n && j < n) {
+        v = own ? a[j * NP + i] * qi[i] : 0.0f;
+        if (i == j) v -= prev ? qi[i] : 0.0f;
+      }
+      fx[i * NP + j] = v;
     }
   }
 #pragma unroll
-  for (int i = 0; i < m; ++i) {
+  for (int i = 0; i < MP; ++i) {
 #pragma unroll
-    for (int j = 0; j < n; ++j) fu[i * n + j] = ownu ? bm[j * m + i] * ri[i] : 0.0f;
+    for (int j = 0; j < NP; ++j)
+      fu[i * NP + j] =
+          (i < m && j < n && ownu) ? bm[j * MP + i] * ri[i] : 0.0f;
   }
 }
 
-template <int n, int m>
+// Store a rows x n register block (stride NP) into this thread's knot of
+// element-major planes.
+template <int R, int NP>
+__device__ __forceinline__ void store_planes(float* dst, const float* r,
+                                             int rows, int n, const Site& s) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < NP; ++j)
+      if (i < rows && j < n) dst[(i * n + j) * s.plane + s.idx] = r[i * NP + j];
+}
+
+template <class K>
 __global__ void leaf_kernel(const float* __restrict__ A,
                             const float* __restrict__ Bm,
                             const float* __restrict__ qinv,
@@ -419,10 +475,13 @@ __global__ void leaf_kernel(const float* __restrict__ A,
                             const float* __restrict__ S0, CPtrs fsol,
                             const float* __restrict__ Asep,
                             const float* __restrict__ Bsep, Ptrs Fls, Ptrs Fxs,
-                            Ptrs Fus, Ptrs Sout, int depth, int N, int B) {
-  constexpr int nn = n * n, mn = m * n;
-  __shared__ Stage<n, m> st;
-  const Site s = site(N, B);
+                            Ptrs Fus, Ptrs Sout, int depth, int N, int B,
+                            int n_, int m_) {
+  constexpr int NP = K::NP, MP = K::MP;
+  const int n = K::EX ? NP : n_, m = K::EX ? MP : m_;
+  const int nn = n * n;
+  __shared__ Stage<K> st;
+  const Site s = site<tk_of<K>()>(N, B);
   const int k = s.k;
   const bool keep = k == 0;             // level-0 calc_lambda
   const bool sep = (k & 1) == 1;        // level-0 sep+1 rows
@@ -431,56 +490,68 @@ __global__ void leaf_kernel(const float* __restrict__ A,
   const bool er = s.live && pos == 1;
   const bool er1 = s.live && pos == 2;
   const int slot = threadIdx.y >> 1;
-  float a[nn], bm[n * m], qi[n], ri[m];
-  float fl0[nn], fx0[nn], fu0[mn];
+  float a[NP * NP], bm[NP * MP], qi[NP], ri[MP];
+  float fl0[NP * NP], fx0[NP * NP], fu0[MP * NP];
   if (s.live) {
-    load_planes(a, A, s);
-    load_planes(bm, Bm, s);
-    load_planes(qi, qinv, s);
-    load_planes(ri, rinv, s);
-    leaf_values<n, m>(a, bm, qi, ri, 0, k, N, fx0, fu0);
+    load_planes<NP, NP>(a, A, n, n, s);
+    load_planes<NP, MP>(bm, Bm, n, m, s);
+    load_planes<1, NP>(qi, qinv, 1, n, s);
+    load_planes<1, MP>(ri, rinv, 1, m, s);
+    leaf_values<K>(a, bm, qi, ri, 0, k, N, fx0, fu0, n, m);
 #pragma unroll
-    for (int i = 0; i < n; ++i) {
+    for (int i = 0; i < NP; ++i) {
 #pragma unroll
-      for (int j = 0; j < n; ++j) fl0[i * n + j] = k == 0 ? -a[j * n + i] : 0.0f;
+      for (int j = 0; j < NP; ++j)
+        fl0[i * NP + j] = (k == 0 && i < n && j < n) ? -a[j * NP + i] : 0.0f;
     }
     // Slab 0: leaf values, with level 0's own Sbar at its sep+1 rows.
 #pragma unroll
-    for (int e = 0; e < nn; ++e) {
-      Fls.p[0][e * s.plane + s.idx] = sep ? S0[gidx(g, nn, e, B, s.b)] : fl0[e];
-      Fxs.p[0][e * s.plane + s.idx] = fx0[e];
-    }
+    for (int i = 0; i < NP; ++i) {
 #pragma unroll
-    for (int e = 0; e < mn; ++e) Fus.p[0][e * s.plane + s.idx] = fu0[e];
+      for (int j = 0; j < NP; ++j) {
+        if (i >= n || j >= n) continue;
+        const int e = i * n + j;
+        Fls.p[0][e * s.plane + s.idx] =
+            sep ? S0[gidx(g, nn, e, B, s.b)] : fl0[i * NP + j];
+        Fxs.p[0][e * s.plane + s.idx] = fx0[i * NP + j];
+      }
+    }
+    store_planes<MP, NP>(Fus.p[0], fu0, m, n, s);
   }
   for (int u = 1; u < depth; ++u) {
     if (s.live) {
-      float f[nn], fx[nn], fu[mn];
-      load_group(f, fsol.p[u - 1], g, B, s.b);
-      leaf_values<n, m>(a, bm, qi, ri, u, k, N, fx, fu);
+      float f[NP * NP], fx[NP * NP], fu[MP * NP];
+      load_group<NP, NP>(f, fsol.p[u - 1], n, n, g, B, s.b);
+      leaf_values<K>(a, bm, qi, ri, u, k, N, fx, fu, n, m);
       float* ol = Fls.p[u];
       float* ox = Fxs.p[u];
       float* ou = Fus.p[u];
       // Upper lambda slabs start at zero.
 #pragma unroll
-      for (int e = 0; e < nn; ++e) ol[e * s.plane + s.idx] = 0.0f;
-#pragma unroll
-      for (int e = 0; e < nn; ++e) ox[e * s.plane + s.idx] = fx[e];
-#pragma unroll
-      for (int e = 0; e < mn; ++e) ou[e * s.plane + s.idx] = fu[e];
-      update_trio<n, m>(fl0, fx0, fu0, f, keep, sep, ol, ox, ou, st, slot, er,
-                        s);
+      for (int e = 0; e < NP * NP; ++e)
+        if (e < nn) ol[e * s.plane + s.idx] = 0.0f;
+      store_planes<NP, NP>(ox, fx, n, n, s);
+      store_planes<MP, NP>(ou, fu, m, n, s);
+      update_trio<K>(fl0, fx0, fu0, f, keep, sep, ol, ox, ou, st, slot, er,
+                     s, n, m);
     }
     __syncthreads();
     if (er1)
-      emit_products<n, m>(st, slot, Asep, Bsep, Sout.p[u - 1], Fls.p[u],
-                          Fxs.p[u], u == 1, k >> 2, B, s);
+      emit_products<K>(st, slot, Asep, Bsep, Sout.p[u - 1], Fls.p[u],
+                       Fxs.p[u], u == 1, k >> 2, B, s, n, m);
     __syncthreads();
   }
 }
 
+template <class K>
 dim3 grid_for(int N, int B) {
+  constexpr int TK = tk_of<K>();
   return dim3((B + TB - 1) / TB, (N + TK) / TK);  // knots -1 .. N-1
+}
+
+template <class K>
+dim3 block_for() {
+  return dim3(TB, tk_of<K>());
 }
 
 // Pointer lists arrive from the host as MAXU-entry arrays.
@@ -498,8 +569,6 @@ CPtrs cptrs(void* const* src) {
 
 }  // namespace
 
-#define RSLQR_BLOCKS_OK(n, m) ((n) == 6 && (m) == 3)
-
 extern "C" {
 
 const char* rslqr_error_string(int code) {
@@ -510,11 +579,12 @@ int rslqr_rhs_update_level(const float* Fl, const float* Fx, const float* Fu,
                            float* zy, float* zx, float* zu, const float* zbar,
                            int N, int B, int level, int n, int m,
                            void* stream) {
-  if (!RSLQR_BLOCKS_OK(n, m)) return static_cast<int>(cudaErrorInvalidValue);
-  rhs_kernel<6, 3><<<grid_for(N, B), dim3(TB, TK), 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      Fl, Fx, Fu, zy, zx, zu, zbar, N, B, level);
-  return static_cast<int>(cudaGetLastError());
+  const auto st = static_cast<cudaStream_t>(stream);
+  return with_block(n, m, [&](auto k) {
+    using K = decltype(k);
+    rhs_kernel<K><<<grid_for<K>(N, B), block_for<K>(), 0, st>>>(
+        Fl, Fx, Fu, zy, zx, zu, zbar, N, B, level, n, m);
+  });
 }
 
 int rslqr_schur_update_level(const float* FLl, const float* FLx,
@@ -524,14 +594,14 @@ int rslqr_schur_update_level(const float* FLl, const float* FLx,
                              const float* Bsep, void* const* S, int U, int N,
                              int B, int level, int emit, int n, int m,
                              void* stream) {
-  if (!RSLQR_BLOCKS_OK(n, m) || U < 0 || U > MAXU)
-    return static_cast<int>(cudaErrorInvalidValue);
-  level_kernel<6, 3><<<grid_for(N, B), dim3(TB, TK), 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      FLl, FLx, FLu, ptrs(Fls), ptrs(Fxs),
-      ptrs(Fus), cptrs(fsol), Asep, Bsep,
-      ptrs(S), U, N, B, level, emit);
-  return static_cast<int>(cudaGetLastError());
+  if (U < 0 || U > MAXU) return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  return with_block(n, m, [&](auto k) {
+    using K = decltype(k);
+    level_kernel<K><<<grid_for<K>(N, B), block_for<K>(), 0, st>>>(
+        FLl, FLx, FLu, ptrs(Fls), ptrs(Fxs), ptrs(Fus), cptrs(fsol), Asep,
+        Bsep, ptrs(S), U, N, B, level, emit, n, m);
+  });
 }
 
 int rslqr_schur_update_pair(const float* FLl, const float* FLx,
@@ -542,15 +612,14 @@ int rslqr_schur_update_pair(const float* FLl, const float* FLx,
                             const float* Bsep3, void* const* S, int U, int N,
                             int B, int level, int emit, int n, int m,
                             void* stream) {
-  if (!RSLQR_BLOCKS_OK(n, m) || U < 1 || U > MAXU)
-    return static_cast<int>(cudaErrorInvalidValue);
-  pair_kernel<6, 3><<<grid_for(N, B), dim3(TB, TK), 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      FLl, FLx, FLu, ptrs(Fls), ptrs(Fxs),
-      ptrs(Fus), cptrs(fsol1), Sbar2,
-      cptrs(fsol2), Asep3, Bsep3, ptrs(S), U, N,
-      B, level, emit);
-  return static_cast<int>(cudaGetLastError());
+  if (U < 1 || U > MAXU) return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  return with_block(n, m, [&](auto k) {
+    using K = decltype(k);
+    pair_kernel<K><<<grid_for<K>(N, B), block_for<K>(), 0, st>>>(
+        FLl, FLx, FLu, ptrs(Fls), ptrs(Fxs), ptrs(Fus), cptrs(fsol1), Sbar2,
+        cptrs(fsol2), Asep3, Bsep3, ptrs(S), U, N, B, level, emit, n, m);
+  });
 }
 
 int rslqr_leaf_schur_level0(const float* A, const float* Bm,
@@ -560,14 +629,15 @@ int rslqr_leaf_schur_level0(const float* A, const float* Bm,
                             void* const* Fls, void* const* Fxs,
                             void* const* Fus, void* const* S, int depth, int N,
                             int B, int n, int m, void* stream) {
-  if (!RSLQR_BLOCKS_OK(n, m) || depth < 2 || depth > MAXU)
+  if (depth < 2 || depth > MAXU)
     return static_cast<int>(cudaErrorInvalidValue);
-  leaf_kernel<6, 3><<<grid_for(N, B), dim3(TB, TK), 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      A, Bm, qinv, rinv, S0, cptrs(fsol), Asep, Bsep,
-      ptrs(Fls), ptrs(Fxs),
-      ptrs(Fus), ptrs(S), depth, N, B);
-  return static_cast<int>(cudaGetLastError());
+  const auto st = static_cast<cudaStream_t>(stream);
+  return with_block(n, m, [&](auto k) {
+    using K = decltype(k);
+    leaf_kernel<K><<<grid_for<K>(N, B), block_for<K>(), 0, st>>>(
+        A, Bm, qinv, rinv, S0, cptrs(fsol), Asep, Bsep, ptrs(Fls), ptrs(Fxs),
+        ptrs(Fus), ptrs(S), depth, N, B, n, m);
+  });
 }
 
 }  // extern "C"

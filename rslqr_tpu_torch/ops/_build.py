@@ -5,8 +5,8 @@ parallel processes, and links the objects into one shared library with a
 plain C interface, which ``ctypes`` loads; no PyTorch headers are involved,
 so a build takes seconds. Objects and library land in
 ``rslqr_tpu_torch/_build/`` (git-ignored) under names that carry a hash of
-their sources and the flags, so a changed source rebuilds and an unchanged
-one is loaded as it is.
+their sources, the shared headers (``HEADERS``) and the flags, so a changed
+source rebuilds and an unchanged one is loaded as it is.
 """
 
 from __future__ import annotations
@@ -24,10 +24,13 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCES = (
     _PKG / "csrc" / "schur_kernels.cu",
     _PKG / "csrc" / "planes_kernels.cu",
+    _PKG / "csrc" / "flagged_kernels.cu",
     _PKG / "csrc" / "plu_kernels.cu",
     _PKG / "csrc" / "flat_kernels.cu",
     _PKG / "csrc" / "probe_kernels.cu",
 )
+# Included by the small-block sources (schur_kernels.cu, flat_kernels.cu).
+HEADERS = (_PKG / "csrc" / "small_blocks.cuh",)
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -57,12 +60,18 @@ def _flags() -> bytes:
     return " ".join(NVCC_FLAGS).encode()
 
 
+def _headers() -> bytes:
+    return b"\0".join(h.read_bytes() for h in HEADERS)
+
+
 def object_path(source: Path) -> Path:
-    return BUILD_DIR / f"{source.stem}_{_digest(source.read_bytes(), _flags())}.o"
+    digest = _digest(source.read_bytes(), _headers(), _flags())
+    return BUILD_DIR / f"{source.stem}_{digest}.o"
 
 
 def library_path() -> Path:
-    digest = _digest(*(s.read_bytes() for s in SOURCES), _flags())
+    digest = _digest(*(s.read_bytes() for s in SOURCES), _headers(),
+                     _flags())
     return BUILD_DIR / f"rslqr_kernels_{digest}.so"
 
 
@@ -151,17 +160,18 @@ def load() -> ctypes.CDLL:
         + [I] * 5 + [P],
         # csrc/planes_kernels.cu
         "rslqr_pgemm": [P] * 3 + [I] * 4 + [P],
-        "rslqr_pgemm_flagged": [P] * 6 + [I] * 8 + [FL, P],
         "rslqr_schur_update_planes": [P] * 3 + [I] * 7 + [P],
         "rslqr_pchol": [P] * 2 + [I] * 2 + [P],
         "rslqr_pcho_solve": [P] * 2 + [I] * 3 + [P],
         "rslqr_schur3_update_planes": [P] * 7 + [I] * 6 + [P],
+        # csrc/flagged_kernels.cu
+        "rslqr_pgemm_flagged": [P] * 6 + [I] * 8 + [FL, I, I, PI, P],
         # csrc/plu_kernels.cu
         "rslqr_plu_solve_multi": [P, P, PP, PP, PI] + [I] * 3 + [P],
         # csrc/flat_kernels.cu
         "rslqr_flat_rhs_update_level": [P] * 7 + [I] * 5 + [P],
         "rslqr_flat_schur_update_level": [P] * 3 + [PP] * 4 + [P] * 2 + [PP]
-        + [I] * 7 + [P],
+        + [I] * 10 + [P],
         "rslqr_flat_leaf_schur_level0": [P] * 5 + [PP] + [P] * 2 + [PP] * 4
         + [I] * 5 + [P],
         # csrc/probe_kernels.cu

@@ -12,9 +12,11 @@ counterpart in ``rslqr_tpu/ops/schur_planes.py``:
   (:func:`_flat_emits` carries the JAX tiling's choice over), with the next
   level's own Sbar folded into its slab.
 
-Dispatch, launch counts and in-place updates are those of ``ops/schur.py``:
-the plain version (``*_plain``) for CPU tensors or ``kernels="off"``, the
-CUDA kernel (``csrc/flat_kernels.cu``) for CUDA tensors, launch or raise.
+Dispatch, launch counts and in-place updates are those of ``ops/schur.py``
+(:func:`~rslqr_tpu_torch.ops.schur.kernel_applies`): the CUDA kernel
+(``csrc/flat_kernels.cu``, instantiated for every block size of the small
+path, 1 <= n, m <= 8) for float32 CUDA tensors under ``kernels="auto"``,
+launch or raise; the plain version (``*_plain``) otherwise.
 The plain versions run ``ops/schur.py``'s plain versions on views of the same
 data (the math is the same; only the compact layouts and the emission levels
 differ).
@@ -22,12 +24,12 @@ differ).
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from . import schur
-from .schur import _check, _launch, _ptr, _ptrs, _use_kernel
+from .schur import _check, _launch, _ptr, _ptrs, kernel_applies
 
 
 # ---------------------------------------------------------------------------
@@ -65,6 +67,41 @@ def flat_ok(N: int, B: int, dtype) -> bool:
         and N >= 4
         and N % _kpt_for(0, N) == 0
     )
+
+
+# flat_level_kernel's block: LEVEL_TB batch columns by the row groups of
+# LEVEL_RPT slab rows by LEVEL_KB knots (csrc/flat_kernels.cu).
+LEVEL_TB, LEVEL_KB, LEVEL_RPT = 32, 2, 3
+
+
+class LevelPlan(NamedTuple):
+    """Launch geometry of ``flat_level_kernel``: grid row ``y`` covers
+    knots ``y * LEVEL_KB - shift`` .. ``+ LEVEL_KB - 1`` (those in
+    ``[0, N)``), grid column ``x`` batch columns ``x * LEVEL_TB`` ..
+    ``+ LEVEL_TB - 1`` (those below ``B``); ``groups`` the row groups of
+    the lambda, x and u slabs (block row ``z`` of a knot's threads, in that
+    order, takes slab rows ``LEVEL_RPT * (z - first group of its slab)`` ..
+    ``+ LEVEL_RPT - 1``, those below the slab's row count)."""
+
+    shift: int
+    grid: Tuple[int, int]
+    groups: Tuple[int, int, int]
+
+
+def _row_groups(rows: int) -> int:
+    """Row groups of a slab of ``rows`` rows (the last one partly masked
+    where ``rows`` is not a multiple of ``LEVEL_RPT``)."""
+    return -(-rows // LEVEL_RPT)
+
+
+def _level_plan(N: int, B: int, emit: bool, n: int, m: int) -> LevelPlan:
+    """Knot pairs shifted by one when the level emits products, so that
+    each next-level group's separator row r (odd) and r + 1 share a
+    block; unshifted otherwise. Row groups: ``ceil(n / 3)`` for each of the
+    lambda and x slabs, ``ceil(m / 3)`` for u."""
+    shift = int(emit)
+    return LevelPlan(shift, (-(-B // LEVEL_TB), -(-(N + shift) // LEVEL_KB)),
+                     (_row_groups(n), _row_groups(n), _row_groups(m)))
 
 
 def _flat_emits(level: int, N: int) -> bool:
@@ -180,10 +217,11 @@ def schur_update_level_flat(
     kernel would emit (:func:`_flat_emits`); otherwise ``None``.
 
     Replaces ``rslqr_tpu/ops/schur_planes.py:schur_update_level_flat``.
-    Kernel: ``flat_level_kernel``.
+    Kernel: ``flat_level_kernel`` (up to three slab rows per thread, on the
+    geometry of :func:`_level_plan`).
     """
     emit = Asep is not None and _flat_emits(level, N)
-    if not _use_kernel(kernels, FLl):
+    if not kernel_applies(kernels, FLl.device, FLl.dtype):
         return schur_update_level_flat_plain(
             FLl, FLx, FLu, list(Fls), list(Fxs), list(Fus), fsol, Asep, Bsep,
             level=level, n=n, m=m, N=N,
@@ -203,12 +241,13 @@ def schur_update_level_flat(
     _check("schur_update_level_flat", ts, shapes, n, m, FLl.device)
     S = [torch.empty((nn, rg(G2), 128), device=FLl.device)
          for _ in range(U)] if emit else []
+    plan = _level_plan(N, B, emit, n, m)
     _launch(
         "rslqr_flat_schur_update_level", FLl.device,
         _ptr(FLl), _ptr(FLx), _ptr(FLu), _ptrs(Fls), _ptrs(Fxs), _ptrs(Fus),
         _ptrs(fsol), _ptr(Asep if emit else None),
         _ptr(Bsep if emit else None), _ptrs(S), U, N, B, level, int(emit),
-        n, m,
+        n, m, plan.shift, plan.grid[1], sum(plan.groups),
     )
     schur_update_level_flat.launches += 1
     return tuple(Fls), tuple(Fxs), tuple(Fus), (S if emit else None)
@@ -243,7 +282,7 @@ def leaf_schur_level0_flat(
     """
     if depth < 2:
         raise ValueError("the fused leaf needs a tree of depth >= 2")
-    if not _use_kernel(kernels, A):
+    if not kernel_applies(kernels, A.device, A.dtype):
         return leaf_schur_level0_flat_plain(
             A, B, qinv, rinv, S0, fsol, Asep, Bsep, depth=depth, n=n, m=m,
             N=N,
@@ -297,7 +336,7 @@ def rhs_update_level_flat(
     Replaces ``rslqr_tpu/ops/schur_planes.py:rhs_update_level_flat``.
     Kernel: ``flat_rhs_kernel``.
     """
-    if not _use_kernel(kernels, Fl):
+    if not kernel_applies(kernels, Fl.device, Fl.dtype):
         return rhs_update_level_flat_plain(
             Fl, Fx, Fu, zy, zx, zu, zbar, level=level, n=n, m=m, N=N
         )

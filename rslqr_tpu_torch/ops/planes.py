@@ -9,13 +9,15 @@ artifacts of the JAX module (the ``(F//128, 128)`` reshape and the row
 padding of ``linalg._pv``) are not carried over: the CUDA kernels index any
 plane size directly.
 
-Dispatch, as in ``ops/schur.py``: a wrapper runs its plain PyTorch version
-(``*_plain``) for CPU tensors or under ``kernels="off"``, and launches its
-CUDA kernel (``csrc/planes_kernels.cu``; ``plu_solve_multi``:
-``csrc/plu_kernels.cu``) for CUDA tensors: f32, contiguous, block dims at
-most 64. On CUDA it launches or raises; there is no fallback.
-Each wrapper counts its launches in its ``launches`` attribute
-(:func:`launch_counts`).
+Dispatch (``ops/schur.py``'s :func:`kernel_applies`, the one rule of the
+port): a wrapper launches its CUDA kernel (``csrc/planes_kernels.cu``;
+flagged ``pgemm``: ``csrc/flagged_kernels.cu``; ``plu_solve_multi``:
+``csrc/plu_kernels.cu``) for float32 CUDA tensors under
+``kernels="auto"``, and runs its plain PyTorch version (``*_plain``)
+otherwise (CPU tensors, ``kernels="off"``, other dtypes). A kernel that
+applies launches or raises (block dims outside 1..``MAX_BLOCK``,
+contiguity, shapes); there is no fallback. Each wrapper counts its
+launches in its ``launches`` attribute (:func:`launch_counts`).
 
 ``pcho_solve``, ``schur3_update_planes`` and ``schur_update_planes`` update
 their right-hand side / slab operands IN PLACE on both routes, as the TPU
@@ -40,12 +42,13 @@ read from device memory once.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from .schur import _launch, _masks, _ptr, _use_kernel
+from .schur import _launch, _masks, _ptr, kernel_applies
 
 # Largest block dim the kernels take (their register columns hold 64).
 MAX_BLOCK = 64
@@ -181,6 +184,39 @@ def plu_solve_multi_plain(A: torch.Tensor, *Bs: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 
+# flagged_kernel's output tile: FLAG_TC columns, FLAG_IB rows per warp
+# (csrc/flagged_kernels.cu).
+FLAG_IB, FLAG_TC = 2, 6
+
+
+class FlaggedPlan(NamedTuple):
+    """Launch geometry of ``flagged_kernel``: ``warps`` warps per block,
+    each taking ``FLAG_IB`` rows of a tile of ``FLAG_IB * warps`` rows by
+    ``FLAG_TC`` columns; ``tiles`` the tile origins ``(row, column)``, one
+    grid row each; ``grid`` ``(plane chunks of 32, tiles)``; ``c_tiles`` the
+    origins flattened for the C launcher."""
+
+    warps: int
+    tiles: Tuple[Tuple[int, int], ...]
+    grid: Tuple[int, int]
+    c_tiles: object
+
+
+@functools.lru_cache(maxsize=256)
+def _flagged_plan(p: int, q: int, F: int, sym: bool) -> FlaggedPlan:
+    """The tiles of a ``p x q`` output over ``F`` plane elements: rows in
+    tiles of 12 (6 when ``p <= 6``), columns in tiles of 6; under ``sym``
+    only the tiles that hold an entry on or below the diagonal."""
+    warps = 3 if p <= 3 * FLAG_IB else 6
+    tr, tc = warps * FLAG_IB, FLAG_TC
+    tiles = tuple(
+        (r0, c0) for r0 in range(0, p, tr) for c0 in range(0, q, tc)
+        if not sym or c0 <= min(r0 + tr, p) - 1)
+    flat = [v for t in tiles for v in t]
+    return FlaggedPlan(warps, tiles, (-(-F // 32), len(tiles)),
+                       (ctypes.c_int * len(flat))(*flat))
+
+
 def _check(name: str, tensors: Sequence[torch.Tensor], shapes, dims):
     """The kernels' contract: f32, contiguous, on one device, the expected
     shapes, block dims in 1..MAX_BLOCK and a nonempty plane."""
@@ -192,12 +228,12 @@ def _check(name: str, tensors: Sequence[torch.Tensor], shapes, dims):
                 f"{tuple(dims)}"
             )
     for t, shape in zip(tensors, shapes):
-        if t.device != device or t.dtype != torch.float32:
+        if t.dtype != torch.float32 or t.device != device:
             raise ValueError(
                 f"{name}: kernel takes float32 tensors on {device}, got "
                 f"{t.dtype} on {t.device}"
             )
-        if tuple(t.shape) != tuple(shape):
+        if t.shape != shape:
             raise ValueError(
                 f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}"
             )
@@ -232,13 +268,15 @@ def pgemm(
 
     Replaces ``rslqr_tpu/ops/planes_pallas.py:_pgemm_call`` (its
     ``lam_level`` mode is :func:`schur_update_planes`). Kernel:
-    ``rows_kernel``, its flagged instantiation when any flag is set.
+    ``rows_kernel`` (``csrc/planes_kernels.cu``); when any flag is set,
+    ``flagged_kernel`` (``csrc/flagged_kernels.cu``) on the launch geometry
+    of :func:`_flagged_plan`.
     """
     p, K = (A.shape[1], A.shape[0]) if ta else (A.shape[0], A.shape[1])
     q = B.shape[0] if tbt else B.shape[1]
     if (diag is not None or dconst or sym) and p != q:
         raise ValueError(f"diag/sym need a square output, got {p}x{q}")
-    if not _use_kernel(kernels, A):
+    if not kernel_applies(kernels, A.device, A.dtype):
         return pgemm_plain(A, B, Cin, diag, kscale, ta=ta, tbt=tbt, sub=sub,
                            dconst=dconst, sym=sym)
     plane = tuple(A.shape[2:])
@@ -252,9 +290,12 @@ def pgemm(
     )
     C = torch.empty((p, q) + plane, device=A.device)
     if opt or ta or tbt or sym or dconst:
+        plan = _flagged_plan(p, q, F, sym)
         _launch("rslqr_pgemm_flagged", A.device, _ptr(A), _ptr(B), _ptr(Cin),
                 _ptr(diag), _ptr(kscale), _ptr(C), p, K, q, F, int(ta),
-                int(tbt), int(sub), int(sym), ctypes.c_float(dconst))
+                int(tbt), int(sub), int(sym), dconst, plan.warps,
+                len(plan.tiles), plan.c_tiles)
+        pgemm.flagged_launches += 1
     else:
         _launch("rslqr_pgemm", A.device, _ptr(A), _ptr(B), _ptr(C), p, K, q,
                 F)
@@ -276,9 +317,9 @@ def pchol(A: torch.Tensor, *, kernels: str = "auto"):
     Replaces ``rslqr_tpu/ops/planes_pallas.py:pchol``. Kernel:
     ``pchol_kernel``.
     """
-    if not _use_kernel(kernels, A):
-        return pchol_plain(A)
     n = A.shape[0]
+    if not kernel_applies(kernels, A.device, A.dtype):
+        return pchol_plain(A)
     F = _check("pchol", (A,), ((n, n) + tuple(A.shape[2:]),), (n,))
     L = torch.empty_like(A)
     _launch("rslqr_pchol", A.device, _ptr(A), _ptr(L), n, F)
@@ -293,9 +334,9 @@ def pcho_solve(L: torch.Tensor, B: torch.Tensor, *, kernels: str = "auto"):
     Replaces ``rslqr_tpu/ops/planes_pallas.py:pcho_solve``. Kernel:
     ``pcho_solve_kernel``.
     """
-    if not _use_kernel(kernels, L):
-        return pcho_solve_plain(L, B)
     n, w = B.shape[:2]
+    if not kernel_applies(kernels, L.device, L.dtype):
+        return pcho_solve_plain(L, B)
     plane = tuple(L.shape[2:])
     F = _check("pcho_solve", (L, B), ((n, n) + plane, (n, w) + plane), (n, w))
     _launch("rslqr_pcho_solve", L.device, _ptr(L), _ptr(B), n, w, F)
@@ -332,13 +373,13 @@ def schur3_update_planes(
     compact ``fsol`` and the kernel reads it at the knot's group.
     Kernel: ``rows_kernel`` (the three slabs' rows, lambda rows masked).
     """
-    if not _use_kernel(kernels, FLl):
-        return schur3_update_planes_plain(
-            FLl, FLx, FLu, fsol, Cl, Cx, Cu, level=level
-        )
     n, _, N, Bb = FLl.shape
     m = FLu.shape[0]
     q = fsol.shape[1]
+    if not kernel_applies(kernels, FLl.device, FLl.dtype):
+        return schur3_update_planes_plain(
+            FLl, FLx, FLu, fsol, Cl, Cx, Cu, level=level
+        )
     G = N >> (level + 1)
     if G < 1 or N % (2 << level):
         raise ValueError(f"schur3_update_planes: level {level} for N={N}")
@@ -385,7 +426,7 @@ def schur_update_planes(
     q = fsol.shape[1]
     if lam and p > n:
         raise ValueError(f"schur_update_planes: lam needs p <= n, got {p}, {n}")
-    if not _use_kernel(kernels, FL):
+    if not kernel_applies(kernels, FL.device, FL.dtype):
         return schur_update_planes_plain(FL, fsol, Fin, level=level, lam=lam)
     G = N >> (level + 1)
     if G < 1 or N % (2 << level):
@@ -411,11 +452,11 @@ def plu_solve_multi(A: torch.Tensor, *Bs: torch.Tensor, kernels: str = "auto"):
     if not 1 <= len(Bs) <= MAX_RHS:
         raise ValueError(f"plu_solve_multi takes 1..{MAX_RHS} right-hand "
                          f"sides, got {len(Bs)}")
-    if not _use_kernel(kernels, A):
-        return plu_solve_multi_plain(A, *Bs)
     n = A.shape[0]
-    plane = tuple(A.shape[2:])
     ws = [b.shape[1] for b in Bs]
+    if not kernel_applies(kernels, A.device, A.dtype):
+        return plu_solve_multi_plain(A, *Bs)
+    plane = tuple(A.shape[2:])
     F = _check("plu_solve_multi", (A,) + Bs,
                ((n, n) + plane,) + tuple((n, w) + plane for w in ws),
                (n, *ws))
@@ -439,15 +480,20 @@ def plu_solve(A: torch.Tensor, B: torch.Tensor, *, kernels: str = "auto"):
 
 KERNEL_WRAPPERS = (pgemm, pchol, pcho_solve, schur3_update_planes,
                    schur_update_planes, plu_solve_multi)
-for _w in KERNEL_WRAPPERS:
-    _w.launches = 0
 
 
 def launch_counts() -> dict:
-    """Kernel launches per wrapper since the last reset."""
-    return {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+    """Kernel launches per wrapper since the last reset: ``pgemm`` counts
+    both its kernels, ``pgemm_flagged`` those of ``flagged_kernel``
+    alone."""
+    return {**{w.__name__: w.launches for w in KERNEL_WRAPPERS},
+            "pgemm_flagged": pgemm.flagged_launches}
 
 
 def reset_launch_counts() -> None:
     for w in KERNEL_WRAPPERS:
         w.launches = 0
+    pgemm.flagged_launches = 0
+
+
+reset_launch_counts()

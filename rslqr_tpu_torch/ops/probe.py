@@ -7,10 +7,11 @@
   FMA rate).
 
 Neither lies on a solver path; ``python -m rslqr_tpu_torch.probe_pgemm``
-times them. Dispatch as in ``ops/schur.py``: a wrapper runs its plain
-PyTorch version (``*_plain``) for CPU tensors or under ``kernels="off"``,
-and launches its CUDA kernel (``csrc/probe_kernels.cu``) for CUDA tensors:
-f32, contiguous. On CUDA it launches or raises; there is no fallback. Each
+times them. Dispatch by ``ops/schur.py``'s rule: a wrapper launches its
+CUDA kernel (``csrc/probe_kernels.cu``) for float32 CUDA tensors under
+``kernels="auto"``, and runs its plain PyTorch version (``*_plain``)
+otherwise; a kernel that applies launches or raises (``pgemm_ib``: block
+dims outside 1..64), there is no fallback. Each
 wrapper counts its launches in its ``launches`` attribute
 (:func:`launch_counts`). Both return new tensors.
 """
@@ -22,7 +23,7 @@ import math
 import torch
 
 from .planes import _check, _flat
-from .schur import _launch, _ptr, _use_kernel
+from .schur import _launch, _ptr, kernel_applies
 
 # Rows of A per pass (the probe's ``ib``) and warps per block (the
 # counterpart of its ``t1``, the TPU plane tile's 8 or 16 sublanes).
@@ -60,10 +61,10 @@ def pgemm_ib(A: torch.Tensor, B: torch.Tensor, *, ib: int = 1, t1: int = 8,
     if ib not in IBS or t1 not in T1S:
         raise ValueError(f"pgemm_ib: ib in {IBS} and t1 in {T1S}, got "
                          f"ib={ib}, t1={t1}")
-    if not _use_kernel(kernels, A):
-        return pgemm_ib_plain(A, B)
     p, K = A.shape[:2]
     q = B.shape[1]
+    if not kernel_applies(kernels, A.device, A.dtype):
+        return pgemm_ib_plain(A, B)
     plane = tuple(A.shape[2:])
     F = _check("pgemm_ib", (A, B), ((p, K) + plane, (K, q) + plane),
                (p, K, q))
@@ -85,7 +86,7 @@ def fma_peak(A: torch.Tensor, *, reps: int,
     """
     if reps < 0:
         raise ValueError(f"fma_peak: reps >= 0, got {reps}")
-    if not _use_kernel(kernels, A):
+    if not kernel_applies(kernels, A.device, A.dtype):
         return fma_peak_plain(A, reps)
     F = math.prod(A.shape)
     if A.dtype != torch.float32 or not A.is_contiguous() or not 0 < F < 2**31:

@@ -13,11 +13,17 @@ counterpart in ``rslqr_tpu/ops/schur_pallas.py``:
   tiling-based choice over), with the next level's own Sbar folded into its
   slab.
 
-Dispatch: a wrapper runs its plain PyTorch version (``*_plain``) for CPU
-tensors or under ``kernels="off"``, and launches its CUDA kernel
-(``csrc/schur_kernels.cu``) for CUDA tensors. On CUDA it launches or raises;
-there is no fallback. Each wrapper counts its kernel launches in its
-``launches`` attribute (see :func:`launch_counts`).
+Dispatch (:func:`kernel_applies`, the one rule of every kernel family of
+the port): a wrapper launches its CUDA kernel (``csrc/schur_kernels.cu``)
+for float32 CUDA tensors under ``kernels="auto"``, and runs its plain
+PyTorch version (``*_plain``) otherwise: CPU tensors, ``kernels="off"`` and
+other dtypes (the reference sends them to XLA stages). The rule is static
+and decided before any launch: a kernel that applies launches or raises
+(block dims outside 1..``MAX_SMALL``, shapes, contiguity, a CUDA error);
+there is no fallback. The kernels are instantiated for every block size
+the small-block path takes (``csrc/small_blocks.cuh``). Each wrapper counts
+its kernel launches in its ``launches`` attribute (see
+:func:`launch_counts`).
 
 Both routes update the input slabs (or z vectors) IN PLACE, as the TPU
 kernels alias them (``input_output_aliases``), and return them. Callers that
@@ -47,8 +53,9 @@ import torch
 # Maximum number of upper slabs one launch takes (the kernels receive the
 # slab pointers by value); tree depth <= 25.
 MAXU = 24
-# The (n, m) block sizes the CUDA kernels are instantiated for.
-KERNEL_BLOCKS = ((6, 3),)
+# The largest block dims n, m the CUDA kernels take (csrc/small_blocks.cuh:
+# the exact (6, 3), and the (4, 4) and (8, 8) capacities).
+MAX_SMALL = 8
 
 
 # ---------------------------------------------------------------------------
@@ -278,24 +285,29 @@ def leaf_schur_level0_em_plain(
 # ---------------------------------------------------------------------------
 
 
-def _use_kernel(kernels: str, t: torch.Tensor) -> bool:
-    """The dispatch rule: plain for CPU tensors or ``kernels="off"``, the
-    CUDA kernel for CUDA tensors, an error for anything else."""
+def kernel_applies(kernels: str, device: torch.device,
+                   dtype: torch.dtype) -> bool:
+    """The routing rule of every kernel wrapper of the port: its CUDA
+    kernel runs for float32 tensors on a CUDA device under
+    ``kernels="auto"``; CPU tensors, ``kernels="off"`` and other dtypes run
+    the plain version. An unknown mode, or a device that is neither CPU nor
+    CUDA, raises. Block sizes do not route: a kernel that applies takes
+    every block size its path gives it, and raises on any other."""
     if kernels not in ("auto", "off"):
         raise ValueError(f"unknown kernel mode {kernels!r}")
-    if kernels == "off" or t.device.type == "cpu":
+    if kernels == "off" or device.type == "cpu":
         return False
-    if t.device.type != "cuda":
-        raise RuntimeError(f"no kernel for device {t.device}")
-    return True
+    if device.type != "cuda":
+        raise RuntimeError(f"no kernel for device {device}")
+    return dtype == torch.float32
 
 
 def _check(name: str, tensors: Sequence[torch.Tensor], shapes, n: int,
            m: int, device):
-    if (n, m) not in KERNEL_BLOCKS:
+    if not (1 <= n <= MAX_SMALL and 1 <= m <= MAX_SMALL):
         raise ValueError(
-            f"{name}: CUDA kernels exist for (n, m) in {KERNEL_BLOCKS}, "
-            f"got {(n, m)}"
+            f"{name}: CUDA kernels take block dims 1..{MAX_SMALL}, got "
+            f"{(n, m)}"
         )
     for t, shape in zip(tensors, shapes):
         if t.device != device or t.dtype != torch.float32:
@@ -311,8 +323,10 @@ def _check(name: str, tensors: Sequence[torch.Tensor], shapes, n: int,
             raise ValueError(f"{name}: kernel takes contiguous tensors")
 
 
-def _ptr(t: Optional[torch.Tensor]):
-    return ctypes.c_void_p(0 if t is None else t.data_ptr())
+def _ptr(t: Optional[torch.Tensor]) -> int:
+    """A tensor's device address (0 for none); every C entry point declares
+    its pointer arguments, so ctypes converts the int."""
+    return 0 if t is None else t.data_ptr()
 
 
 def _ptrs(ts: Sequence[torch.Tensor]):
@@ -327,9 +341,13 @@ def _launch(fn_name: str, device, *args):
     from ._build import load
 
     lib = load()
-    with torch.cuda.device(device):
-        stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-        err = getattr(lib, fn_name)(*args, stream)
+    if device.index is None or device.index == torch.cuda.current_device():
+        err = getattr(lib, fn_name)(
+            *args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            err = getattr(lib, fn_name)(
+                *args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         msg = lib.rslqr_error_string(err).decode()
         raise RuntimeError(f"{fn_name} failed: CUDA error {err} ({msg})")
@@ -358,7 +376,7 @@ def rhs_update_level_em(
     ``rhs_kernel`` (one thread per knot and batch column; reads 90 floats of
     slab and 15 of z, writes 15).
     """
-    if not _use_kernel(kernels, Fl):
+    if not kernel_applies(kernels, Fl.device, Fl.dtype):
         return rhs_update_level_em_plain(
             Fl, Fx, Fu, zy, zx, zu, zbar, level=level, n=n, m=m
         )
@@ -406,7 +424,7 @@ def schur_update_level_em(
     Replaces ``rslqr_tpu/ops/schur_pallas.py:schur_update_level_em``.
     Kernel: ``level_kernel``.
     """
-    if not _use_kernel(kernels, FLl):
+    if not kernel_applies(kernels, FLl.device, FLl.dtype):
         return schur_update_level_em_plain(
             FLl, FLx, FLu, list(Fls), list(Fxs), list(Fus), fsol, Asep, Bsep,
             level=level, n=n, m=m,
@@ -469,7 +487,7 @@ def schur_update_pair_em(
     its own knot, which it wrote, so no value crosses threads except the
     product emission's separator rows).
     """
-    if not _use_kernel(kernels, FLl):
+    if not kernel_applies(kernels, FLl.device, FLl.dtype):
         return schur_update_pair_em_plain(
             FLl, FLx, FLu, list(Fls), list(Fxs), list(Fus), fsol1, Sbar2,
             fsol2, Asep3, Bsep3, level=level, n=n, m=m,
@@ -530,7 +548,7 @@ def leaf_schur_level0_em(
     """
     if depth < 2:
         raise ValueError("the fused leaf needs a tree of depth >= 2")
-    if not _use_kernel(kernels, A):
+    if not kernel_applies(kernels, A.device, A.dtype):
         return leaf_schur_level0_em_plain(
             A, B, qinv, rinv, S0, fsol, Asep, Bsep, depth=depth, n=n, m=m
         )

@@ -176,6 +176,16 @@ def test_chain_diff_needs_cuda():
             bk.chain_diff(make_run, 2, 1, dev)
 
 
+def test_chain_ms_and_launch_ms_need_cuda():
+    """The single-call and chained clocks of chip_smoke.py and
+    tools/time_solve.py raise without a card, as chain_diff does."""
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        bk.chain_ms(lambda: None, "cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            bk.launch_ms(lambda: None, tuple)
+
+
 def test_run_rejects_unknown_sections():
     with pytest.raises(ValueError, match="unknown sections"):
         bk.run(["update", "bogus"], "cpu")

@@ -11,13 +11,23 @@ a machine with a card and no JAX:
 Inputs are random f32, cloned for each route, at small shapes that reach
 every branch: odd batch widths (ragged last block of batch columns), B=1,
 the shortest horizons, emission on and off, and emission groups larger than
-one block of knots. The mid-block plane kernels run at n=12 and 36 (and the
-limit, 64), with one right-hand column (w=1, q=1), ragged planes, and
-Schur updates at level 0 and the top level. The flat-plane kernels run at
-the main path's shapes (N=256, B=1024), B10 emitting and not. The parallel
+one block of knots. The small-block kernels (B1-B4, B10-B12) also run at
+the block sizes of their generic instantiations, (n, m) = (4, 2), (3, 2),
+(4, 1), (1, 1), (8, 8), (5, 4) and (7, 5), B10 with its last row groups
+masked. Default-option solves (``solve_kkt``, ``solve_pscan_kkt``) in f64
+at nx=6 and 36 launch no kernel (f64 runs the plain stages), in f32 at
+(n, m) = (4, 2) and (8, 8) they launch the small-block kernels, and all
+equal ``kernels="off"``. The mid-block plane kernels run at n=12 and 36
+(and the limit, 64), with one right-hand column (w=1, q=1), ragged planes,
+and Schur updates at level 0 and the top level. The flat-plane kernels run
+at the main path's shapes (N=256, B=1024), B10 at every level 0-6 with one
+upper slab and the most the tree allows, emitting and not. The parallel
 scan's kernels:
 ``pgemm`` with each of its flags alone and in every combination the scan
-calls (and all at once at width 64), ``schur_update_planes`` masked and not,
+calls, at the quadruped scan's planes (16, 8 and 7 by 256), on wide planes
+(F >= 65,536) and on ragged planes (F = 1, 33, 2049) at block dims 1, 5,
+12, 36, 40 and 64 (all flags at once on a square output, exactly symmetric
+under ``sym``), ``schur_update_planes`` masked and not,
 ``plu_solve_multi`` at widths 12, 36 and 64 with 1-4 right-hand sides, and
 the pscan slice at small sizes. The probe kernels (``ops/probe.py``):
 ``pgemm_ib`` at every ``ib`` and ``t1``, with rows left over past a
@@ -171,6 +181,73 @@ def test_solve_kernel_path_matches_plain(dev):
     assert (got - ref).abs().max().item() <= 1e-4 * scale
 
 
+# The block sizes of the small-block kernels' generic instantiations
+# (csrc/small_blocks.cuh): the (4, 4) capacity and the (8, 8) one.
+OTHER_BLOCKS = [(4, 2), (3, 2), (4, 1), (1, 1), (8, 8), (5, 4), (7, 5)]
+
+
+def _sweep_args(g, dev, N, B, level, bn, bm, kind):
+    """Random arguments of one small-block sweep kernel at block (bn, bm):
+    ``kind`` is "rhs", "level" (with the separator dynamics), "pair" or
+    "leaf"."""
+    R = lambda *s: _rand(g, dev, *s)
+    xx, ux = bn * bn, bm * bn
+    depth = N.bit_length() - 1
+    U = depth - level - 1
+    G1, G2, G3 = N >> (level + 1), N >> (level + 2), N >> (level + 3)
+    trio = lambda: [R(xx, N, B), R(xx, N, B), R(ux, N, B)]
+    ups = lambda: [[R(e, N, B) for _ in range(U)] for e in (xx, xx, ux)]
+    if kind == "rhs":
+        return [*trio(), R(bn, N, B), R(bn, N, B), R(bm, N, B),
+                R(G1, bn, B)], dict(level=level)
+    if kind == "level":
+        return [*trio(), *ups(), [R(G1, xx, B) for _ in range(U)],
+                R(G2, xx, B), R(G2, ux, B)], dict(level=level)
+    if kind == "pair":
+        return [*trio(), *ups(), [R(G1, xx, B) for _ in range(U)],
+                R(G2, xx, B), [R(G2, xx, B) for _ in range(U - 1)],
+                R(G3, xx, B) if G3 else None,
+                R(G3, ux, B) if G3 else None], dict(level=level)
+    pos = lambda *s: (0.5 + torch.rand(s, generator=g)).to(dev)
+    return [R(xx, N, B), R(ux, N, B), pos(bn, N, B), pos(bm, N, B),
+            R(N // 2, xx, B), [R(N // 2, xx, B) for _ in range(depth - 1)],
+            R(N // 4, xx, B), R(N // 4, ux, B)], dict(depth=depth)
+
+
+SWEEP_KERNELS = {"rhs": "rhs_update_level_em",
+                 "level": "schur_update_level_em",
+                 "pair": "schur_update_pair_em",
+                 "leaf": "leaf_schur_level0_em"}
+
+
+@pytest.mark.parametrize("kind,N,B,level",
+                         [("rhs", 64, 40, 0), ("rhs", 64, 40, 4),
+                          ("level", 16, 40, 0), ("level", 32, 40, 2),
+                          ("level", 64, 33, 3), ("pair", 16, 40, 1),
+                          ("pair", 64, 33, 1), ("pair", 64, 40, 3),
+                          ("leaf", 16, 40, 0), ("leaf", 64, 33, 0)])
+@pytest.mark.parametrize("bn,bm", OTHER_BLOCKS)
+def test_sweep_kernels_other_blocks(dev, bn, bm, kind, N, B, level):
+    """B1-B4 at the generic instantiations' block sizes, emission included
+    where the level gives it."""
+    g = torch.Generator().manual_seed(1000 + 10 * bn + bm)
+    args, kw = _sweep_args(g, dev, N, B, level, bn, bm, kind)
+    fn = getattr(schur, SWEEP_KERNELS[kind])
+    before = fn.launches
+    ks, ps, *_ = _both(fn, args, dict(kw, n=bn, m=bm))
+    assert fn.launches == before + 1
+    _assert_match(ks, ps)
+
+
+def test_sweep_kernels_reject_blocks_past_eight(dev):
+    """A float32 CUDA call at a block past the instantiations raises (no
+    plain run on the card)."""
+    g = torch.Generator().manual_seed(5)
+    args, kw = _sweep_args(g, dev, 16, 8, 0, 9, 2, "rhs")
+    with pytest.raises(ValueError, match="block dims 1..8"):
+        schur.rhs_update_level_em(*args, n=9, m=2, **kw)
+
+
 # ---------------------------------------------------------------------------
 # Flat-plane kernels (ops/flat.py, csrc/flat_kernels.cu), at the main path's
 # shapes: N=256, B=1024 as [e, N*B/128, 128] flat planes.
@@ -182,6 +259,33 @@ FR = FN * FB // 128
 
 def _frows(G):
     return G * FB // 128
+
+
+@pytest.mark.parametrize("U_max", [False, True])
+@pytest.mark.parametrize("with_sep", [False, True])
+@pytest.mark.parametrize("level", range(7))
+def test_flat_level_kernel_every_level(dev, level, with_sep, U_max):
+    """B10 at N=256, B=1024 at every level, with one upper slab and with
+    the most the tree allows, emitting (levels 0-1 with the separator
+    dynamics given) and not."""
+    g = torch.Generator().manual_seed(900 + 4 * level + 2 * with_sep + U_max)
+    U = FN.bit_length() - 1 - level - 1 if U_max else 1
+    G, G2 = FN >> (level + 1), FN >> (level + 2)
+    R = lambda *s: _rand(g, dev, *s)
+    args = [R(nn, FR, 128), R(nn, FR, 128), R(mn, FR, 128),
+            [R(nn, FR, 128) for _ in range(U)],
+            [R(nn, FR, 128) for _ in range(U)],
+            [R(mn, FR, 128) for _ in range(U)],
+            [0.1 * R(nn, _frows(G), 128) for _ in range(U)],
+            R(nn, _frows(G2), 128) if with_sep else None,
+            R(n * m, _frows(G2), 128) if with_sep else None]
+    before = flat.schur_update_level_flat.launches
+    ks, ps, k, p = _both(flat.schur_update_level_flat, args,
+                         dict(level=level, n=n, m=m, N=FN))
+    assert flat.schur_update_level_flat.launches == before + 1
+    emits = with_sep and level < 2
+    assert (k[3] is not None) == (p[3] is not None) == emits
+    _assert_match(ks, ps)
 
 
 @pytest.mark.parametrize("level", [0, 1, 2])
@@ -236,6 +340,64 @@ def test_flat_rhs_kernel(dev, level):
                        dict(level=level, n=n, m=m, N=FN))
     assert flat.rhs_update_level_flat.launches == before + 1
     _assert_match(ks, ps)
+
+
+@pytest.mark.parametrize("level,with_sep", [(0, True), (1, True), (1, False),
+                                            (2, False), (6, False)])
+@pytest.mark.parametrize("bn,bm", OTHER_BLOCKS)
+def test_flat_level_kernel_other_blocks(dev, bn, bm, level, with_sep):
+    """B10 at the generic block sizes (row groups of three with the last
+    one masked where n or m is not a multiple of three), N=256, B=1024, the
+    most upper slabs the tree allows, emitting and not."""
+    g = torch.Generator().manual_seed(1100 + 10 * bn + bm + level)
+    xx, ux = bn * bn, bm * bn
+    U = FN.bit_length() - 1 - level - 1
+    G, G2 = FN >> (level + 1), FN >> (level + 2)
+    R = lambda *s: _rand(g, dev, *s)
+    args = [R(xx, FR, 128), R(xx, FR, 128), R(ux, FR, 128),
+            [R(xx, FR, 128) for _ in range(U)],
+            [R(xx, FR, 128) for _ in range(U)],
+            [R(ux, FR, 128) for _ in range(U)],
+            [0.1 * R(xx, _frows(G), 128) for _ in range(U)],
+            R(xx, _frows(G2), 128) if with_sep else None,
+            R(ux, _frows(G2), 128) if with_sep else None]
+    before = flat.schur_update_level_flat.launches
+    ks, ps, k, p = _both(flat.schur_update_level_flat, args,
+                         dict(level=level, n=bn, m=bm, N=FN))
+    assert flat.schur_update_level_flat.launches == before + 1
+    assert (k[3] is not None) == (p[3] is not None) == (with_sep
+                                                        and level < 2)
+    _assert_match(ks, ps)
+
+
+@pytest.mark.parametrize("bn,bm", OTHER_BLOCKS)
+def test_flat_leaf_and_rhs_kernels_other_blocks(dev, bn, bm):
+    """B11 at depth 5 and B12 at levels 0 and 3 (N=32, B=1024) at the
+    generic block sizes."""
+    N = 32
+    rows = lambda G: G * FB // 128
+    g = torch.Generator().manual_seed(1200 + 10 * bn + bm)
+    xx, ux = bn * bn, bm * bn
+    depth = N.bit_length() - 1
+    R = lambda *s: _rand(g, dev, *s)
+    pos = lambda *s: (0.5 + torch.rand(s, generator=g)).to(dev)
+    args = [R(xx, rows(N), 128), R(ux, rows(N), 128), pos(bn, rows(N), 128),
+            pos(bm, rows(N), 128), R(xx, rows(N // 2), 128),
+            [0.1 * R(xx, rows(N // 2), 128) for _ in range(depth - 1)],
+            R(xx, rows(N // 4), 128), R(ux, rows(N // 4), 128)]
+    ks, ps, *_ = _both(flat.leaf_schur_level0_flat, args,
+                       dict(depth=depth, n=bn, m=bm, N=N))
+    _assert_match(ks, ps)
+    for level in (0, 3):
+        args = [R(*s) for s in (
+            (xx, rows(N), 128), (xx, rows(N), 128), (ux, rows(N), 128),
+            (bn, rows(N), 128), (bn, rows(N), 128), (bm, rows(N), 128),
+            (bn, rows(N >> (level + 1)), 128))]
+        before = flat.rhs_update_level_flat.launches
+        ks, ps, *_ = _both(flat.rhs_update_level_flat, args,
+                           dict(level=level, n=bn, m=bm, N=N))
+        assert flat.rhs_update_level_flat.launches == before + 1
+        _assert_match(ks, ps)
 
 
 def test_flat_solve_kernel_path_matches_plain(dev):
@@ -377,6 +539,41 @@ PGEMM_FLAG_CASES = [
 ]
 
 
+# The pscan's own flag combinations (chip_smoke.py phase 2c: Sm, Vt, C_leaf,
+# J_leaf, J_pair, IC, C_comb, J_comb, Quu) at the quadruped scan's planes:
+# 16 chunks, 8 composites and 7 of them, by B=256.
+PSCAN_FLAGS = [
+    (12, 36, 12, dict(dconst=1.0)),
+    (12, 36, 36, dict(tbt=True)),
+    (36, 12, 36, dict(cin=True, sub=False, sym=True)),
+    (36, 36, 36, dict(ta=True, diag=True, sym=True)),
+    (36, 36, 36, dict(ta=True, ks=True, diag=True, sym=True)),
+    (36, 36, 36, dict(dconst=1.0)),
+    (36, 36, 36, dict(tbt=True, cin=True, sub=False, sym=True)),
+    (36, 36, 36, dict(cin=True, sub=False, sym=True)),
+    (12, 36, 12, dict(diag=True, sym=True)),
+]
+PGEMM_FLAG_CASES += [(p, K, q, plane, fl) for p, K, q, fl in PSCAN_FLAGS
+                     for plane in ((16, 256), (8, 256), (7, 256))]
+# Wide planes (F >= 65,536), the batched interior's Quu among them.
+PGEMM_FLAG_CASES += [
+    (12, 36, 12, (511, 256), dict(diag=True, sym=True)),
+    (36, 36, 36, (257, 256), dict(ta=True, ks=True, diag=True, sym=True)),
+    (40, 64, 40, (65569,), dict(tbt=True, cin=True, ks=True)),
+    (5, 7, 5, (65537,), dict(ta=True, cin=True, sub=False, dconst=1.0,
+                             sym=True)),
+]
+# Ragged planes (F = 1, 33, 2049) at every block dim of interest: all flags
+# on a square output, and the non-symmetric flags on a rectangular one.
+PGEMM_FLAG_CASES += [
+    case for F in (1, 33, 2049) for d, e in ((1, 5), (5, 12), (12, 36),
+                                             (36, 40), (40, 64), (64, 1))
+    for case in (
+        (d, e, d, (F,), dict(ta=True, tbt=True, cin=True, diag=True,
+                             dconst=0.5, sym=True, ks=True)),
+        (d, d, e, (F,), dict(tbt=True, cin=True, sub=False, ks=True)))]
+
+
 @pytest.mark.parametrize("p,K,q,plane,flags", PGEMM_FLAG_CASES)
 def test_pgemm_flagged_kernel(dev, p, K, q, plane, flags):
     g = torch.Generator().manual_seed(p + 7 * K + q)
@@ -398,6 +595,41 @@ def test_pgemm_flagged_kernel(dev, p, K, q, plane, flags):
     if kw["sym"]:
         out = ks_[0]
         assert torch.equal(out, out.transpose(0, 1))
+
+
+# Default-option solves: f64 runs the plain stages on the card (no launch
+# of any kernel); f32 at small blocks other than (6, 3) launches the
+# small-block kernels' generic instantiations. Both equal kernels="off".
+C5_CASES = [(torch.float64, 6, 3, 32, 40), (torch.float64, 36, 12, 32, 9),
+            (torch.float32, 4, 2, 32, 40), (torch.float32, 8, 8, 32, 40)]
+
+
+@pytest.mark.parametrize("solver", ["solve_kkt", "solve_pscan_kkt"])
+@pytest.mark.parametrize("dtype,nx,nu,N,B", C5_CASES)
+def test_default_options_route_by_applicability(dev, dtype, nx, nu, N, B,
+                                                solver):
+    import rslqr_tpu_torch as pt
+
+    prob = pt.random_problem(torch.Generator().manual_seed(nx), N, nx, nu,
+                             dtype=dtype, device=dev)
+    batch = pt.batch_problems(prob, B, torch.Generator().manual_seed(1))
+    solve = getattr(pt, solver)
+    for mod in (schur, flat, planes):
+        mod.reset_launch_counts()
+    got = solve(batch)
+    torch.cuda.synchronize()
+    launched = {k: v for mod in (schur, flat, planes)
+                for k, v in mod.launch_counts().items() if v}
+    if dtype == torch.float32 and solver == "solve_kkt":
+        # N=32: the fused leaf, one pair (levels 1-2), B1 at levels 3-4.
+        assert launched == schur.launch_counts() and all(
+            c > 0 for c in launched.values()) and len(launched) == 4, launched
+    else:  # f64, or the small-block pscan (batch-last, no kernel)
+        assert not launched, launched
+    ref = solve(batch, pt.SolveOptions(kernels="off"))
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
+    scale = 1.0 + ref.abs().max().item()
+    assert (got - ref).abs().max().item() <= 1e-4 * scale
 
 
 @pytest.mark.parametrize(

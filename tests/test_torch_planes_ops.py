@@ -173,7 +173,7 @@ def test_wrappers_dispatch_by_device():
     planes.pgemm(A, A, kernels="off")
     assert planes.launch_counts() == {
         "pgemm": 0, "pchol": 0, "pcho_solve": 0, "schur3_update_planes": 0,
-        "schur_update_planes": 0, "plu_solve_multi": 0,
+        "schur_update_planes": 0, "plu_solve_multi": 0, "pgemm_flagged": 0,
     }
     meta = torch.empty(A.shape, device="meta")
     with pytest.raises(RuntimeError, match="no kernel"):

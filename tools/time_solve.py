@@ -20,9 +20,15 @@ kernel path):
 ``--kernels`` also prints the median ms over 10 launches
 (CUDA events) of chip_smoke.py's phase-2b cases of B5 (``pgemm``, no flags)
 and B9 (``schur3_update_planes``), which every tree since the mid-block
-slice has. To compare two trees, unpack the other one (``git archive``)
-into a git-ignored directory and run the script on both in one machine,
-alternating: A, B, B, A.
+slice has, and of its phase-2c/2d cases of the scan's nine flagged B5
+products and of B10 (``schur_update_level_flat``) at levels 1-6, each of
+those also chained (CUDA-graph replays of 10 back-to-back calls against
+one), beside the same timings of one PyTorch library call
+(``matmul``/``baddbmm`` on mat-last views; an unmasked ``baddbmm`` over
+every B10 slab row). The clock is the timed tree's
+``bench_kernels.launch_ms``/``chain_ms``. To compare two trees, unpack the
+other one (``git archive``) into a git-ignored directory and run the
+script on both in one machine, alternating: A, B, B, A.
 """
 
 import argparse
@@ -35,25 +41,118 @@ from pathlib import Path
 CONFIGS = {"small": (256, 6, 3, 1024), "quad": (512, 36, 12, 256)}
 
 
+# The quadruped scan's flagged products (chip_smoke.py phase 2c): label,
+# p, K, q, plane, flags.
+FLAGGED = (
+    ("Sm", 12, 36, 12, (16, 256), dict(dconst=1.0)),
+    ("Vt", 12, 36, 36, (16, 256), dict(tbt=True)),
+    ("C_leaf", 36, 12, 36, (16, 256), dict(cin=True, sub=False, sym=True)),
+    ("J_leaf", 36, 36, 36, (16, 256), dict(ta=True, diag=True, sym=True)),
+    ("J_pair", 36, 36, 36, (16, 256), dict(ta=True, ks=True, diag=True,
+                                           sym=True)),
+    ("IC", 36, 36, 36, (8, 256), dict(dconst=1.0)),
+    ("C_comb", 36, 36, 36, (8, 256), dict(tbt=True, cin=True, sub=False,
+                                          sym=True)),
+    ("J_comb", 36, 36, 36, (8, 256), dict(cin=True, sub=False, sym=True)),
+    ("Quu", 12, 36, 12, (511, 256), dict(diag=True, sym=True)),
+)
+
+
+def _med(torch, fn, make, reps=10):
+    """Median ms of ``fn(*make())`` over ``reps`` single launches
+    (``bench_kernels.launch_ms``)."""
+    from rslqr_tpu_torch.bench_kernels import launch_ms
+
+    return launch_ms(fn, make, reps)
+
+
+def _chained(torch, call):
+    """Device ms of one ``call()`` chained (``bench_kernels.chain_ms``:
+    CUDA-graph replays of 10 back-to-back calls against one, min over 3)."""
+    from rslqr_tpu_torch.bench_kernels import chain_ms
+
+    return chain_ms(call)
+
+
+def _ml(x):
+    """``[p, q, *plane] -> [F, p, q]`` contiguous (the library's layout)."""
+    return x.reshape(x.shape[0], x.shape[1], -1).permute(2, 0, 1).contiguous()
+
+
+def flagged_times(torch, planes, R):
+    """``{case: (single ms, chained ms)}`` of the nine flagged products and
+    of their library calls."""
+    out = {}
+    for label, p, K, q, plane, fl in FLAGGED:
+        ta, tbt, sym = (fl.get(k, False) for k in ("ta", "tbt", "sym"))
+        A = R(*((K, p) if ta else (p, K)), *plane)
+        Bm = R(*((q, K) if tbt else (K, q)), *plane)
+        cin = R(p, q, *plane) if fl.get("cin") else None
+        if cin is not None and sym:
+            cin = 0.5 * (cin + cin.transpose(0, 1))
+        diag = R(p, *plane) if fl.get("diag") else None
+        ks = R(K, *plane) if fl.get("ks") else None
+        kw = dict(ta=ta, tbt=tbt, sub=fl.get("sub", True),
+                  dconst=fl.get("dconst", 0.0), sym=sym)
+        call = lambda: planes.pgemm(A, Bm, cin, diag, ks, **kw)
+        out[f"flagged {label}"] = (_med(torch, lambda: call(), tuple),
+                                   _chained(torch, call))
+        a = _ml(A).transpose(1, 2) if ta else _ml(A)
+        b = _ml(Bm).transpose(1, 2) if tbt else _ml(Bm)
+        c = None if cin is None else _ml(cin)
+        lib = ((lambda: torch.baddbmm(c, a, b)) if c is not None
+               else (lambda: torch.matmul(a, b)))
+        out[f"library flagged {label}"] = (_med(torch, lib, tuple),
+                                           _chained(torch, lib))
+    return out
+
+
+def flat_level_times(torch, flat, R):
+    """``{case: (single ms, chained ms)}`` of B10 at levels 1-6 (N=256,
+    B=1024 flat planes; level 1 emits) and of one unmasked ``baddbmm``
+    over the same slab rows."""
+    n, m, N, B = 6, 3, 256, 1024
+    nn, mn = n * n, m * n
+    rows = lambda G: G * B // 128
+    depth = N.bit_length() - 1
+    out = {}
+    for level in range(1, depth - 1):
+        U = depth - level - 1
+        G, G2 = N >> (level + 1), N >> (level + 2)
+        emit = flat._flat_emits(level, N)
+        FL = [R(nn, rows(N), 128), R(nn, rows(N), 128), R(mn, rows(N), 128)]
+        up = [[R(e, rows(N), 128) for _ in range(U)] for e in (nn, nn, mn)]
+        fs = [0.1 * R(nn, rows(G), 128) for _ in range(U)]
+        sep = ([R(nn, rows(G2), 128), R(n * m, rows(G2), 128)] if emit
+               else [None, None])
+        kw = dict(level=level, n=n, m=m, N=N)
+        fresh = lambda: ([[x.clone() for x in u] for u in up],)
+        call = lambda u: flat.schur_update_level_flat(*FL, *u, fs, *sep, **kw)
+        work = [[x.clone() for x in u] for u in up]
+        out[f"B10 L{level} U={U}"] = (
+            _med(torch, lambda u: call(u), fresh),
+            _chained(torch, lambda: call(work)))
+        span = 2 << level
+        FLml = torch.cat([x.view(-1, n, N * B) for x in FL]).permute(
+            2, 0, 1).contiguous()
+        C = torch.cat([torch.cat([x.view(-1, n, N * B) for x in trio])
+                       for trio in zip(*up)], dim=1).permute(2, 0, 1)
+        C = C.contiguous()
+        f = torch.cat([x.view(n, n, G, 1, B).expand(n, n, G, span, B).reshape(
+            n, n, N * B) for x in fs], dim=1).permute(2, 0, 1).contiguous()
+        lib = lambda: torch.baddbmm(C, FLml, f, alpha=-1.0)
+        out[f"library B10 L{level} U={U}"] = (_med(torch, lib, tuple),
+                                              _chained(torch, lib))
+        del FL, up, fs, sep, work, FLml, C, f
+    return out
+
+
 def kernel_times(torch, planes, reps=10):
     """``{case: median ms}`` of the phase-2b B5 and B9 cases."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     R = lambda *s: torch.randn(s, generator=gen, device="cuda")
     G, Bb, N = 256, 256, 512
-
-    def med(fn, make):
-        ts = []
-        for _ in range(reps + 1):
-            args = make()
-            torch.cuda.synchronize()
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn(*args)
-            b.record()
-            torch.cuda.synchronize()
-            ts.append(a.elapsed_time(b))
-        return statistics.median(ts[1:])
+    med = lambda fn, make: _med(torch, fn, make, reps)
 
     out = {}
     for p, K, q in ((36, 36, 36), (36, 12, 36), (12, 12, 12)):
@@ -83,7 +182,7 @@ def main() -> int:
     import torch
 
     import rslqr_tpu_torch as pt
-    from rslqr_tpu_torch.ops import _build, planes
+    from rslqr_tpu_torch.ops import _build, flat, planes
 
     if not torch.cuda.is_available():
         print("time_solve: no CUDA device", file=sys.stderr)
@@ -130,6 +229,13 @@ def main() -> int:
         for case, ms in kernel_times(torch, planes).items():
             print(f"time_solve root={root.name} kernel {case}: {ms:.4f} ms",
                   flush=True)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        R = lambda *s: torch.randn(s, generator=gen, device="cuda")
+        for case, (single, chained) in {**flagged_times(torch, planes, R),
+                                        **flat_level_times(torch, flat,
+                                                           R)}.items():
+            print(f"time_solve root={root.name} kernel {case}: single "
+                  f"{single:.4f} ms, chained {chained:.4f} ms", flush=True)
     return 0
 
 
