@@ -12,11 +12,14 @@ Phases, each printing one line of numbers:
    PyTorch version on clones of the same random f32 inputs, at the small
    path's shapes (N=256, B=1024; B1 at N=128 and with level pairing off),
    with the median time of each over 10 launches, and for B1 and B2 one
-   unmasked ``baddbmm`` on mat-last views (as B10, B12 in phase 2d);
+   unmasked ``baddbmm`` on mat-last views (as B10, B12 in phase 2d); B1
+   (on row groups, ``csrc/row_groups.cuh``) also chained, kernel and
+   ``baddbmm``;
 2b. each of the four mid-block plane kernels (B5 pgemm, B6 pchol, B7
    pcho_solve, B9 schur3_update_planes) the same way, at the quadruped
    path's shapes (nx=36, nu=12, N=512, B=256) and once at n=12, m=4, with
-   the time of one PyTorch library call on the same inputs beside each;
+   the time of one PyTorch library call on the same inputs beside each; B5
+   and B9 (``rows_kernel``) also chained, kernel and library call;
 3. the small-block slice: ``solve_kkt`` on the BASELINE batched-MPC config
    (the double integrator, nx=6, nu=3, N=256, perturbed into B=1024
    instances, f32) and again at N=128 so that B1 launches, with launch
@@ -28,7 +31,8 @@ Phases, each printing one line of numbers:
    (``pgemm`` with ``ta``/``tbt``/``Cin``/``diag``/``dconst``/``sym``/
    ``kscale``: ``flagged_kernel``) that ``solve_pscan`` calls, at its
    shapes, each also chained (CUDA-graph replays, kernel and library call),
-   B5's ``schur_update_planes`` (lambda masked and not) and B8
+   B5's ``schur_update_planes`` (lambda masked and not; ``rows_kernel``,
+   also chained) and B8
    ``plu_solve_multi`` with each right-hand-side pattern of the path;
 3b. the mid-block slice: ``solve_kkt`` on BASELINE.json's quadruped config
    (``random_problem`` nx=36, nu=12, N=512, perturbed into B=256 instances,
@@ -61,10 +65,12 @@ Phases, each printing one line of numbers:
    fills the card (F = 132*2048*4, reps = 32768) and at the probe's (F =
    512*128, reps = 4096);
 2f. B1-B4 and B10-B12 the same way at the other small block sizes, (n, m)
-   = (4, 2), (8, 8) and (5, 4) (the generic instantiations of
-   ``csrc/small_blocks.cuh``), at the small path's shapes;
-3e. default-option f32 solves at those block sizes, em and flat schedule,
-   with their launch counts and agreement with ``kernels="off"``;
+   = (4, 2), (8, 8), (5, 4) (the generic instantiations of
+   ``csrc/small_blocks.cuh``), and the wide inputs (6, 12) and (8, 64) (its
+   wide tag), at the small path's shapes;
+3e. default-option f32 solves at those block sizes, em (N=256, and N=128
+   where B1 launches) and flat schedule, with their launch counts and
+   agreement with ``kernels="off"``;
 4. time per batched solve of both slices, kernel path and
    ``kernels="off"``; 4c the same for the parallel scan; 4d for the flat
    solve and the refined solve;
@@ -85,6 +91,7 @@ last ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
 without that last line; so does a machine without CUDA. Imports no JAX.
 """
 
+import itertools
 import json
 import statistics
 import subprocess
@@ -140,6 +147,8 @@ SOURCES = {k: PROBE_SRC if k in PROBES else SCHUR_SRC if k.endswith("_em")
            else FLAT_SRC if k.endswith("_flat") else PLU_SRC
            if k.startswith("plu") else FLAGGED_SRC if k == "pgemm_flagged"
            else PLANES_SRC for k in REPLACES}
+# B1's kernel (instantiated by schur_kernels.cu; B10's at the wide blocks).
+SOURCES["schur_update_level_em"] = "rslqr_tpu_torch/csrc/row_groups.cuh"
 # The kernels of each mid-block path (the others launch no time there).
 RSLQR_MID = ("pgemm", "pchol", "pcho_solve", "schur3_update_planes")
 PSCAN_MID = ("pgemm", "pgemm_flagged", "plu_solve_multi")
@@ -165,9 +174,10 @@ BENCH_KERNELS = {
 n, m = 6, 3
 nn, mn = n * n, m * n
 # The block sizes of the generic small-block instantiations held against
-# their plain versions (phase 2f) and solved (phases 3 and 3d): (4, 2) in
-# the (4, 4) capacity, (8, 8) and (5, 4) in the (8, 8) one.
-EXTRA_BLOCKS = ((4, 2), (8, 8), (5, 4))
+# their plain versions (phase 2f) and solved (phase 3e): (4, 2) in the
+# (4, 4) capacity, (8, 8) and (5, 4) in the (8, 8) one, and the wide inputs
+# (6, 12) and (8, 64) (n <= 8 < m <= 64, the wide tag).
+EXTRA_BLOCKS = ((4, 2), (8, 8), (5, 4), (6, 12), (8, 64))
 
 
 def nvidia_smi() -> str:
@@ -448,6 +458,7 @@ class Smoke:
                     NN, B),
                 moved=update_moved(n, m, n, NN, B, level, U)
                 + (emit_moved(G2, B, emitted) if emitted else 0),
+                chain=True,
             )
 
     def level_args(self, N, B, level, nx=n, nu=m, R=None):
@@ -610,7 +621,7 @@ class Smoke:
             self.compare(
                 "pgemm", f"{p}x{K}.{K}x{q} G={G} B={Bb}",
                 lambda a, b, **k: (pl.pgemm(a, b, **k),), [A, Bm], {},
-                2 * p * K * q * F, (t.matmul, (ml(A), ml(Bm))),
+                2 * p * K * q * F, (t.matmul, (ml(A), ml(Bm))), chain=True,
             )
         for d in (QX, 12):
             S = self.spd(d, G, Bb)
@@ -640,6 +651,7 @@ class Smoke:
                 "schur3_update_planes",
                 f"n={nx} m={nu} q={q} N={QN} B={Bb} level={level}",
                 pl.schur3_update_planes, *self.schur3_case(nx, nu, q, level),
+                chain=True,
             )
 
     def schur3_case(self, nx, nu, q, level):
@@ -738,7 +750,7 @@ class Smoke:
                 "schur_update_planes",
                 f"n={X} q={X} N={QN} B={Bb} level=0 lam={lam}",
                 lambda *a, **k: (pl.schur_update_planes(*a, **k),),
-                *self.schur1_case(lam), phase="phase2c",
+                *self.schur1_case(lam), phase="phase2c", chain=True,
             )
         # B8: the Woodbury solve (m=12, identity right-hand side) of every
         # fold / down-sweep step, and the suffix tree's I + C J solves.
@@ -1239,41 +1251,43 @@ class Smoke:
 
     # -- phase 3e --------------------------------------------------------
     def block_solves(self):
-        """Default-option f32 solves at the generic block sizes: the em
-        schedule (``solve_kkt``, N=256: B2-B4 launch) and the flat one (B10-
-        B12 launch, no B1-B4), each against ``kernels="off"``; counts set to
-        0 just before each solve."""
+        """Default-option f32 solves at the generic and wide block sizes:
+        the em schedule (``solve_kkt``, N=256: B2-B4 launch; N=128: B1 too)
+        and the flat one (N=256: B10-B12 launch, no B1-B4), each against
+        ``kernels="off"``; counts set to 0 just before each solve."""
         t, pt, s, f = self.torch, self.pt, self.schur, self.flat
-        N, B = N_MAIN, BATCH
+        B = BATCH
         off = pt.SolveOptions(kernels="off")
-        for nx, nu in EXTRA_BLOCKS:
+        runs = ((N_MAIN, "em", None), (N_ODD, "em", None),
+                (N_MAIN, "flat", pt.SolveOptions(flat_planes=True)))
+        for (nx, nu), (N, label, opts) in itertools.product(EXTRA_BLOCKS,
+                                                            runs):
             prob = (pt.double_integrator_problem(
                 N, nx, nu, dtype=t.float32, device=self.dev) if nx == 2 * nu
                 else pt.random_problem(t.Generator().manual_seed(nx), N, nx,
                                        nu, dtype=t.float32, device=self.dev))
             b = pt.batch_problems(prob, B, t.Generator().manual_seed(N + nx))
-            for label, opts in (("em", None),
-                                ("flat", pt.SolveOptions(flat_planes=True))):
-                s.reset_launch_counts()
-                f.reset_launch_counts()
-                got = pt.solve_kkt(b, options=opts)
-                t.cuda.synchronize()
-                em, fl = s.launch_counts(), f.launch_counts()
-                ref_opts = off if opts is None else pt.SolveOptions(
-                    flat_planes=True, kernels="off")
-                d = rel_err(got, pt.solve_kkt(b, options=ref_opts))
-                want = (("rhs_update_level_em", "leaf_schur_level0_em",
-                         "schur_update_pair_em") if opts is None
-                        else tuple(fl))
-                ran = {**em, **fl}
-                ok = (all(ran[k] > 0 for k in want) and d <= SLICE_BAR
-                      and bool(t.isfinite(got).all())
-                      and (opts is None or not any(em.values())))
-                self.check(ok, f"n={nx} m={nu} {label}: launches {ran}, rel "
-                               f"diff vs off {d:.3e}")
-                print(f"phase3e {label} n={nx} m={nu} N={N} B={B} f32 "
-                      f"default options: rel_diff_vs_off={d:.3e} (bar "
-                      f"{SLICE_BAR}) launches {json.dumps(ran)}", flush=True)
+            s.reset_launch_counts()
+            f.reset_launch_counts()
+            got = pt.solve_kkt(b, options=opts)
+            t.cuda.synchronize()
+            em, fl = s.launch_counts(), f.launch_counts()
+            ref_opts = off if opts is None else pt.SolveOptions(
+                flat_planes=True, kernels="off")
+            d = rel_err(got, pt.solve_kkt(b, options=ref_opts))
+            want = (("rhs_update_level_em", "leaf_schur_level0_em",
+                     "schur_update_pair_em")
+                    + (("schur_update_level_em",) if N == N_ODD else ())
+                    if opts is None else tuple(fl))
+            ran = {**em, **fl}
+            ok = (all(ran[k] > 0 for k in want) and d <= SLICE_BAR
+                  and bool(t.isfinite(got).all())
+                  and (opts is None or not any(em.values())))
+            self.check(ok, f"n={nx} m={nu} {label}: launches {ran}, rel "
+                           f"diff vs off {d:.3e}")
+            print(f"phase3e {label} n={nx} m={nu} N={N} B={B} f32 "
+                  f"default options: rel_diff_vs_off={d:.3e} (bar "
+                  f"{SLICE_BAR}) launches {json.dumps(ran)}", flush=True)
 
     # -- phase 5 ---------------------------------------------------------
     def profile(self, b, label, solve=None, top=14):

@@ -12,9 +12,12 @@
 // schur_kernels.cu (the [nn, N, B] suite, B1-B4) is the schedule: compact
 // solved separators and emitted products are element-major [e, G, B] (there
 // group-major [G, e, B]), products are emitted at levels 0 and 1 only, and
-// there is no level pairing. float32 only. Block sizes: every 1 <= n, m <= 8,
-// through the instantiations of small_blocks.cuh (the exact (6, 3), and the
-// (4, 4) and (8, 8) capacities with n, m at run time).
+// there is no level pairing. float32 only. Block sizes: every 1 <= n <= 8,
+// 1 <= m <= 64, through the instantiations of small_blocks.cuh (the exact
+// (6, 3), the (4, 4) and (8, 8) capacities with n, m at run time, and the
+// wide tag, whose u rows the leaf and RHS kernels take in chunks of 8 and
+// whose level update is row_groups.cuh's row_level_kernel: B10's own block
+// of one thread per row group would pass 1,024 threads there).
 //
 // Mapping of the leaf and RHS kernels: one thread per (knot, batch column).
 // A block is TB=32 batch columns (one warp, so every slab load and store is
@@ -31,7 +34,9 @@
 // __syncthreads() the row-(r+1) thread forms S = A_sep @ x[r] + B_sep @ u[r]
 // - x[r+1] - l[r+1] (ndlqr_FactorInnerProduct, nested_dissection.c:114-134),
 // writes S and stores its lambda row: S on the next level's own slab (the
-// Sbar fold, ref solve.c:92-97), else the staged value.
+// Sbar fold, ref solve.c:92-97), else the staged value. At the wide tag the
+// u rows of r are not staged: the emission reads them back from device
+// memory, one row at a time.
 //
 // Bound: bandwidth. Per knot and batch column and upper level a kernel reads
 // and writes about 90 floats of slab against ~6 FMAs per slab element (about
@@ -46,23 +51,25 @@
 #include <cuda_runtime.h>
 #include <cstddef>
 
+#include "row_groups.cuh"
 #include "small_blocks.cuh"
 
 namespace {
 
+using small_blocks::chunk_rows;
+using small_blocks::chunks;
+using small_blocks::CPtrs;
+using small_blocks::cptrs;
 using small_blocks::dot_row;
+using small_blocks::groups_of;
+using small_blocks::LKB;
 using small_blocks::load_blk;
+using small_blocks::MAXU;
+using small_blocks::Ptrs;
+using small_blocks::ptrs;
+using small_blocks::RPT;
+using small_blocks::TB;
 using small_blocks::with_block;
-
-constexpr int MAXU = 24;  // upper slabs per launch (matches ops/schur.py)
-constexpr int TB = 32;    // batch columns per block
-
-struct Ptrs {
-  float* p[MAXU];
-};
-struct CPtrs {
-  const float* p[MAXU];
-};
 
 struct Site {
   int b, k;
@@ -110,7 +117,7 @@ __device__ __forceinline__ void load_compact(float (&r)[R * C],
 template <class K>
 struct Stage {
   float xr[K::NP * K::NP][TB];
-  float ur[K::MP * K::NP][TB];
+  float ur[K::WIDE ? 1 : K::MP * K::NP][TB];
   float lr1[K::NP * K::NP][TB];
   float xr1[K::NP * K::NP][TB];
 };
@@ -121,11 +128,13 @@ enum Role { kPlain = 0, kSepRow = 1, kAfterSep = 2 };
 // trio's current values (in_l/in_x/in_u: block row, column -> value),
 // written once:
 //   l = sep ? f : (keep ? l - ML@f : l);  x -= MX@f;  u -= MU@f.
-// kSepRow stages its new x/u; kAfterSep stages its new lambda/x and leaves
-// its lambda store to emit_products.
-template <class K, class InL, class InX, class InU>
+// kSepRow stages its new x/u (x only at the wide tag); kAfterSep stages its
+// new lambda/x and leaves its lambda store to emit_products. ``mu`` holds the
+// u rows' multiplier (at the wide tag: a callable giving chunk i0's);
+// ``in_u`` takes the slab row.
+template <class K, class InL, class InX, class InU, class Mu>
 __device__ __forceinline__ void update_trio(
-    const float* ml, const float* mx, const float* mu, const float* f,
+    const float* ml, const float* mx, const Mu& mu, const float* f,
     bool keep, bool sep, InL in_l, InX in_x, InU in_u, float* ol, float* ox,
     float* ou, Stage<K>& st, int role, const Site& s, int n, int m) {
   constexpr int NP = K::NP, MP = K::MP;
@@ -157,49 +166,102 @@ __device__ __forceinline__ void update_trio(
       if (role == kAfterSep) st.xr1[e][t] = v;
     }
   }
+  for (int ch = 0, i0 = 0; ch < chunks<K>(m); ++ch, i0 += MP) {
+    const int mc = chunk_rows<K>(m, i0);
+    float mw[MP * NP];
+    const float* mu_c;
+    if constexpr (K::WIDE) {
+      mu(i0, mc, mw);
+      mu_c = mw;
+    } else {
+      mu_c = mu;
+    }
 #pragma unroll
-  for (int i = 0; i < MP; ++i) {
+    for (int i = 0; i < MP; ++i) {
 #pragma unroll
-    for (int c = 0; c < NP; ++c) {
-      if (i >= m || c >= n) continue;
-      const int e = i * n + c;
-      const float v = in_u(i, c) - dot_row<NP>(mu, i, f, c);
-      ou[e * s.plane + s.idx] = v;
-      if (role == kSepRow) st.ur[e][t] = v;
+      for (int c = 0; c < NP; ++c) {
+        if (i >= mc || c >= n) continue;
+        const int e = (i0 + i) * n + c;
+        const float v = in_u(i0 + i, c) - dot_row<NP>(mu_c, i, f, c);
+        ou[e * s.plane + s.idx] = v;
+        if constexpr (!K::WIDE)
+          if (role == kSepRow) st.ur[e][t] = v;
+      }
     }
   }
 }
 
 // The row-(r+1) thread's product emission and lambda store (see header):
 // S into group g2 of the compact [nn, G2, B] output, and its lambda row as
-// S (``fold``) or as the staged updated value.
+// S (``fold``) or as the staged updated value. The wide tag reads u[r] from
+// ``ou`` (this upper level's u slab) at knot r, one row at a time, into the
+// n x n sums.
 template <class K>
 __device__ void emit_products(const Stage<K>& st,
                               const float* __restrict__ Asep,
                               const float* __restrict__ Bsep, float* Sout,
-                              float* ol, bool fold, int g2, int G2, int B,
-                              const Site& s, int n, int m) {
+                              float* ol, const float* ou, bool fold, int g2,
+                              int G2, int B, const Site& s, int n, int m) {
   constexpr int NP = K::NP, MP = K::MP;
-  float a[NP * NP], bm[NP * MP];
+  float a[NP * NP];
   load_compact<NP, NP>(a, Asep, n, n, g2, G2, B, s.b);
-  load_compact<NP, MP>(bm, Bsep, n, m, g2, G2, B, s.b);
   const int t = threadIdx.x;
+  if constexpr (K::WIDE) {
+    float S[NP * NP];
 #pragma unroll
-  for (int i = 0; i < NP; ++i) {
+    for (int i = 0; i < NP; ++i)
 #pragma unroll
-    for (int c = 0; c < NP; ++c) {
-      if (i >= n || c >= n) continue;
-      const int e = i * n + c;
-      float acc = a[i * NP] * st.xr[c][t];
+      for (int c = 0; c < NP; ++c) {
+        float acc = a[i * NP] * st.xr[c][t];
 #pragma unroll
-      for (int j = 1; j < NP; ++j)
-        if (j < n) acc += a[i * NP + j] * st.xr[j * n + c][t];
+        for (int j = 1; j < NP; ++j)
+          if (j < n) acc += a[i * NP + j] * st.xr[j * n + c][t];
+        S[i * NP + c] = acc;
+      }
+    const size_t ir = s.idx - B;  // knot r = k - 1
+#pragma unroll 1
+    for (int j = 0; j < m; ++j) {
+      float bj[NP], uj[NP];
 #pragma unroll
-      for (int j = 0; j < MP; ++j)
-        if (j < m) acc += bm[i * MP + j] * st.ur[j * n + c][t];
-      acc = acc - st.xr1[e][t] - st.lr1[e][t];
-      Sout[cidx(e, g2, G2, B, s.b)] = acc;
-      ol[e * s.plane + s.idx] = fold ? acc : st.lr1[e][t];
+      for (int i = 0; i < NP; ++i) {
+        bj[i] = i < n ? Bsep[cidx(i * m + j, g2, G2, B, s.b)] : 0.0f;
+        uj[i] = i < n ? ou[(j * n + i) * s.plane + ir] : 0.0f;
+      }
+#pragma unroll
+      for (int i = 0; i < NP; ++i)
+#pragma unroll
+        for (int c = 0; c < NP; ++c) S[i * NP + c] += bj[i] * uj[c];
+    }
+#pragma unroll
+    for (int i = 0; i < NP; ++i)
+#pragma unroll
+      for (int c = 0; c < NP; ++c) {
+        if (i >= n || c >= n) continue;
+        const int e = i * n + c;
+        const float acc = S[i * NP + c] - st.xr1[e][t] - st.lr1[e][t];
+        Sout[cidx(e, g2, G2, B, s.b)] = acc;
+        ol[e * s.plane + s.idx] = fold ? acc : st.lr1[e][t];
+      }
+  } else {
+    float bm[NP * MP];
+    load_compact<NP, MP>(bm, Bsep, n, m, g2, G2, B, s.b);
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+#pragma unroll
+      for (int c = 0; c < NP; ++c) {
+        if (i >= n || c >= n) continue;
+        const int e = i * n + c;
+        float acc = a[i * NP] * st.xr[c][t];
+#pragma unroll
+        for (int j = 1; j < NP; ++j)
+          if (j < n) acc += a[i * NP + j] * st.xr[j * n + c][t];
+#pragma unroll
+        for (int j = 0; j < MP; ++j)
+          if (j < m) acc += bm[i * MP + j] * st.ur[j * n + c][t];
+        acc = acc - st.xr1[e][t] - st.lr1[e][t];
+        Sout[cidx(e, g2, G2, B, s.b)] = acc;
+        ol[e * s.plane + s.idx] = fold ? acc : st.lr1[e][t];
+      }
     }
   }
 }
@@ -254,9 +316,14 @@ __global__ void flat_rhs_kernel(const float* __restrict__ Fl,
 #pragma unroll
   for (int i = 0; i < NP; ++i)
     if (i < n) zx[i * s.plane + s.idx] -= dot_plane<NP>(Fx, i, n, zb, s);
+  for (int ch = 0, i0 = 0; ch < chunks<K>(m); ++ch, i0 += MP) {
+    const int mc = chunk_rows<K>(m, i0);
 #pragma unroll
-  for (int i = 0; i < MP; ++i)
-    if (i < m) zu[i * s.plane + s.idx] -= dot_plane<NP>(Fu, i, n, zb, s);
+    for (int i = 0; i < MP; ++i)
+      if (i < mc)
+        zu[(i0 + i) * s.plane + s.idx] -=
+            dot_plane<NP>(Fu, i0 + i, n, zb, s);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -293,13 +360,10 @@ __global__ void flat_rhs_kernel(const float* __restrict__ Fl,
 // level's own slab (u = 0), into the lambda row of r + 1, which the level
 // itself leaves unchanged there (the Sbar fold, ref solve.c:92-97).
 // ---------------------------------------------------------------------------
-constexpr int RPT = 3;  // slab rows per thread
-constexpr int LKB = 2;  // knots per block (ops/flat.py:_level_plan)
-
-// Row groups of a slab of ``rows`` rows (ops/flat.py:_row_groups).
-__host__ __device__ constexpr int groups_of(int rows) {
-  return (rows + RPT - 1) / RPT;
-}
+// RPT = 3 slab rows per thread, LKB = 2 knots per block, groups_of: as in
+// row_groups.cuh (ops/schur.py:_level_plan). One thread per row group holds
+// n, m <= 8 to 576 threads; the wide tag (up to 28 row groups, 1,792
+// threads) runs row_groups.cuh's row_level_kernel, which loops over them.
 
 template <class K>
 __host__ __device__ constexpr int level_threads() {
@@ -493,12 +557,19 @@ __global__ void flat_leaf_kernel(const float* __restrict__ A,
   const int role = role_of(true, s, 0);
   float a[NP * NP], bm[NP * MP], qi[NP], ri[MP];
   float fl0[NP * NP], fx0[NP * NP], fu0[MP * NP];
+  // The wide tag's level-L leaf value of u row i, column j, from device
+  // memory (B's column i and R^-1's entry i).
+  const auto fu_at = [&](LeafMask lm, int i, int j) {
+    return lm.ownu
+               ? Bm[(j * m + i) * s.plane + s.idx] * rinv[i * s.plane + s.idx]
+               : 0.0f;
+  };
+  const LeafMask lm0 = leaf_mask(0, k, N);
   if (s.live) {
     load_planes<NP, NP>(a, A, n, n, s);
-    load_planes<NP, MP>(bm, Bm, n, m, s);
+    if constexpr (!K::WIDE) load_planes<NP, MP>(bm, Bm, n, m, s);
     load_planes<1, NP>(qi, qinv, 1, n, s);
-    load_planes<1, MP>(ri, rinv, 1, m, s);
-    const LeafMask lm0 = leaf_mask(0, k, N);
+    if constexpr (!K::WIDE) load_planes<1, MP>(ri, rinv, 1, m, s);
 #pragma unroll
     for (int i = 0; i < NP; ++i) {
 #pragma unroll
@@ -508,12 +579,14 @@ __global__ void flat_leaf_kernel(const float* __restrict__ A,
         fl0[i * NP + j] = in && k == 0 ? -a[j * NP + i] : 0.0f;
       }
     }
+    if constexpr (!K::WIDE) {
 #pragma unroll
-    for (int i = 0; i < MP; ++i)
+      for (int i = 0; i < MP; ++i)
 #pragma unroll
-      for (int j = 0; j < NP; ++j)
-        fu0[i * NP + j] =
-            i < m && j < n ? leaf_u<MP>(bm, ri, lm0, i, j) : 0.0f;
+        for (int j = 0; j < NP; ++j)
+          fu0[i * NP + j] =
+              i < m && j < n ? leaf_u<MP>(bm, ri, lm0, i, j) : 0.0f;
+    }
     // Slab 0: leaf values, with level 0's own Sbar at its sep+1 rows.
 #pragma unroll
     for (int i = 0; i < NP; ++i) {
@@ -526,29 +599,55 @@ __global__ void flat_leaf_kernel(const float* __restrict__ A,
         Fxs.p[0][e * s.plane + s.idx] = fx0[i * NP + j];
       }
     }
+    if constexpr (K::WIDE) {
+#pragma unroll 1
+      for (int i = 0; i < m; ++i)
+#pragma unroll
+        for (int j = 0; j < NP; ++j)
+          if (j < n)
+            Fus.p[0][(i * n + j) * s.plane + s.idx] = fu_at(lm0, i, j);
+    } else {
+#pragma unroll
+      for (int i = 0; i < MP; ++i)
+#pragma unroll
+        for (int j = 0; j < NP; ++j)
+          if (i < m && j < n)
+            Fus.p[0][(i * n + j) * s.plane + s.idx] = fu0[i * NP + j];
+    }
+  }
+  // The wide tag's level-0 u multiplier, chunk i0 (stride NP).
+  const auto fu0_wide = [&](int i0, int mc, float (&mw)[MP * NP]) {
 #pragma unroll
     for (int i = 0; i < MP; ++i)
 #pragma unroll
       for (int j = 0; j < NP; ++j)
-        if (i < m && j < n)
-          Fus.p[0][(i * n + j) * s.plane + s.idx] = fu0[i * NP + j];
-  }
+        mw[i * NP + j] = i < mc && j < n ? fu_at(lm0, i0 + i, j) : 0.0f;
+  };
   for (int u = 1; u < depth; ++u) {
     if (s.live) {
       float f[NP * NP];
       load_compact<NP, NP>(f, fsol.p[u - 1], n, n, g, G0, B, s.b);
       const LeafMask lm = leaf_mask(u, k, N);
       // Upper lambda slabs start at zero; x/u at the level-u leaf values.
-      update_trio<K>(
-          fl0, fx0, fu0, f, keep, sep, [](int, int) { return 0.0f; },
-          [&](int i, int j) { return leaf_x<NP>(a, qi, lm, i, j); },
-          [&](int i, int j) { return leaf_u<MP>(bm, ri, lm, i, j); },
-          Fls.p[u], Fxs.p[u], Fus.p[u], st, role, s, n, m);
+      const auto in_l = [](int, int) { return 0.0f; };
+      const auto in_x = [&](int i, int j) {
+        return leaf_x<NP>(a, qi, lm, i, j);
+      };
+      if constexpr (K::WIDE)
+        update_trio<K>(
+            fl0, fx0, fu0_wide, f, keep, sep, in_l, in_x,
+            [&](int i, int j) { return fu_at(lm, i, j); }, Fls.p[u],
+            Fxs.p[u], Fus.p[u], st, role, s, n, m);
+      else
+        update_trio<K>(
+            fl0, fx0, fu0, f, keep, sep, in_l, in_x,
+            [&](int i, int j) { return leaf_u<MP>(bm, ri, lm, i, j); },
+            Fls.p[u], Fxs.p[u], Fus.p[u], st, role, s, n, m);
     }
     __syncthreads();
     if (role == kAfterSep)
-      emit_products<K>(st, Asep, Bsep, Sout.p[u - 1], Fls.p[u], u == 1,
-                       k >> 2, N >> 2, B, s, n, m);
+      emit_products<K>(st, Asep, Bsep, Sout.p[u - 1], Fls.p[u], Fus.p[u],
+                       u == 1, k >> 2, N >> 2, B, s, n, m);
     __syncthreads();
   }
 }
@@ -563,19 +662,6 @@ int kpt_for(int level, int N) {
 
 dim3 grid_for(int N, int B, int kpt) {
   return dim3((B + TB - 1) / TB, (N + kpt - 1) / kpt);
-}
-
-// Pointer lists arrive from the host as MAXU-entry arrays.
-Ptrs ptrs(void* const* src) {
-  Ptrs out;
-  for (int i = 0; i < MAXU; ++i) out.p[i] = static_cast<float*>(src[i]);
-  return out;
-}
-
-CPtrs cptrs(void* const* src) {
-  CPtrs out;
-  for (int i = 0; i < MAXU; ++i) out.p[i] = static_cast<const float*>(src[i]);
-  return out;
 }
 
 }  // namespace
@@ -603,18 +689,22 @@ int rslqr_flat_schur_update_level(const float* FLl, const float* FLx,
                                   int N, int B, int level, int emit, int n,
                                   int m, int shift, int gy, int rgs,
                                   void* stream) {
-  // The plan (ops/flat.py:_level_plan): gy rows of LKB knots starting at
+  // The plan (ops/schur.py:_level_plan): gy rows of LKB knots starting at
   // knot -shift cover every knot; emission needs each (odd r, r + 1) pair in
-  // one block, so a shift of one; rgs row groups cover the 2n + m rows.
-  if (U < 0 || U > MAXU || level < 0 || (N >> (level + 1)) < 1 ||
-      shift < 0 || shift >= LKB || (long long)gy * LKB - shift < N ||
-      (emit && shift != 1) || rgs != 2 * groups_of(n) + groups_of(m))
+  // one block, so a shift of one; rgs row groups cover the 2n + m rows. The
+  // wide tag runs row_groups.cuh's kernel, whose knots loop over their row
+  // groups in at most 16 slots.
+  if (!small_blocks::row_plan_ok(U, N, level, emit, n, m, shift, gy, rgs))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((B + TB - 1) / TB, gy), block(TB, rgs, LKB);
   const auto st = static_cast<cudaStream_t>(stream);
   return with_block(n, m, [&](auto k) {
     using K = decltype(k);
-    if (emit)
+    if constexpr (K::WIDE)
+      small_blocks::launch_row_level<K, small_blocks::ElementMajor>(
+          FLl, FLx, FLu, Fls, Fxs, Fus, fsol, Asep, Bsep, S, U, N, B, level,
+          emit, n, m, shift, gy, st);
+    else if (emit)
       flat_level_kernel<K, true><<<grid, block, 0, st>>>(
           FLl, FLx, FLu, ptrs(Fls), ptrs(Fxs), ptrs(Fus), cptrs(fsol), Asep,
           Bsep, ptrs(S), U, N, B, level, shift, n, m);

@@ -20,17 +20,27 @@
 // ~20 FLOP/byte. So each kernel must read every operand once and keep
 // enough loads in flight.
 //
-// rows_kernel (products): a block owns 32 plane elements (one per lane, so
-// every plane load and store is a coalesced 128-byte line) and stages their
-// right-hand operand R [K, q] in shared memory, QC columns at a time. Each
-// of its 16 warps then takes whole rows of the left operand: per term k one
-// coalesced load of A[i, k] feeds QC FMAs against shared memory, so A and R
-// are read from device memory once (per column chunk) and C written once.
-// For the Schur update the rows are the three slabs' (lambda rows masked,
-// separator rows overwritten) and R is the compact solved separator of each
-// lane's knot group. Shared-memory bandwidth is not what bounds it: a
-// variant that feeds two rows from each shared-memory load ran slower, and
-// unrolling 16 terms instead of 8 changed nothing (PERF.md).
+// rows_kernel (products and the Schur update): a block owns 32 plane
+// elements (one per lane, so every plane load and store is a coalesced
+// 128-byte line) and one column tile of TC columns (9 at K = 36, 12 for
+// K <= 32, 6 at K = 64, 1 for a single column) of every stacked output row.
+// The 1-D grid runs the column tiles of one plane chunk next to each other,
+// so the chunk's rows of A, read once per column tile, come from HBM once
+// and then from L2 (at the quadruped's planes, F = 512 x 256, one operand is
+// 340 MB, far past the 50 MB L2). The block stages R[:, c0:c0+TC] for its
+// lanes in shared memory (K x TC x 32 floats, at most 48 KB, so four blocks
+// fit an SM; the old design staged R[K][36][32], 166 KB at K = 36, one block
+// per SM), each warp keeping three terms' loads in flight. Its 8 warps then
+// take the rows two at a time, reading them straight from device memory,
+// with 2 x TC accumulators: per term two coalesced loads and TC
+// shared-memory loads feed 2 TC FMAs (the old design: one shared load per
+// FMA). A block with every row of a product reads R once; a tile of a few
+// rows (flagged_kernel's) re-read it per row tile, and 6-column tiles read A
+// six times: 1.2-1.4x slower than the old kernel at the quadruped's shapes
+// (PERF.md). For the Schur update the rows are the three slabs' (lambda rows
+// masked, separator rows overwritten with R's row) and R is the compact
+// solved separator of each lane's knot group; lambda rows that no lane's
+// knot keeps skip the product and only write the separator rows.
 //
 // pcho_solve_kernel: one thread per (plane element, right-hand column),
 // the column in registers, L staged per block in shared memory (see the
@@ -52,7 +62,6 @@ namespace {
 
 constexpr int MAXD = 64;        // largest block dim (matches ops/planes.py)
 constexpr int LANES = 32;       // plane elements per block (one per lane)
-constexpr int ROW_WARPS = 16;   // warps per rows_kernel block
 constexpr int SMEM_MAX = 232448;  // shared memory a block can use (H100)
 
 // Runs the statement list (a lambda) with the constexpr int W set to the
@@ -89,10 +98,11 @@ __device__ __forceinline__ void load_col(float (&col)[W],
 }
 
 // What rows_kernel computes: C_g[i, :] (=, or -=) A_g[i, :] @ R for up to
-// three row groups g. For the Schur update (schur != 0) R is the compact
-// fsol [K, q, G, B] read at the lane's knot group, and group 0 is the lambda
-// slab: rows skip the update where calc_lambda is false and take R's row i
-// at separator knots (nested_dissection.c:154-177).
+// three row groups g, stacked (rows of group 0, then 1, then 2). For the
+// Schur update (schur != 0) R is the compact fsol [K, q, G, B] read at the
+// lane's knot group, and group 0 is the lambda slab: rows skip the update
+// where calc_lambda is false and take R's row i at separator knots
+// (nested_dissection.c:154-177).
 struct RowsArgs {
   const float* A[3];  // [rows_g, K, F]
   float* C[3];        // [rows_g, q, F]
@@ -100,45 +110,32 @@ struct RowsArgs {
   const float* R;     // [K, q, F] (product) or [K, q, G, B] (Schur update)
   int K, q, F;
   int schur, N, B, level;
+  int ctiles;  // column tiles of TC columns
 };
 
-// One row's epilogue: C (=, or -=) acc; lambda rows of the Schur update
-// take R's row (``rrow``) at separator knots and skip where calc_lambda is
-// false.
-template <int QC>
-__device__ __forceinline__ void store_row(float* crow, const float (&acc)[QC],
-                                          int qc, size_t F, int schur,
-                                          bool lam, bool keep, bool sep,
-                                          const float* rrow) {
-#pragma unroll
-  for (int j = 0; j < QC; ++j) {
-    if (j < qc) {
-      float* c = crow + (size_t)j * F;
-      if (!schur)
-        *c = acc[j];
-      else if (!lam)
-        *c -= acc[j];
-      else if (sep)
-        *c = rrow[j * LANES];
-      else if (keep)
-        *c -= acc[j];
-    }
-  }
-}
+constexpr int IB = 2;     // output rows per warp and pass
+constexpr int WARPS = 8;  // warps per block
+constexpr int SMEM_TILE = 48 * 1024;  // staged R slice, no opt-in needed
 
-template <int QC>
-__global__ void __launch_bounds__(LANES * ROW_WARPS)
+// Registers are capped at 64 so that four blocks (32 warps) fit an SM:
+// uncapped, the 9- and 12-column tiles took 80 and 96 registers and left 3-4
+// blocks of 6 warps, 1.2-1.5x slower at the quadruped's shapes (PERF.md).
+template <int TC>
+__global__ void __launch_bounds__(LANES * WARPS, 4)
     rows_kernel(const RowsArgs a) {
-  extern __shared__ float Rs[];  // [K][QC][LANES]
+  extern __shared__ float Rs[];  // [K][TC][LANES]
   const int lane = threadIdx.x;
   const int warp = threadIdx.y;
-  const int f0 = blockIdx.x * LANES + lane;
+  // Column tile fastest: the tiles of one plane chunk run together.
+  const int c0 = (blockIdx.x % a.ctiles) * TC;
+  const int chunk = blockIdx.x / a.ctiles;
+  const int f0 = chunk * LANES + lane;
   const bool live = f0 < a.F;
-  const size_t f = live ? f0 : a.F - 1;  // dead lanes load a valid address
   const size_t F = a.F;
+  const size_t f = live ? f0 : a.F - 1;  // dead lanes load a valid address
   // The lane's knot (Schur update): masks and the compact R offset.
   bool keep = true, sep = false;
-  size_t roff = f;        // offset of R[k, j] at this lane: k*q*rs + j*rs
+  size_t roff = f;  // offset of R[k, j] at this lane: (k*q + j)*rs + roff
   size_t rs = F;
   if (a.schur) {
     const int knot = (int)(f / a.B);
@@ -149,82 +146,118 @@ __global__ void __launch_bounds__(LANES * ROW_WARPS)
     rs = (size_t)G * a.B;
     roff = (size_t)(knot >> (a.level + 1)) * a.B + (f - (size_t)knot * a.B);
   }
-  const int total = a.rows[0] + a.rows[1] + a.rows[2];
-  for (int j0 = 0; j0 < a.q; j0 += QC) {
-    const int qc = a.q - j0 < QC ? a.q - j0 : QC;
-    // Stage R[:, j0:j0+QC] for the block's lanes (zero past q).
-    __syncthreads();
-#pragma unroll 8
-    for (int t = warp; t < a.K * QC; t += ROW_WARPS) {
-      const int k = t / QC, j = t - k * QC;
-      Rs[t * LANES + lane] =
-          j < qc ? a.R[((size_t)k * a.q + j0 + j) * rs + roff] : 0.f;
+  // Stage R[:, c0:c0+TC] (zero past q): warp w takes terms w, w + WARPS,
+  // ...; the unroll keeps three terms' loads in flight.
+#pragma unroll 3
+  for (int k = warp; k < a.K; k += WARPS) {
+    float v[TC];
+#pragma unroll
+    for (int j = 0; j < TC; ++j) {
+      const int c = c0 + j < a.q ? c0 + j : a.q - 1;  // a dead column repeats
+      v[j] = a.R[((size_t)k * a.q + c) * rs + roff];
     }
-    __syncthreads();
-    for (int r = warp; r < total; r += ROW_WARPS) {
-      // Row r of the stacked groups: group g, row i within it.
-      const int r1 = a.rows[0], r2 = r1 + a.rows[1];
+#pragma unroll
+    for (int j = 0; j < TC; ++j)
+      Rs[(k * TC + j) * LANES + lane] = c0 + j < a.q ? v[j] : 0.f;
+  }
+  __syncthreads();
+  const int r1 = a.rows[0], r2 = r1 + a.rows[1], total = r2 + a.rows[2];
+  // Lambda rows that no lane's knot keeps need no product.
+  const bool any_keep = __any_sync(0xffffffffu, live && keep);
+  for (int i0 = warp * IB; i0 < total; i0 += IB * WARPS) {
+    const float* arow[IB];
+    float* crow[IB];
+    int irow[IB];
+    bool lam[IB], need = false;
+#pragma unroll
+    for (int ii = 0; ii < IB; ++ii) {
+      const int r = i0 + ii < total ? i0 + ii : total - 1;  // dead row repeats
       const int g = (r >= r1) + (r >= r2);
       const int i = r - (g == 0 ? 0 : (g == 1 ? r1 : r2));
-      const float* A = g == 0 ? a.A[0] : (g == 1 ? a.A[1] : a.A[2]);
-      float* C = g == 0 ? a.C[0] : (g == 1 ? a.C[1] : a.C[2]);
-      const bool lam = a.schur && g == 0;
-      float* crow = C + ((size_t)i * a.q + j0) * F + f;
-      const float* rrow = Rs + i * QC * LANES + lane;  // R's row i
-      if (lam && !__any_sync(0xffffffffu, live && keep)) {
-        if (live && sep)
-          for (int j = 0; j < qc; ++j) crow[(size_t)j * F] = rrow[j * LANES];
-        continue;
-      }
-      float acc[QC];
+      irow[ii] = i;
+      lam[ii] = a.schur && g == 0;
+      arow[ii] = (g == 0 ? a.A[0] : (g == 1 ? a.A[1] : a.A[2])) +
+                 (size_t)i * a.K * F + f;
+      crow[ii] = (g == 0 ? a.C[0] : (g == 1 ? a.C[1] : a.C[2])) +
+                 ((size_t)i * a.q + c0) * F + f;
+      need = need || !lam[ii] || any_keep;
+    }
+    float acc[IB][TC];
 #pragma unroll
-      for (int j = 0; j < QC; ++j) acc[j] = 0.f;
-      const float* arow = A + (size_t)i * a.K * F + f;
-#pragma unroll 8
+    for (int ii = 0; ii < IB; ++ii)
+#pragma unroll
+      for (int j = 0; j < TC; ++j) acc[ii][j] = 0.f;
+    if (need) {
+#pragma unroll 4
       for (int k = 0; k < a.K; ++k) {
-        const float v = arow[(size_t)k * F];
-        const float* rk = Rs + k * QC * LANES + lane;
+        float av[IB];
 #pragma unroll
-        for (int j = 0; j < QC; ++j) acc[j] = fmaf(v, rk[j * LANES], acc[j]);
+        for (int ii = 0; ii < IB; ++ii) av[ii] = arow[ii][(size_t)k * F];
+        const float* rk = Rs + k * TC * LANES + lane;
+#pragma unroll
+        for (int j = 0; j < TC; ++j) {
+          const float b = rk[j * LANES];
+#pragma unroll
+          for (int ii = 0; ii < IB; ++ii)
+            acc[ii][j] = fmaf(av[ii], b, acc[ii][j]);
+        }
       }
-      if (live) store_row(crow, acc, qc, F, a.schur, lam, keep, sep, rrow);
+    }
+    if (!live) continue;
+#pragma unroll
+    for (int ii = 0; ii < IB; ++ii) {
+      if (i0 + ii >= total) continue;
+      const float* rrow = Rs + irow[ii] * TC * LANES + lane;  // R's row i
+#pragma unroll
+      for (int j = 0; j < TC; ++j) {
+        if (c0 + j >= a.q) continue;
+        float* c = crow[ii] + (size_t)j * F;
+        if (!a.schur)
+          *c = acc[ii][j];
+        else if (!lam[ii])
+          *c -= acc[ii][j];
+        else if (sep)
+          *c = rrow[j * LANES];
+        else if (keep)
+          *c -= acc[ii][j];
+      }
     }
   }
 }
 
-// Column chunk width for q columns against K terms: the smallest of 1, 12,
-// 16, 36 that holds q, or chunks of 16 where [K][36][LANES] would not fit
-// in shared memory.
-int chunk_for(int q, int K) {
-  if (q <= 1) return 1;
-  if (q <= 12) return 12;
-  if (q <= 16) return 16;
-  if (q <= 36 && (size_t)K * 36 * LANES * sizeof(float) <= SMEM_MAX)
-    return 36;
-  return 16;
+// Column tile of rows_kernel: 1 for a single column, else the widest of
+// 12, 9, 6 whose staged slice (K x TC x 32 floats) fits 48 KB (9 at K = 36,
+// which tiles q = 36 exactly).
+int tile_for(int q, int K) {
+  const int col = LANES * (int)sizeof(float);  // bytes per staged term
+  if (q == 1) return 1;
+  if (K * 12 * col <= SMEM_TILE) return 12;
+  return K * 9 * col <= SMEM_TILE ? 9 : 6;
 }
 
-template <int QC>
-int launch_rows_qc(const RowsArgs& a, cudaStream_t st) {
-  const int smem = a.K * QC * LANES * (int)sizeof(float);
-  const cudaError_t e = cudaFuncSetAttribute(
-      rows_kernel<QC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  rows_kernel<QC><<<(a.F + LANES - 1) / LANES, dim3(LANES, ROW_WARPS), smem,
-                    st>>>(a);
+// Launch rows_kernel: one block per (column tile, plane chunk of 32), the
+// column tile fastest; each block takes every stacked row.
+template <int TC>
+int launch_rows_tc(RowsArgs a, cudaStream_t st) {
+  a.ctiles = (a.q + TC - 1) / TC;
+  const long long blocks =
+      (long long)a.ctiles * ((a.F + LANES - 1) / LANES);
+  if (blocks >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = a.K * TC * LANES * (int)sizeof(float);  // <= 48 KB
+  rows_kernel<TC><<<(unsigned)blocks, dim3(LANES, WARPS), smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_rows(const RowsArgs& a, cudaStream_t st) {
-  switch (chunk_for(a.q, a.K)) {
+  switch (tile_for(a.q, a.K)) {
     case 1:
-      return launch_rows_qc<1>(a, st);
+      return launch_rows_tc<1>(a, st);
     case 12:
-      return launch_rows_qc<12>(a, st);
-    case 16:
-      return launch_rows_qc<16>(a, st);
+      return launch_rows_tc<12>(a, st);
+    case 9:
+      return launch_rows_tc<9>(a, st);
     default:
-      return launch_rows_qc<36>(a, st);
+      return launch_rows_tc<6>(a, st);
   }
 }
 

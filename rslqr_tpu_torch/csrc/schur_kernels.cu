@@ -1,19 +1,22 @@
 // Hand-written Hopper kernels for the element-major rsLQR sweep.
 //
 // Four kernels, one per TPU kernel of rslqr_tpu/ops/schur_pallas.py:
-//   level_kernel  <- schur_update_level_em  (one tree level, every upper slab)
-//   pair_kernel   <- schur_update_pair_em   (levels L and L+1 in one pass)
-//   leaf_kernel   <- leaf_schur_level0_em   (leaf factors + level 0)
-//   rhs_kernel    <- rhs_update_level_em    (one level of the RHS sweep)
+//   row_level_kernel <- schur_update_level_em (one tree level, every upper
+//                       slab; row_groups.cuh, on row groups)
+//   pair_kernel      <- schur_update_pair_em  (levels L and L+1 in one pass)
+//   leaf_kernel      <- leaf_schur_level0_em  (leaf factors + level 0)
+//   rhs_kernel       <- rhs_update_level_em   (one level of the RHS sweep)
 //
 // Layout (as in the JAX package): factor slabs are element-major planes
 // [e, N, B] (element e of knot k, batch column b at e*N*B + k*B + b);
 // solved separator blocks and emitted products are group-major [G, e, B].
-// float32 only. Block sizes: every 1 <= n, m <= 8, through the
-// instantiations of small_blocks.cuh (the exact (6, 3), and the (4, 4) and
-// (8, 8) capacities with n, m at run time).
+// float32 only. Block sizes: every 1 <= n <= 8, 1 <= m <= 64, through the
+// instantiations of small_blocks.cuh (the exact (6, 3), the (4, 4) and
+// (8, 8) capacities with n, m at run time, and the wide tag whose u rows
+// come in chunks of 8).
 //
-// Mapping: one thread per (knot, batch column). A block is TB=32 batch
+// Mapping of pair_kernel, leaf_kernel and rhs_kernel (row_level_kernel:
+// see row_groups.cuh): one thread per (knot, batch column). A block is TB=32 batch
 // columns (one warp, so every slab load/store is a coalesced 128-byte line)
 // by TK=8 knots (4 at the (8, 8) capacity, whose staging of 8 knots would
 // pass the 48 KB of static shared memory). Knot tiles are shifted by one:
@@ -34,29 +37,28 @@
 #include <cuda_runtime.h>
 #include <cstddef>
 
+#include "row_groups.cuh"
 #include "small_blocks.cuh"
 
 namespace {
 
+using small_blocks::chunk_rows;
+using small_blocks::chunks;
+using small_blocks::CPtrs;
+using small_blocks::cptrs;
 using small_blocks::dot_row;
 using small_blocks::load_blk;
+using small_blocks::MAXU;
+using small_blocks::Ptrs;
+using small_blocks::ptrs;
+using small_blocks::TB;
 using small_blocks::with_block;
-
-constexpr int MAXU = 24;  // upper slabs per launch (matches ops/schur.py)
-constexpr int TB = 32;    // batch columns per block
 
 // Knots per block (even: holds whole odd/even pairs).
 template <class K>
 __host__ __device__ constexpr int tk_of() {
   return K::NP * K::NP + K::MP * K::NP > 64 ? 4 : 8;
 }
-
-struct Ptrs {
-  float* p[MAXU];
-};
-struct CPtrs {
-  const float* p[MAXU];
-};
 
 struct Site {
   int b, k;
@@ -99,55 +101,115 @@ __device__ __forceinline__ void load_group(float (&r)[R * C],
                  [&](int e) { return src[gidx(g, E, e, B, b)]; });
 }
 
-// Shared-memory staging of separator rows: one slot per odd/even knot pair.
+// Shared-memory staging of separator rows: one slot per odd/even knot pair
+// (the wide tag stages x only).
 template <class K>
 struct Stage {
   float x[tk_of<K>() / 2][K::NP * K::NP][TB];
-  float u[tk_of<K>() / 2][K::MP * K::NP][TB];
+  float u[K::WIDE ? 1 : tk_of<K>() / 2][K::WIDE ? 1 : K::MP * K::NP][TB];
 };
 
 // The row-(r+1) thread's product emission and optional fold (see header).
-// ``ol``/``ox`` are its own lambda/x slab pointers (already written).
+// ``ol``/``ox``/``ou`` are its own lambda/x/u slab pointers (already
+// written); the wide tag reads u[r] from ``ou`` at knot r, one row at a
+// time, into the n x n sums.
 template <class K>
 __device__ void emit_products(const Stage<K>& st, int slot,
                               const float* __restrict__ Asep,
                               const float* __restrict__ Bsep, float* Sout,
-                              float* ol, const float* ox, bool fold, int g2,
-                              int B, const Site& s, int n, int m) {
+                              float* ol, const float* ox, const float* ou,
+                              bool fold, int g2, int B, const Site& s, int n,
+                              int m) {
   constexpr int NP = K::NP, MP = K::MP;
   const int nn = n * n;
-  float a[NP * NP], bm[NP * MP];
-  load_group<NP, NP>(a, Asep, n, n, g2, B, s.b);
-  load_group<NP, MP>(bm, Bsep, n, m, g2, B, s.b);
   const int t = threadIdx.x;
+  float a[NP * NP];
+  load_group<NP, NP>(a, Asep, n, n, g2, B, s.b);
+  if constexpr (K::WIDE) {
+    float S[NP * NP];
 #pragma unroll
-  for (int i = 0; i < NP; ++i) {
+    for (int i = 0; i < NP; ++i)
 #pragma unroll
-    for (int c = 0; c < NP; ++c) {
-      if (i >= n || c >= n) continue;
-      const int e = i * n + c;
-      float acc = a[i * NP] * st.x[slot][c][t];
+      for (int c = 0; c < NP; ++c) {
+        float acc = a[i * NP] * st.x[slot][c][t];
 #pragma unroll
-      for (int j = 1; j < NP; ++j)
-        if (j < n) acc += a[i * NP + j] * st.x[slot][j * n + c][t];
+        for (int j = 1; j < NP; ++j)
+          if (j < n) acc += a[i * NP + j] * st.x[slot][j * n + c][t];
+        S[i * NP + c] = acc;
+      }
+    const size_t ir = s.idx - B;  // knot r = k - 1
+#pragma unroll 1
+    for (int j = 0; j < m; ++j) {
+      float bj[NP], uj[NP];
 #pragma unroll
-      for (int j = 0; j < MP; ++j)
-        if (j < m) acc += bm[i * MP + j] * st.u[slot][j * n + c][t];
-      acc = acc - ox[e * s.plane + s.idx] - ol[e * s.plane + s.idx];
-      Sout[gidx(g2, nn, e, B, s.b)] = acc;
-      if (fold) ol[e * s.plane + s.idx] = acc;
+      for (int i = 0; i < NP; ++i) {
+        bj[i] = i < n ? Bsep[gidx(g2, n * m, i * m + j, B, s.b)] : 0.0f;
+        uj[i] = i < n ? ou[(j * n + i) * s.plane + ir] : 0.0f;
+      }
+#pragma unroll
+      for (int i = 0; i < NP; ++i)
+#pragma unroll
+        for (int c = 0; c < NP; ++c) S[i * NP + c] += bj[i] * uj[c];
     }
+#pragma unroll
+    for (int i = 0; i < NP; ++i)
+#pragma unroll
+      for (int c = 0; c < NP; ++c) {
+        if (i >= n || c >= n) continue;
+        const int e = i * n + c;
+        const float acc =
+            S[i * NP + c] - ox[e * s.plane + s.idx] - ol[e * s.plane + s.idx];
+        Sout[gidx(g2, nn, e, B, s.b)] = acc;
+        if (fold) ol[e * s.plane + s.idx] = acc;
+      }
+  } else {
+    float bm[NP * MP];
+    load_group<NP, MP>(bm, Bsep, n, m, g2, B, s.b);
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+#pragma unroll
+      for (int c = 0; c < NP; ++c) {
+        if (i >= n || c >= n) continue;
+        const int e = i * n + c;
+        float acc = a[i * NP] * st.x[slot][c][t];
+#pragma unroll
+        for (int j = 1; j < NP; ++j)
+          if (j < n) acc += a[i * NP + j] * st.x[slot][j * n + c][t];
+#pragma unroll
+        for (int j = 0; j < MP; ++j)
+          if (j < m) acc += bm[i * MP + j] * st.u[slot][j * n + c][t];
+        acc = acc - ox[e * s.plane + s.idx] - ol[e * s.plane + s.idx];
+        Sout[gidx(g2, nn, e, B, s.b)] = acc;
+        if (fold) ol[e * s.plane + s.idx] = acc;
+      }
+    }
+  }
+}
+
+// The u rows' multiplier of chunk i0 (rows i0 .. i0 + mc - 1) as a register
+// block (stride NP): ``mu`` itself, except at the wide tag, where ``mu`` is a
+// callable that fills ``mw``.
+template <class K, class Mu>
+__device__ __forceinline__ const float* mu_chunk(const Mu& mu, int i0, int mc,
+                                                 float (&mw)[K::MP * K::NP]) {
+  if constexpr (K::WIDE) {
+    mu(i0, mc, mw);
+    return mw;
+  } else {
+    return mu;
   }
 }
 
 // One level's update of one upper slab trio at this thread's knot:
 //   l = sep ? f : (keep ? l - ML@f : l);  x -= MX@f;  u -= MU@f
-// ``ml``/``mx``/``mu`` hold the multiplier blocks. The slab values are read
-// from and written back to ``ol``/``ox``/``ou`` in place; for a separator
-// row r (``stage``) the new x/u blocks also go to the staging slot.
-template <class K>
+// ``ml``/``mx`` hold the multiplier blocks, ``mu`` the u rows' (a register
+// block, or at the wide tag a callable giving each chunk's). The slab values
+// are read from and written back to ``ol``/``ox``/``ou`` in place; for a
+// separator row r (``stage``) the new x/u blocks also go to the staging slot
+// (x only at the wide tag).
+template <class K, class Mu>
 __device__ __forceinline__ void update_trio(
-    const float* ml, const float* mx, const float* mu, const float* f,
+    const float* ml, const float* mx, const Mu& mu, const float* f,
     bool keep, bool sep, float* ol, float* ox, float* ou, Stage<K>& st,
     int slot, bool stage, const Site& s, int n, int m) {
   constexpr int NP = K::NP, MP = K::MP;
@@ -174,16 +236,22 @@ __device__ __forceinline__ void update_trio(
       if (stage) st.x[slot][e][t] = v;
     }
   }
+  for (int ch = 0, i0 = 0; ch < chunks<K>(m); ++ch, i0 += MP) {
+    const int mc = chunk_rows<K>(m, i0);
+    float mw[MP * NP];
+    const float* mu_c = mu_chunk<K>(mu, i0, mc, mw);
 #pragma unroll
-  for (int i = 0; i < MP; ++i) {
+    for (int i = 0; i < MP; ++i) {
 #pragma unroll
-    for (int c = 0; c < NP; ++c) {
-      if (i >= m || c >= n) continue;
-      const int e = i * n + c;
-      const size_t o = e * s.plane + s.idx;
-      const float v = ou[o] - dot_row<NP>(mu, i, f, c);
-      ou[o] = v;
-      if (stage) st.u[slot][e][t] = v;
+      for (int c = 0; c < NP; ++c) {
+        if (i >= mc || c >= n) continue;
+        const int e = (i0 + i) * n + c;
+        const size_t o = e * s.plane + s.idx;
+        const float v = ou[o] - dot_row<NP>(mu_c, i, f, c);
+        ou[o] = v;
+        if constexpr (!K::WIDE)
+          if (stage) st.u[slot][e][t] = v;
+      }
     }
   }
 }
@@ -229,56 +297,13 @@ __global__ void rhs_kernel(const float* __restrict__ Fl,
 #pragma unroll
   for (int i = 0; i < NP; ++i)
     if (i < n) zx[i * s.plane + s.idx] -= dot_plane<NP>(Fx, i, n, zb, s);
+  for (int ch = 0, i0 = 0; ch < chunks<K>(m); ++ch, i0 += MP) {
+    const int mc = chunk_rows<K>(m, i0);
 #pragma unroll
-  for (int i = 0; i < MP; ++i)
-    if (i < m) zu[i * s.plane + s.idx] -= dot_plane<NP>(Fu, i, n, zb, s);
-}
-
-// ---------------------------------------------------------------------------
-// B1: one level's Schur update of every upper slab.
-// ---------------------------------------------------------------------------
-template <class K>
-__global__ void level_kernel(const float* __restrict__ FLl,
-                             const float* __restrict__ FLx,
-                             const float* __restrict__ FLu, Ptrs Fls,
-                             Ptrs Fxs, Ptrs Fus, CPtrs fsol,
-                             const float* __restrict__ Asep,
-                             const float* __restrict__ Bsep, Ptrs Sout, int U,
-                             int N, int B, int level, int emit, int n_,
-                             int m_) {
-  constexpr int NP = K::NP, MP = K::MP;
-  const int n = K::EX ? NP : n_, m = K::EX ? MP : m_;
-  __shared__ Stage<K> st;
-  const Site s = site<tk_of<K>()>(N, B);
-  const int k = s.k, half = 1 << level, span = 2 * half;
-  const bool keep = (k & (half - 1)) != 0 || k == 0;
-  const bool sep = (k & (span - 1)) == half;
-  const int g = k >> (level + 1);
-  // Next-level separator rows r (odd) and r+1 within groups of 2*span.
-  const int pos = k & (2 * span - 1);
-  const bool er = emit && s.live && pos == span - 1;
-  const bool er1 = emit && s.live && pos == span;
-  const int slot = threadIdx.y >> 1;
-  float ml[NP * NP], mx[NP * NP], mu[MP * NP];
-  if (s.live) {
-    load_planes<NP, NP>(ml, FLl, n, n, s);
-    load_planes<NP, NP>(mx, FLx, n, n, s);
-    load_planes<MP, NP>(mu, FLu, m, n, s);
-  }
-  for (int u = 0; u < U; ++u) {
-    if (s.live) {
-      float f[NP * NP];
-      load_group<NP, NP>(f, fsol.p[u], n, n, g, B, s.b);
-      update_trio<K>(ml, mx, mu, f, keep, sep, Fls.p[u], Fxs.p[u], Fus.p[u],
-                     st, slot, er, s, n, m);
-    }
-    if (emit) {
-      __syncthreads();
-      if (er1)
-        emit_products<K>(st, slot, Asep, Bsep, Sout.p[u], Fls.p[u],
-                         Fxs.p[u], u == 0, k >> (level + 2), B, s, n, m);
-      __syncthreads();
-    }
+    for (int i = 0; i < MP; ++i)
+      if (i < mc)
+        zu[(i0 + i) * s.plane + s.idx] -=
+            dot_plane<NP>(Fu, i0 + i, n, zb, s);
   }
 }
 
@@ -322,15 +347,25 @@ __global__ void pair_kernel(const float* __restrict__ FLl,
   const int slot = threadIdx.y >> 1;
   const int t = threadIdx.x;
   float ml[NP * NP], mx[NP * NP], mu[MP * NP];
+  // The wide tag's u multiplier: chunk i0 of FLu's rows, re-read per slab.
+  const auto mu_wide = [&](int i0, int mc, float (&mw)[MP * NP]) {
+    load_blk<MP, NP>(mw, mc, n, [&](int e) {
+      return FLu[(i0 * n + e) * s.plane + s.idx];
+    });
+  };
   if (s.live) {
     load_planes<NP, NP>(ml, FLl, n, n, s);
     load_planes<NP, NP>(mx, FLx, n, n, s);
-    load_planes<MP, NP>(mu, FLu, m, n, s);
+    if constexpr (!K::WIDE) load_planes<MP, NP>(mu, FLu, m, n, s);
     // Slab L+1: level-L update, then its Sbar at the level-(L+1) sep+1 rows.
     float f[NP * NP];
     load_group<NP, NP>(f, fsol1.p[0], n, n, g1, B, s.b);
-    update_trio<K>(ml, mx, mu, f, keep1, sep1, Fls.p[0], Fxs.p[0], Fus.p[0],
-                   st, slot, false, s, n, m);
+    if constexpr (K::WIDE)
+      update_trio<K>(ml, mx, mu_wide, f, keep1, sep1, Fls.p[0], Fxs.p[0],
+                     Fus.p[0], st, slot, false, s, n, m);
+    else
+      update_trio<K>(ml, mx, mu, f, keep1, sep1, Fls.p[0], Fxs.p[0],
+                     Fus.p[0], st, slot, false, s, n, m);
     if (sep2) {
 #pragma unroll
       for (int e = 0; e < NP * NP; ++e)
@@ -387,22 +422,32 @@ __global__ void pair_kernel(const float* __restrict__ FLl,
           if (er) st.x[slot][e][t] = v;
         }
       }
+      for (int ch = 0, i0 = 0; ch < chunks<K>(m); ++ch, i0 += MP) {
+        const int mc = chunk_rows<K>(m, i0);
+        float mw[MP * NP];
+        const float* mu_c = mu;
+        if constexpr (K::WIDE) {
+          mu_wide(i0, mc, mw);
+          mu_c = mw;
+        }
 #pragma unroll
-      for (int i = 0; i < MP; ++i) {
-        if (i >= m) continue;
-        float r2[NP];
-        load_row<NP>(r2, M2u, i, n, s);
+        for (int i = 0; i < MP; ++i) {
+          if (i >= mc) continue;
+          float r2[NP];
+          load_row<NP>(r2, M2u, i0 + i, n, s);
 #pragma unroll
-        for (int c = 0; c < NP; ++c) {
-          if (c >= n) continue;
-          const int e = i * n + c;
-          const size_t o = e * s.plane + s.idx;
-          float acc2 = r2[0] * f2[c];
+          for (int c = 0; c < NP; ++c) {
+            if (c >= n) continue;
+            const int e = (i0 + i) * n + c;
+            const size_t o = e * s.plane + s.idx;
+            float acc2 = r2[0] * f2[c];
 #pragma unroll
-          for (int j = 1; j < NP; ++j) acc2 += r2[j] * f2[j * NP + c];
-          const float v = (ou[o] - dot_row<NP>(mu, i, f1, c)) - acc2;
-          ou[o] = v;
-          if (er) st.u[slot][e][t] = v;
+            for (int j = 1; j < NP; ++j) acc2 += r2[j] * f2[j * NP + c];
+            const float v = (ou[o] - dot_row<NP>(mu_c, i, f1, c)) - acc2;
+            ou[o] = v;
+            if constexpr (!K::WIDE)
+              if (er) st.u[slot][e][t] = v;
+          }
         }
       }
     }
@@ -410,7 +455,8 @@ __global__ void pair_kernel(const float* __restrict__ FLl,
       __syncthreads();
       if (er1)
         emit_products<K>(st, slot, Asep3, Bsep3, Sout.p[uu - 1], Fls.p[uu],
-                         Fxs.p[uu], uu == 1, k >> (level + 3), B, s, n, m);
+                         Fxs.p[uu], Fus.p[uu], uu == 1, k >> (level + 3), B,
+                         s, n, m);
       __syncthreads();
     }
   }
@@ -492,12 +538,30 @@ __global__ void leaf_kernel(const float* __restrict__ A,
   const int slot = threadIdx.y >> 1;
   float a[NP * NP], bm[NP * MP], qi[NP], ri[MP];
   float fl0[NP * NP], fx0[NP * NP], fu0[MP * NP];
+  // The wide tag's u rows i0 .. i0 + mc - 1: their columns of B and their
+  // entries of R^-1, then their level-L leaf values (stride NP).
+  const auto fu_wide = [&](int L, int i0, int mc, float (&fw)[MP * NP]) {
+    float bc[NP * MP], rc[MP], fx[NP * NP];
+#pragma unroll
+    for (int j = 0; j < NP; ++j)
+#pragma unroll
+      for (int i = 0; i < MP; ++i)
+        bc[j * MP + i] = j < n && i < mc
+                             ? Bm[(j * m + i0 + i) * s.plane + s.idx]
+                             : 0.0f;
+#pragma unroll
+    for (int i = 0; i < MP; ++i)
+      rc[i] = i < mc ? rinv[(i0 + i) * s.plane + s.idx] : 0.0f;
+    leaf_values<K>(a, bc, qi, rc, L, k, N, fx, fw, n, mc);
+  };
   if (s.live) {
     load_planes<NP, NP>(a, A, n, n, s);
-    load_planes<NP, MP>(bm, Bm, n, m, s);
     load_planes<1, NP>(qi, qinv, 1, n, s);
-    load_planes<1, MP>(ri, rinv, 1, m, s);
-    leaf_values<K>(a, bm, qi, ri, 0, k, N, fx0, fu0, n, m);
+    if constexpr (!K::WIDE) {
+      load_planes<NP, MP>(bm, Bm, n, m, s);
+      load_planes<1, MP>(ri, rinv, 1, m, s);
+    }
+    leaf_values<K>(a, bm, qi, ri, 0, k, N, fx0, fu0, n, K::WIDE ? 0 : m);
 #pragma unroll
     for (int i = 0; i < NP; ++i) {
 #pragma unroll
@@ -516,13 +580,26 @@ __global__ void leaf_kernel(const float* __restrict__ A,
         Fxs.p[0][e * s.plane + s.idx] = fx0[i * NP + j];
       }
     }
-    store_planes<MP, NP>(Fus.p[0], fu0, m, n, s);
+    if constexpr (K::WIDE) {
+      for (int i0 = 0; i0 < m; i0 += MP) {
+        const int mc = chunk_rows<K>(m, i0);
+        float fw[MP * NP];
+        fu_wide(0, i0, mc, fw);
+        store_planes<MP, NP>(Fus.p[0] + (size_t)i0 * n * s.plane, fw, mc, n,
+                             s);
+      }
+    } else {
+      store_planes<MP, NP>(Fus.p[0], fu0, m, n, s);
+    }
   }
+  const auto fu0_wide = [&](int i0, int mc, float (&fw)[MP * NP]) {
+    fu_wide(0, i0, mc, fw);
+  };
   for (int u = 1; u < depth; ++u) {
     if (s.live) {
       float f[NP * NP], fx[NP * NP], fu[MP * NP];
       load_group<NP, NP>(f, fsol.p[u - 1], n, n, g, B, s.b);
-      leaf_values<K>(a, bm, qi, ri, u, k, N, fx, fu, n, m);
+      leaf_values<K>(a, bm, qi, ri, u, k, N, fx, fu, n, K::WIDE ? 0 : m);
       float* ol = Fls.p[u];
       float* ox = Fxs.p[u];
       float* ou = Fus.p[u];
@@ -531,14 +608,25 @@ __global__ void leaf_kernel(const float* __restrict__ A,
       for (int e = 0; e < NP * NP; ++e)
         if (e < nn) ol[e * s.plane + s.idx] = 0.0f;
       store_planes<NP, NP>(ox, fx, n, n, s);
-      store_planes<MP, NP>(ou, fu, m, n, s);
-      update_trio<K>(fl0, fx0, fu0, f, keep, sep, ol, ox, ou, st, slot, er,
-                     s, n, m);
+      if constexpr (K::WIDE) {
+        for (int i0 = 0; i0 < m; i0 += MP) {
+          const int mc = chunk_rows<K>(m, i0);
+          float fw[MP * NP];
+          fu_wide(u, i0, mc, fw);
+          store_planes<MP, NP>(ou + (size_t)i0 * n * s.plane, fw, mc, n, s);
+        }
+        update_trio<K>(fl0, fx0, fu0_wide, f, keep, sep, ol, ox, ou, st,
+                       slot, er, s, n, m);
+      } else {
+        store_planes<MP, NP>(ou, fu, m, n, s);
+        update_trio<K>(fl0, fx0, fu0, f, keep, sep, ol, ox, ou, st, slot, er,
+                       s, n, m);
+      }
     }
     __syncthreads();
     if (er1)
       emit_products<K>(st, slot, Asep, Bsep, Sout.p[u - 1], Fls.p[u],
-                       Fxs.p[u], u == 1, k >> 2, B, s, n, m);
+                       Fxs.p[u], Fus.p[u], u == 1, k >> 2, B, s, n, m);
     __syncthreads();
   }
 }
@@ -552,19 +640,6 @@ dim3 grid_for(int N, int B) {
 template <class K>
 dim3 block_for() {
   return dim3(TB, tk_of<K>());
-}
-
-// Pointer lists arrive from the host as MAXU-entry arrays.
-Ptrs ptrs(void* const* src) {
-  Ptrs out;
-  for (int i = 0; i < MAXU; ++i) out.p[i] = static_cast<float*>(src[i]);
-  return out;
-}
-
-CPtrs cptrs(void* const* src) {
-  CPtrs out;
-  for (int i = 0; i < MAXU; ++i) out.p[i] = static_cast<const float*>(src[i]);
-  return out;
 }
 
 }  // namespace
@@ -587,20 +662,23 @@ int rslqr_rhs_update_level(const float* Fl, const float* Fx, const float* Fu,
   });
 }
 
+// B1 on the plan of ops/schur.py:_level_plan (``shift``, ``gy`` grid rows,
+// ``rgs`` row groups); a plan that does not cover the level is refused.
 int rslqr_schur_update_level(const float* FLl, const float* FLx,
                              const float* FLu, void* const* Fls,
                              void* const* Fxs, void* const* Fus,
                              void* const* fsol, const float* Asep,
                              const float* Bsep, void* const* S, int U, int N,
                              int B, int level, int emit, int n, int m,
-                             void* stream) {
-  if (U < 0 || U > MAXU) return static_cast<int>(cudaErrorInvalidValue);
+                             int shift, int gy, int rgs, void* stream) {
+  if (!small_blocks::row_plan_ok(U, N, level, emit, n, m, shift, gy, rgs))
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
   return with_block(n, m, [&](auto k) {
     using K = decltype(k);
-    level_kernel<K><<<grid_for<K>(N, B), block_for<K>(), 0, st>>>(
-        FLl, FLx, FLu, ptrs(Fls), ptrs(Fxs), ptrs(Fus), cptrs(fsol), Asep,
-        Bsep, ptrs(S), U, N, B, level, emit, n, m);
+    small_blocks::launch_row_level<K, small_blocks::GroupMajor>(
+        FLl, FLx, FLu, Fls, Fxs, Fus, fsol, Asep, Bsep, S, U, N, B, level,
+        emit, n, m, shift, gy, st);
   });
 }
 

@@ -30,7 +30,8 @@ SOURCES = (
     _PKG / "csrc" / "probe_kernels.cu",
 )
 # Included by the small-block sources (schur_kernels.cu, flat_kernels.cu).
-HEADERS = (_PKG / "csrc" / "small_blocks.cuh",)
+HEADERS = (_PKG / "csrc" / "small_blocks.cuh",
+           _PKG / "csrc" / "row_groups.cuh")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -153,7 +154,7 @@ def load() -> ctypes.CDLL:
         # csrc/schur_kernels.cu
         "rslqr_rhs_update_level": [P] * 7 + [I] * 5 + [P],
         "rslqr_schur_update_level": [P] * 3 + [PP] * 4 + [P] * 2 + [PP]
-        + [I] * 7 + [P],
+        + [I] * 10 + [P],
         "rslqr_schur_update_pair": [P] * 3 + [PP] * 4 + [P, PP, P, P, PP]
         + [I] * 7 + [P],
         "rslqr_leaf_schur_level0": [P] * 5 + [PP] + [P] * 2 + [PP] * 4

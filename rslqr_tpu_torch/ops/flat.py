@@ -15,7 +15,8 @@ counterpart in ``rslqr_tpu/ops/schur_planes.py``:
 Dispatch, launch counts and in-place updates are those of ``ops/schur.py``
 (:func:`~rslqr_tpu_torch.ops.schur.kernel_applies`): the CUDA kernel
 (``csrc/flat_kernels.cu``, instantiated for every block size of the small
-path, 1 <= n, m <= 8) for float32 CUDA tensors under ``kernels="auto"``,
+path, 1 <= n <= 8 and 1 <= m <= 64) for float32 CUDA tensors under
+``kernels="auto"``,
 launch or raise; the plain version (``*_plain``) otherwise.
 The plain versions run ``ops/schur.py``'s plain versions on views of the same
 data (the math is the same; only the compact layouts and the emission levels
@@ -24,12 +25,12 @@ differ).
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import Optional, Sequence
 
 import torch
 
 from . import schur
-from .schur import _check, _launch, _ptr, _ptrs, kernel_applies
+from .schur import _check, _launch, _level_plan, _ptr, _ptrs, kernel_applies
 
 
 # ---------------------------------------------------------------------------
@@ -69,39 +70,10 @@ def flat_ok(N: int, B: int, dtype) -> bool:
     )
 
 
-# flat_level_kernel's block: LEVEL_TB batch columns by the row groups of
-# LEVEL_RPT slab rows by LEVEL_KB knots (csrc/flat_kernels.cu).
-LEVEL_TB, LEVEL_KB, LEVEL_RPT = 32, 2, 3
-
-
-class LevelPlan(NamedTuple):
-    """Launch geometry of ``flat_level_kernel``: grid row ``y`` covers
-    knots ``y * LEVEL_KB - shift`` .. ``+ LEVEL_KB - 1`` (those in
-    ``[0, N)``), grid column ``x`` batch columns ``x * LEVEL_TB`` ..
-    ``+ LEVEL_TB - 1`` (those below ``B``); ``groups`` the row groups of
-    the lambda, x and u slabs (block row ``z`` of a knot's threads, in that
-    order, takes slab rows ``LEVEL_RPT * (z - first group of its slab)`` ..
-    ``+ LEVEL_RPT - 1``, those below the slab's row count)."""
-
-    shift: int
-    grid: Tuple[int, int]
-    groups: Tuple[int, int, int]
-
-
-def _row_groups(rows: int) -> int:
-    """Row groups of a slab of ``rows`` rows (the last one partly masked
-    where ``rows`` is not a multiple of ``LEVEL_RPT``)."""
-    return -(-rows // LEVEL_RPT)
-
-
-def _level_plan(N: int, B: int, emit: bool, n: int, m: int) -> LevelPlan:
-    """Knot pairs shifted by one when the level emits products, so that
-    each next-level group's separator row r (odd) and r + 1 share a
-    block; unshifted otherwise. Row groups: ``ceil(n / 3)`` for each of the
-    lambda and x slabs, ``ceil(m / 3)`` for u."""
-    shift = int(emit)
-    return LevelPlan(shift, (-(-B // LEVEL_TB), -(-(N + shift) // LEVEL_KB)),
-                     (_row_groups(n), _row_groups(n), _row_groups(m)))
+# flat_level_kernel's block and launch plan are the row-group level
+# update's (ops/schur.py:_level_plan): B10 runs its own kernel of that
+# design at n, m <= 8 (one slot per row group) and csrc/row_groups.cuh's at
+# the wide blocks.
 
 
 def _flat_emits(level: int, N: int) -> bool:
@@ -218,7 +190,8 @@ def schur_update_level_flat(
 
     Replaces ``rslqr_tpu/ops/schur_planes.py:schur_update_level_flat``.
     Kernel: ``flat_level_kernel`` (up to three slab rows per thread, on the
-    geometry of :func:`_level_plan`).
+    geometry of :func:`_level_plan`; at the wide blocks, 8 < m,
+    ``csrc/row_groups.cuh``'s ``row_level_kernel``).
     """
     emit = Asep is not None and _flat_emits(level, N)
     if not kernel_applies(kernels, FLl.device, FLl.dtype):

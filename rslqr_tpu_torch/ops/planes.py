@@ -32,11 +32,12 @@ with a few FLOP per byte (at n=36: pgemm ~6, the Schur update ~3
 FLOP/byte), far below the H100's ~20 f32 FLOP/byte balance, so they are
 bandwidth-bound. The design (details in the CUDA source): a block owns 32
 plane elements, one per lane, so every plane load and store is a
-coalesced 128-byte line; the products and the Schur update stage the
-right-hand operand of those plane elements in shared memory and give
-whole rows of the left operand to the block's warps, and the Cholesky
-solve and the LU solve keep the factor in shared memory, so each operand is
-read from device memory once.
+coalesced 128-byte line; the products and the Schur update stage a column
+slice of the right-hand operand of those plane elements in shared memory
+and give every output row, two per warp, of that slice to the block
+(column slices of one plane chunk run together, so the left operand comes
+from HBM once and from L2 after), and the Cholesky solve and the LU solve
+keep the factor in shared memory.
 """
 
 from __future__ import annotations

@@ -19,9 +19,12 @@ for float32 CUDA tensors under ``kernels="auto"``, and runs its plain
 PyTorch version (``*_plain``) otherwise: CPU tensors, ``kernels="off"`` and
 other dtypes (the reference sends them to XLA stages). The rule is static
 and decided before any launch: a kernel that applies launches or raises
-(block dims outside 1..``MAX_SMALL``, shapes, contiguity, a CUDA error);
-there is no fallback. The kernels are instantiated for every block size
-the small-block path takes (``csrc/small_blocks.cuh``). Each wrapper counts
+(a state dim outside 1..``MAX_STATE`` or an input dim outside
+1..``MAX_INPUT``, shapes, contiguity, a CUDA error); there is no fallback.
+The kernels are instantiated for every block size the small-block path
+takes under default options (``csrc/small_blocks.cuh``: the reference's
+small-block Schur kernels are gated on the state dim alone, so the input
+dim runs up to the mid-block limit). Each wrapper counts
 its kernel launches in its ``launches`` attribute (see
 :func:`launch_counts`).
 
@@ -34,28 +37,31 @@ Per knot and batch column and per upper level it reads and writes about
 36+36+18 floats of slab and reads 36 floats of separator block (shared by
 the whole group, so cached), against ~6 FMAs per slab element: about
 0.4 FLOP per byte, far below the H100's ~20 FLOP/byte f32 balance, so they
-are bandwidth-bound. The design does three things about it: one thread per
-(knot, batch column) with batch columns contiguous in a warp, so every slab
-load and store is a coalesced 128-byte line; the level-L multiplier blocks
-are loaded into registers once and reused for every upper level (the TPU
-kernels' VMEM reuse); and the next-level products are emitted from the
-values just computed (staged through shared memory), so the products stage
-re-reads no slab.
+are bandwidth-bound. The design does three things about it: batch columns
+contiguous in a warp, so every slab load and store is a coalesced 128-byte
+line; the level-L multiplier blocks are loaded into registers once and
+reused for every upper level (the TPU kernels' VMEM reuse); and the
+next-level products are emitted from the values just computed, so the
+products stage re-reads no slab. B2-B4 run one thread per (knot, batch
+column); B1 splits each knot's slab rows into groups of three, one thread
+each (:func:`_level_plan`, ``csrc/row_groups.cuh``).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Sequence
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 # Maximum number of upper slabs one launch takes (the kernels receive the
 # slab pointers by value); tree depth <= 25.
 MAXU = 24
-# The largest block dims n, m the CUDA kernels take (csrc/small_blocks.cuh:
-# the exact (6, 3), and the (4, 4) and (8, 8) capacities).
-MAX_SMALL = 8
+# The largest state dim n and input dim m the CUDA kernels take
+# (csrc/small_blocks.cuh: the exact (6, 3), the (4, 4) and (8, 8)
+# capacities, and the wide tag for 8 < m <= 64, the mid-block limit).
+MAX_STATE = 8
+MAX_INPUT = 64
 
 
 # ---------------------------------------------------------------------------
@@ -81,6 +87,51 @@ def _pair_emits(level: int, N: int, B: int, U: int, n: int, m: int) -> bool:
     tb = min(128, B)
     est = (1 + U) * (2 * n * n + m * n) * tk * tb * 4 * 2
     return U >= 2 and tk <= N and est <= 60 * 1024 * 1024
+
+
+# ---------------------------------------------------------------------------
+# Launch geometry of the row-group level update (csrc/row_groups.cuh): B1
+# here, and B10 in ops/flat.py.
+# ---------------------------------------------------------------------------
+
+# A block: LEVEL_TB batch columns by up to LEVEL_SLOTS row groups of
+# LEVEL_RPT slab rows by LEVEL_KB knots (at most 1,024 threads).
+LEVEL_TB, LEVEL_KB, LEVEL_RPT, LEVEL_SLOTS = 32, 2, 3, 16
+
+
+class LevelPlan(NamedTuple):
+    """Launch geometry of the row-group level kernels: grid row ``y``
+    covers knots ``y * LEVEL_KB - shift`` .. ``+ LEVEL_KB - 1`` (those in
+    ``[0, N)``), grid column ``x`` batch columns ``x * LEVEL_TB`` ..
+    ``+ LEVEL_TB - 1`` (those below ``B``); ``groups`` the row groups of
+    the lambda, x and u slabs (row group ``z`` of a knot, in that order,
+    takes slab rows ``LEVEL_RPT * (z - first group of its slab)`` ..
+    ``+ LEVEL_RPT - 1``, those below the slab's row count); ``slots`` the
+    block's threads per knot and batch column, which take row groups
+    ``slot, slot + slots, ...``."""
+
+    shift: int
+    grid: Tuple[int, int]
+    groups: Tuple[int, int, int]
+    slots: int
+
+
+def _row_groups(rows: int) -> int:
+    """Row groups of a slab of ``rows`` rows (the last one partly masked
+    where ``rows`` is not a multiple of ``LEVEL_RPT``)."""
+    return -(-rows // LEVEL_RPT)
+
+
+def _level_plan(N: int, B: int, emit: bool, n: int, m: int) -> LevelPlan:
+    """Knot pairs shifted by one when the level emits products, so that
+    each next-level group's separator row r (odd) and r + 1 share a
+    block; unshifted otherwise. Row groups: ``ceil(n / 3)`` for each of the
+    lambda and x slabs, ``ceil(m / 3)`` for u, in at most ``LEVEL_SLOTS``
+    slots."""
+    shift = int(emit)
+    groups = (_row_groups(n), _row_groups(n), _row_groups(m))
+    return LevelPlan(shift, (-(-B // LEVEL_TB), -(-(N + shift) // LEVEL_KB)),
+                     groups, min(sum(groups), LEVEL_SLOTS))
 
 
 # ---------------------------------------------------------------------------
@@ -304,10 +355,10 @@ def kernel_applies(kernels: str, device: torch.device,
 
 def _check(name: str, tensors: Sequence[torch.Tensor], shapes, n: int,
            m: int, device):
-    if not (1 <= n <= MAX_SMALL and 1 <= m <= MAX_SMALL):
+    if not (1 <= n <= MAX_STATE and 1 <= m <= MAX_INPUT):
         raise ValueError(
-            f"{name}: CUDA kernels take block dims 1..{MAX_SMALL}, got "
-            f"{(n, m)}"
+            f"{name}: CUDA kernels take state dims n in 1..{MAX_STATE} and "
+            f"input dims m in 1..{MAX_INPUT}, got (n, m) = {(n, m)}"
         )
     for t, shape in zip(tensors, shapes):
         if t.device != device or t.dtype != torch.float32:
@@ -422,7 +473,8 @@ def schur_update_level_em(
     would emit (:func:`_level_emits`); otherwise ``None``.
 
     Replaces ``rslqr_tpu/ops/schur_pallas.py:schur_update_level_em``.
-    Kernel: ``level_kernel``.
+    Kernel: ``row_level_kernel`` (``csrc/row_groups.cuh``: up to three slab
+    rows per thread, on the geometry of :func:`_level_plan`).
     """
     if not kernel_applies(kernels, FLl.device, FLl.dtype):
         return schur_update_level_em_plain(
@@ -444,12 +496,13 @@ def schur_update_level_em(
     _check("schur_update_level_em", ts, shapes, n, m, FLl.device)
     S = [torch.empty((G2, nn, B), device=FLl.device) for _ in range(U)] \
         if emit else []
+    plan = _level_plan(N, B, emit, n, m)
     _launch(
         "rslqr_schur_update_level", FLl.device,
         _ptr(FLl), _ptr(FLx), _ptr(FLu), _ptrs(Fls), _ptrs(Fxs), _ptrs(Fus),
         _ptrs(fsol), _ptr(Asep if emit else None),
         _ptr(Bsep if emit else None), _ptrs(S), U, N, B, level, int(emit),
-        n, m,
+        n, m, plan.shift, plan.grid[1], sum(plan.groups),
     )
     schur_update_level_em.launches += 1
     return tuple(Fls), tuple(Fxs), tuple(Fus), (S if emit else None)

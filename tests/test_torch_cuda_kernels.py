@@ -13,11 +13,14 @@ every branch: odd batch widths (ragged last block of batch columns), B=1,
 the shortest horizons, emission on and off, and emission groups larger than
 one block of knots. The small-block kernels (B1-B4, B10-B12) also run at
 the block sizes of their generic instantiations, (n, m) = (4, 2), (3, 2),
-(4, 1), (1, 1), (8, 8), (5, 4) and (7, 5), B10 with its last row groups
-masked. Default-option solves (``solve_kkt``, ``solve_pscan_kkt``) in f64
-at nx=6 and 36 launch no kernel (f64 runs the plain stages), in f32 at
-(n, m) = (4, 2) and (8, 8) they launch the small-block kernels, and all
-equal ``kernels="off"``. The mid-block plane kernels run at n=12 and 36
+(4, 1), (1, 1), (8, 8), (5, 4) and (7, 5), B1 and B10 with their last row
+groups masked, and at wide inputs (n <= 8 < m <= 64: (6, 12), (1, 9),
+(5, 33), (8, 64)), where B1 and B10 loop over more row groups than a
+block has slots. Default-option solves (``solve_kkt``,
+``solve_pscan_kkt``) in f64 at nx=6 and 36 launch no kernel (f64 runs the
+plain stages), in f32 at (n, m) = (4, 2), (8, 8) and (6, 12) they launch
+the small-block kernels (em and flat schedule), and all equal
+``kernels="off"``. The mid-block plane kernels run at n=12 and 36
 (and the limit, 64), with one right-hand column (w=1, q=1), ragged planes,
 and Schur updates at level 0 and the top level. The flat-plane kernels run
 at the main path's shapes (N=256, B=1024), B10 at every level 0-6 with one
@@ -182,8 +185,10 @@ def test_solve_kernel_path_matches_plain(dev):
 
 
 # The block sizes of the small-block kernels' generic instantiations
-# (csrc/small_blocks.cuh): the (4, 4) capacity and the (8, 8) one.
+# (csrc/small_blocks.cuh): the (4, 4) capacity and the (8, 8) one; then the
+# wide tag's (n <= 8 < m <= 64), whose u rows come in chunks of 8.
 OTHER_BLOCKS = [(4, 2), (3, 2), (4, 1), (1, 1), (8, 8), (5, 4), (7, 5)]
+WIDE_BLOCKS = [(6, 12), (1, 9), (5, 33), (8, 64)]
 
 
 def _sweep_args(g, dev, N, B, level, bn, bm, kind):
@@ -226,7 +231,7 @@ SWEEP_KERNELS = {"rhs": "rhs_update_level_em",
                           ("level", 64, 33, 3), ("pair", 16, 40, 1),
                           ("pair", 64, 33, 1), ("pair", 64, 40, 3),
                           ("leaf", 16, 40, 0), ("leaf", 64, 33, 0)])
-@pytest.mark.parametrize("bn,bm", OTHER_BLOCKS)
+@pytest.mark.parametrize("bn,bm", OTHER_BLOCKS + WIDE_BLOCKS)
 def test_sweep_kernels_other_blocks(dev, bn, bm, kind, N, B, level):
     """B1-B4 at the generic instantiations' block sizes, emission included
     where the level gives it."""
@@ -240,12 +245,14 @@ def test_sweep_kernels_other_blocks(dev, bn, bm, kind, N, B, level):
 
 
 def test_sweep_kernels_reject_blocks_past_eight(dev):
-    """A float32 CUDA call at a block past the instantiations raises (no
-    plain run on the card)."""
+    """A float32 CUDA call at a block past the instantiations (a state dim
+    past 8, an input dim past 64) raises (no plain run on the card)."""
     g = torch.Generator().manual_seed(5)
-    args, kw = _sweep_args(g, dev, 16, 8, 0, 9, 2, "rhs")
-    with pytest.raises(ValueError, match="block dims 1..8"):
-        schur.rhs_update_level_em(*args, n=9, m=2, **kw)
+    for bn, bm in ((9, 2), (2, 65)):
+        args, kw = _sweep_args(g, dev, 16, 8, 0, bn, bm, "rhs")
+        with pytest.raises(ValueError, match="n in 1..8 and input dims m "
+                                             "in 1..64"):
+            schur.rhs_update_level_em(*args, n=bn, m=bm, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -344,7 +351,7 @@ def test_flat_rhs_kernel(dev, level):
 
 @pytest.mark.parametrize("level,with_sep", [(0, True), (1, True), (1, False),
                                             (2, False), (6, False)])
-@pytest.mark.parametrize("bn,bm", OTHER_BLOCKS)
+@pytest.mark.parametrize("bn,bm", OTHER_BLOCKS + WIDE_BLOCKS)
 def test_flat_level_kernel_other_blocks(dev, bn, bm, level, with_sep):
     """B10 at the generic block sizes (row groups of three with the last
     one masked where n or m is not a multiple of three), N=256, B=1024, the
@@ -370,7 +377,7 @@ def test_flat_level_kernel_other_blocks(dev, bn, bm, level, with_sep):
     _assert_match(ks, ps)
 
 
-@pytest.mark.parametrize("bn,bm", OTHER_BLOCKS)
+@pytest.mark.parametrize("bn,bm", OTHER_BLOCKS + WIDE_BLOCKS)
 def test_flat_leaf_and_rhs_kernels_other_blocks(dev, bn, bm):
     """B11 at depth 5 and B12 at levels 0 and 3 (N=32, B=1024) at the
     generic block sizes."""
@@ -398,6 +405,32 @@ def test_flat_leaf_and_rhs_kernels_other_blocks(dev, bn, bm):
                            dict(level=level, n=bn, m=bm, N=N))
         assert flat.rhs_update_level_flat.launches == before + 1
         _assert_match(ks, ps)
+
+
+@pytest.mark.parametrize("flat_planes", [False, True])
+def test_wide_input_solve_launches_kernels(dev, flat_planes):
+    """A default-option f32 solve at (n, m) = (6, 12), N=32, B=1024: the em
+    schedule launches B3, B4, B1 and B2, the flat one B11, B10 and B12
+    (no B1-B4); both equal ``kernels="off"``."""
+    import rslqr_tpu_torch as pt
+
+    prob = pt.random_problem(torch.Generator().manual_seed(6), 32, 6, 12,
+                             device=dev)
+    batch = pt.batch_problems(prob, FB, torch.Generator().manual_seed(12))
+    flat.reset_launch_counts()
+    schur.reset_launch_counts()
+    opts = pt.SolveOptions(flat_planes=flat_planes)
+    got = pt.solve_kkt(batch, options=opts)
+    torch.cuda.synchronize()
+    ran, idle = ((flat.launch_counts(), schur.launch_counts()) if flat_planes
+                 else (schur.launch_counts(), flat.launch_counts()))
+    assert all(c > 0 for c in ran.values()), ran
+    assert sum(idle.values()) == 0, idle
+    ref = pt.solve_kkt(batch, options=pt.SolveOptions(
+        flat_planes=flat_planes, kernels="off"))
+    scale = 1.0 + ref.abs().max().item()
+    assert bool(torch.isfinite(got).all())
+    assert (got - ref).abs().max().item() <= 1e-4 * scale
 
 
 def test_flat_solve_kernel_path_matches_plain(dev):

@@ -14,12 +14,13 @@ kernels.
   tests/test_torch_pscan.py); f32 against JAX's f32 solve at ``1e-5``
   relative (two f32 solvers summing in another order).
 * The launch plans computed in Python (``planes._flagged_plan`` for
-  ``flagged_kernel``, ``flat._level_plan`` for ``flat_level_kernel``),
+  ``flagged_kernel``, ``schur._level_plan`` for ``flat_level_kernel``),
   walked the way the CUDA kernels walk them: every output entry (the lower
   triangle under ``sym``, mirrored once) and every plane element is covered
   exactly once; every knot and batch column once, each emitting group's
   separator row and the row after it in one block, and every slab row of
-  every block size 1 <= n, m <= 8 by one thread.
+  every block size 1 <= n, m <= 8 by one thread (the wide inputs, m > 8:
+  tests/test_torch_wide_input.py).
 """
 
 import functools
@@ -55,14 +56,15 @@ DTYPES = (torch.float32, torch.float64, torch.bfloat16)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_schur_router(dtype, nm, device, kernels):
     """The rule does not look at the block size: every small block has a
-    kernel (``csrc/small_blocks.cuh``), and past 8 the wrapper raises."""
+    kernel (``csrc/small_blocks.cuh``), and past a state dim of 8 the
+    wrapper raises (past an input dim of 64: tests/test_torch_wide_input.py)."""
     want = (kernels == "auto" and device.type == "cuda"
             and dtype == torch.float32)
     assert schur.kernel_applies(kernels, device, dtype) is want
-    assert 1 <= min(nm) and max(nm) <= schur.MAX_SMALL
+    assert 1 <= min(nm) and max(nm) <= schur.MAX_STATE <= schur.MAX_INPUT
     schur._check("t", [], [], *nm, device)  # the kernels take the block
-    with pytest.raises(ValueError, match="block dims 1..8"):
-        schur._check("t", [], [], nm[0] + schur.MAX_SMALL, nm[1], device)
+    with pytest.raises(ValueError, match=r"state dims n in 1\.\.8"):
+        schur._check("t", [], [], nm[0] + schur.MAX_STATE, nm[1], device)
 
 
 @pytest.mark.parametrize("kernels", ["auto", "off"])
@@ -234,9 +236,9 @@ def test_flagged_plan_fills_the_card_at_the_scans_planes():
 
 
 def _level_cover(N, B, level, emit):
-    plan = flat._level_plan(N, B, emit, 6, 3)
+    plan = schur._level_plan(N, B, emit, 6, 3)
     gx, gy = plan.grid
-    kb, tb = flat.LEVEL_KB, flat.LEVEL_TB
+    kb, tb = schur.LEVEL_KB, schur.LEVEL_TB
     knots = np.zeros(N, dtype=int)
     block = np.full(N, -1)
     for y in range(gy):
@@ -260,9 +262,9 @@ def test_level_plan_covers_once(N, level, B):
     for emit in sorted({False, emits}):
         knots, block, cols, plan = _level_cover(N, B, level, emit)
         assert (knots == 1).all() and (cols[:B] == 1).all()
-        assert len(cols) - B < flat.LEVEL_TB
+        assert len(cols) - B < schur.LEVEL_TB
         # The C launcher's own check of the plan.
-        assert plan.grid[1] * flat.LEVEL_KB - plan.shift >= N
+        assert plan.grid[1] * schur.LEVEL_KB - plan.shift >= N
         if emit:
             span = 2 << level
             for g2 in range(N // (2 * span)):
@@ -278,8 +280,8 @@ def test_level_plan_row_groups_cover_once(nm):
     thread (groups of LEVEL_RPT, the last one masked past the slab), and no
     group is empty; (6, 3) keeps its 2 + 2 + 1 whole groups."""
     n, m = nm
-    plan = flat._level_plan(256, 1024, False, n, m)
-    rpt = flat.LEVEL_RPT
+    plan = schur._level_plan(256, 1024, False, n, m)
+    rpt = schur.LEVEL_RPT
     assert plan.groups == (-(-n // rpt), -(-n // rpt), -(-m // rpt))
     if nm == (6, 3):
         assert plan.groups == (2, 2, 1)

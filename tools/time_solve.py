@@ -17,16 +17,18 @@ kernel path):
 * ``quad``: the quadruped config, ``random_problem`` nx=36, nu=12, N=512,
   B=256 perturbed instances, one batch.
 
-``--kernels`` also prints the median ms over 10 launches
-(CUDA events) of chip_smoke.py's phase-2b cases of B5 (``pgemm``, no flags)
-and B9 (``schur3_update_planes``), which every tree since the mid-block
-slice has, and of its phase-2c/2d cases of the scan's nine flagged B5
-products and of B10 (``schur_update_level_flat``) at levels 1-6, each of
-those also chained (CUDA-graph replays of 10 back-to-back calls against
-one), beside the same timings of one PyTorch library call
+``--kernels`` also prints, single (median ms over 10 launches, CUDA
+events) and chained (CUDA-graph replays of 10 back-to-back calls against
+one), chip_smoke.py's phase-2 cases of the small-block sweep kernels at
+(n, m) = (6, 3) (B1 at N=128 levels 1 and 5 and N=256 level 1, B2, B3,
+B4, B11 and B12 at N=256, B=1024), its phase-2b cases of B5 (``pgemm``, no
+flags) and B9 (``schur3_update_planes``) and phase-2c cases of B5's
+``lam_level`` (``schur_update_planes``), the scan's nine flagged B5
+products and B10 (``schur_update_level_flat``) at levels 1-6, beside the
+same timings of one PyTorch library call where there is one
 (``matmul``/``baddbmm`` on mat-last views; an unmasked ``baddbmm`` over
-every B10 slab row). The clock is the timed tree's
-``bench_kernels.launch_ms``/``chain_ms``. To compare two trees, unpack the
+every slab row for B1, B2, B9, B10, B12 and ``lam_level``). The clock is the
+timed tree's ``bench_kernels.launch_ms``/``chain_ms``. To compare two trees, unpack the
 other one (``git archive``) into a git-ignored directory and run the
 script on both in one machine, alternating: A, B, B, A.
 """
@@ -147,25 +149,159 @@ def flat_level_times(torch, flat, R):
     return out
 
 
-def kernel_times(torch, planes, reps=10):
-    """``{case: median ms}`` of the phase-2b B5 and B9 cases."""
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    R = lambda *s: torch.randn(s, generator=gen, device="cuda")
-    G, Bb, N = 256, 256, 512
-    med = lambda fn, make: _med(torch, fn, make, reps)
+def _pair(torch, call, fresh):
+    """(single ms, chained ms) of ``call(*fresh())``: single launches on
+    fresh inputs (the kernels update them in place), chained on one
+    working copy."""
+    work = fresh()
+    return _med(torch, call, fresh), _chained(torch, lambda: call(*work))
 
+
+def _trio_lib(torch, FL, up, fs, level, n, N, B, gm=False):
+    """One unmasked ``baddbmm`` on mat-last views doing the update of every
+    upper trio of ``up`` (``[[l_u], [x_u], [u_u]]`` slabs, q columns each)
+    by the multipliers ``FL`` and the compact separators ``fs``
+    (element-major ``[e, G, B]``, or group-major ``[G, e, B]`` with
+    ``gm``): chip_smoke.py's ``trio_library``."""
+    span = 2 << level
+    G = N >> (level + 1)
+    q = up[0][0].shape[0] // n
+    FLml = torch.cat([x.reshape(-1, n, N * B) for x in FL]).permute(
+        2, 0, 1).contiguous()
+    C = torch.cat([torch.cat([x.reshape(-1, q, N * B) for x in trio])
+                   for trio in zip(*up)], dim=1).permute(2, 0, 1).contiguous()
+    em = [x.transpose(0, 1) if gm else x for x in fs]
+    f = torch.cat([x.reshape(n, q, G, 1, B).expand(n, q, G, span, B).reshape(
+        n, q, N * B) for x in em], dim=1).permute(2, 0, 1).contiguous()
+    return lambda: torch.baddbmm(C, FLml, f, alpha=-1.0)
+
+
+def sweep_times(torch, schur, flat, R):
+    """``{case: (single ms, chained ms)}`` of the small-block sweep kernels
+    at (6, 3), B=1024 (chip_smoke.py phase 2 and 2d), and of the library
+    calls beside B1, B2 and B12."""
+    n, m, B = 6, 3, 1024
+    nn, mn = n * n, m * n
+    out = {}
+    N = 256
+    depth = N.bit_length() - 1
+    pos = lambda *s: 0.5 + torch.rand(s, device="cuda")
+    # B3 and B11: the fused leaf at depth 8.
+    leaf = [R(nn, N, B), 0.2 * R(mn, N, B), pos(n, N, B), pos(m, N, B),
+            R(N // 2, nn, B), [0.1 * R(N // 2, nn, B) for _ in range(depth - 1)],
+            R(N // 4, nn, B), R(N // 4, mn, B)]
+    out["B3 N=256"] = _pair(
+        torch, lambda *a: schur.leaf_schur_level0_em(*a, depth=depth, n=n,
+                                                     m=m), lambda: leaf)
+    rows = lambda G: G * B // 128
+    fl = lambda x: x.reshape(x.shape[0], -1, 128) if x.shape[1] == N else (
+        x.transpose(0, 1).reshape(x.shape[1], -1, 128))
+    fleaf = [fl(x) if not isinstance(x, list) else [fl(y) for y in x]
+             for x in leaf]
+    out["B11 N=256"] = _pair(
+        torch, lambda *a: flat.leaf_schur_level0_flat(
+            *a, depth=depth, n=n, m=m, N=N), lambda: fleaf)
+    del leaf, fleaf
+    # B2 and B12 at level 0.
+    G = N // 2
+    FL = [R(nn, N, B), R(nn, N, B), R(mn, N, B)]
+    z = [R(n, N, B), R(n, N, B), R(m, N, B)]
+    zb = 0.1 * R(G, n, B)
+    out["B2 N=256 L0"] = _pair(
+        torch, lambda *a: schur.rhs_update_level_em(*a, level=0, n=n, m=m),
+        lambda: (*FL, *[x.clone() for x in z], zb))
+    lib = _trio_lib(torch, FL, [[x] for x in z], [zb], 0, n, N, B, gm=True)
+    out["library B2 N=256 L0"] = (_med(torch, lib, tuple),
+                                  _chained(torch, lib))
+    f2 = lambda x: x.reshape(x.shape[0], -1, 128)
+    zbf = zb.transpose(0, 1).reshape(n, -1, 128).contiguous()
+    out["B12 N=256 L0"] = _pair(
+        torch, lambda *a: flat.rhs_update_level_flat(*a, level=0, n=n, m=m,
+                                                     N=N),
+        lambda: (*map(f2, FL), *[f2(x.clone()) for x in z], zbf))
+    del FL, z, zb, zbf
+    # B4 at levels 1 and 5 (emission as the main path chooses it).
+    for level in (1, 5):
+        U = depth - level - 1
+        G1, G2, G3 = N >> (level + 1), N >> (level + 2), N >> (level + 3)
+        emit = schur._pair_emits(level, N, B, U, n, m)
+        args = [R(nn, N, B), R(nn, N, B), R(mn, N, B),
+                [R(nn, N, B) for _ in range(U)], [R(nn, N, B) for _ in range(U)],
+                [R(mn, N, B) for _ in range(U)],
+                [0.1 * R(G1, nn, B) for _ in range(U)], R(G2, nn, B),
+                [0.1 * R(G2, nn, B) for _ in range(U - 1)],
+                R(G3, nn, B) if emit else None, R(G3, mn, B) if emit else None]
+        out[f"B4 N=256 L{level}"] = _pair(
+            torch, lambda *a: schur.schur_update_pair_em(
+                *a, level=level, n=n, m=m),
+            lambda: [[x.clone() for x in a] if isinstance(a, list) else a
+                     for a in args])
+        del args
+    # B1 at N=128 levels 1 and 5 and N=256 level 1.
+    for N, level in ((128, 1), (128, 5), (256, 1)):
+        depth = N.bit_length() - 1
+        U = depth - level - 1
+        G, G2 = N >> (level + 1), N >> (level + 2)
+        emit = schur._level_emits(level, N) and level + 2 <= depth
+        FL = [R(nn, N, B), R(nn, N, B), R(mn, N, B)]
+        up = [[R(e, N, B) for _ in range(U)] for e in (nn, nn, mn)]
+        fs = [0.1 * R(G, nn, B) for _ in range(U)]
+        sep = [R(G2, nn, B), R(G2, mn, B)] if emit else [None, None]
+        out[f"B1 N={N} L{level}"] = _pair(
+            torch, lambda *u: schur.schur_update_level_em(
+                *FL, *u, fs, *sep, level=level, n=n, m=m),
+            lambda: [[x.clone() for x in u] for u in up])
+        lib = _trio_lib(torch, FL, up, fs, level, n, N, B, gm=True)
+        out[f"library B1 N={N} L{level}"] = (_med(torch, lib, tuple),
+                                             _chained(torch, lib))
+        del FL, up, fs, sep, lib
+    return out
+
+
+def plane_times(torch, planes, R):
+    """``{case: (single ms, chained ms)}`` of chip_smoke.py's phase-2b cases
+    of B5 (``pgemm``, no flags) and B9 (``schur3_update_planes``) and its
+    phase-2c cases of ``schur_update_planes`` (quadruped shapes: G=256 or
+    N=512 knots by B=256), and of their library calls."""
+    G, Bb, N = 256, 256, 512
     out = {}
     for p, K, q in ((36, 36, 36), (36, 12, 36), (12, 12, 12)):
         A, Bm = R(p, K, G, Bb), R(K, q, G, Bb)
-        out[f"pgemm {p}x{K}.{K}x{q}"] = med(planes.pgemm, lambda: (A, Bm))
-    for q, level in ((36, 0), (36, 7), (1, 0)):
+        out[f"pgemm {p}x{K}.{K}x{q}"] = _pair(
+            torch, planes.pgemm, lambda: (A, Bm))
+        a, b = _ml(A), _ml(Bm)
+        lib = lambda: torch.matmul(a, b)
+        out[f"library pgemm {p}x{K}.{K}x{q}"] = (_med(torch, lib, tuple),
+                                                 _chained(torch, lib))
+        del A, Bm, a, b, lib
+    for nx, nu, q, level in ((36, 12, 36, 0), (36, 12, 36, 7),
+                             (36, 12, 1, 0), (12, 4, 12, 0)):
         Gl = N >> (level + 1)
-        FL = [R(36, 36, N, Bb), R(36, 36, N, Bb), R(12, 36, N, Bb)]
-        fs = R(36, q, Gl, Bb)
-        C = [R(36, q, N, Bb), R(36, q, N, Bb), R(12, q, N, Bb)]
-        out[f"schur3 q={q} L{level}"] = med(
-            lambda *a: planes.schur3_update_planes(*a, level=level),
-            lambda: (*FL, fs, *(c.clone() for c in C)))
+        FL = [R(nx, nx, N, Bb), R(nx, nx, N, Bb), R(nu, nx, N, Bb)]
+        fs = 0.1 * R(nx, q, Gl, Bb)
+        C = [R(nx, q, N, Bb), R(nx, q, N, Bb), R(nu, q, N, Bb)]
+        out[f"schur3 n={nx} q={q} L{level}"] = _pair(
+            torch, lambda *c: planes.schur3_update_planes(
+                *FL, fs, *c, level=level),
+            lambda: [c.clone() for c in C])
+        lib = _trio_lib(torch, [x.reshape(-1, N, Bb) for x in FL],
+                        [[x.reshape(-1, N, Bb)] for x in C],
+                        [fs.reshape(nx * q, Gl, Bb)], level, nx, N, Bb)
+        out[f"library schur3 n={nx} q={q} L{level}"] = (
+            _med(torch, lib, tuple), _chained(torch, lib))
+        del FL, fs, C, lib
+    for lam in (True, False):
+        FL, fs, Fin = R(36, 36, N, Bb), 0.1 * R(36, 36, N // 2, Bb), R(
+            36, 36, N, Bb)
+        out[f"lam_level lam={lam}"] = _pair(
+            torch, lambda c: planes.schur_update_planes(
+                FL, fs, c, level=0, lam=lam), lambda: (Fin.clone(),))
+        lib = _trio_lib(torch, [FL.reshape(-1, N, Bb)],
+                        [[Fin.reshape(-1, N, Bb)]],
+                        [fs.reshape(-1, N // 2, Bb)], 0, 36, N, Bb)
+        out[f"library lam_level lam={lam}"] = (_med(torch, lib, tuple),
+                                               _chained(torch, lib))
+        del FL, fs, Fin, lib
     return out
 
 
@@ -182,7 +318,7 @@ def main() -> int:
     import torch
 
     import rslqr_tpu_torch as pt
-    from rslqr_tpu_torch.ops import _build, flat, planes
+    from rslqr_tpu_torch.ops import _build, flat, planes, schur
 
     if not torch.cuda.is_available():
         print("time_solve: no CUDA device", file=sys.stderr)
@@ -226,12 +362,11 @@ def main() -> int:
           f"ms, over {args.reps} solves (build/load {build_s:.1f} s) on "
           f"{card}", flush=True)
     if args.kernels:
-        for case, ms in kernel_times(torch, planes).items():
-            print(f"time_solve root={root.name} kernel {case}: {ms:.4f} ms",
-                  flush=True)
         gen = torch.Generator(device="cuda").manual_seed(1)
         R = lambda *s: torch.randn(s, generator=gen, device="cuda")
-        for case, (single, chained) in {**flagged_times(torch, planes, R),
+        for case, (single, chained) in {**sweep_times(torch, schur, flat, R),
+                                        **plane_times(torch, planes, R),
+                                        **flagged_times(torch, planes, R),
                                         **flat_level_times(torch, flat,
                                                            R)}.items():
             print(f"time_solve root={root.name} kernel {case}: single "
