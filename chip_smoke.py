@@ -13,13 +13,15 @@ Phases, each printing one line of numbers:
    path's shapes (N=256, B=1024; B1 at N=128 and with level pairing off),
    with the median time of each over 10 launches, and for B1 and B2 one
    unmasked ``baddbmm`` on mat-last views (as B10, B12 in phase 2d); B1
-   (on row groups, ``csrc/row_groups.cuh``) also chained, kernel and
-   ``baddbmm``;
+   and B4 (on row groups, ``csrc/row_groups.cuh``; B4 at levels 1, 3 and
+   5) also chained;
 2b. each of the four mid-block plane kernels (B5 pgemm, B6 pchol, B7
    pcho_solve, B9 schur3_update_planes) the same way, at the quadruped
    path's shapes (nx=36, nu=12, N=512, B=256) and once at n=12, m=4, with
    the time of one PyTorch library call on the same inputs beside each; B5
-   and B9 (``rows_kernel``) also chained, kernel and library call;
+   and B9 (``rows_kernel``), B6 and B7 also chained, kernel and library
+   call, B7 at the level-0 and level-4 planes (w=36), at w=1 and at n=12
+   and 16;
 3. the small-block slice: ``solve_kkt`` on the BASELINE batched-MPC config
    (the double integrator, nx=6, nu=3, N=256, perturbed into B=1024
    instances, f32) and again at N=128 so that B1 launches, with launch
@@ -70,7 +72,10 @@ Phases, each printing one line of numbers:
    wide tag), at the small path's shapes;
 3e. default-option f32 solves at those block sizes, em (N=256, and N=128
    where B1 launches) and flat schedule, with their launch counts and
-   agreement with ``kernels="off"``;
+   agreement with ``kernels="off"``; then a state dim past 8 under
+   ``mxu_block_threshold=16`` (nx=12, nu=4, N=256, B=1024, f32), which
+   takes the plane kernels (B7 and B9 launch, no small-block kernel) and
+   equals ``kernels="off"``;
 4. time per batched solve of both slices, kernel path and
    ``kernels="off"``; 4c the same for the parallel scan; 4d for the flat
    solve and the refined solve;
@@ -147,8 +152,10 @@ SOURCES = {k: PROBE_SRC if k in PROBES else SCHUR_SRC if k.endswith("_em")
            else FLAT_SRC if k.endswith("_flat") else PLU_SRC
            if k.startswith("plu") else FLAGGED_SRC if k == "pgemm_flagged"
            else PLANES_SRC for k in REPLACES}
-# B1's kernel (instantiated by schur_kernels.cu; B10's at the wide blocks).
+# B1's and B4's kernels (instantiated by schur_kernels.cu; B10's at the
+# wide blocks).
 SOURCES["schur_update_level_em"] = "rslqr_tpu_torch/csrc/row_groups.cuh"
+SOURCES["schur_update_pair_em"] = "rslqr_tpu_torch/csrc/row_groups.cuh"
 # The kernels of each mid-block path (the others launch no time there).
 RSLQR_MID = ("pgemm", "pchol", "pcho_solve", "schur3_update_planes")
 PSCAN_MID = ("pgemm", "pgemm_flagged", "plu_solve_multi")
@@ -310,7 +317,8 @@ class Smoke:
         return chain_ms(call, self.dev, CHAIN_K, CHAIN_REPS)
 
     def compare(self, name, case, fn, args, kwargs, ops, library=None,
-                moved=None, phase="phase2", twin=None, chain=False):
+                moved=None, phase="phase2", twin=None, chain=False,
+                chain_library=True):
         """Kernel vs plain on clones of ``args``; record error, times and
         the bound of the first case of each kernel. ``ops``: the FLOPs the
         call does; ``library``: ``(fn, args)`` of one PyTorch call on the
@@ -319,7 +327,10 @@ class Smoke:
         written once; ``twin``: ``(fn, args, kwargs)`` of another kernel
         doing the same work, timed beside it; ``chain``: also the chained
         device times of the kernel and the library call (the single-launch
-        times include the wrapper's host time while the card idles)."""
+        times include the wrapper's host time while the card idles);
+        ``chain_library=False``: the library call single only (the batched
+        Cholesky calls go through MAGMA, whose queue setup fails once such a
+        call has been captured in a CUDA graph)."""
         t = self.torch
         clones = lambda: clone_args(args)
 
@@ -368,7 +379,7 @@ class Smoke:
         if chain:
             a = clones()
             ch_ms = self.chained(lambda: fn(*a, **kwargs))
-            if library is not None:
+            if library is not None and chain_library:
                 ch_lib = self.chained(lambda: lib_fn(*lib_args))
             extra += (f" chained_ms={ch_ms:.4f} library_chained_ms="
                       f"{fmt(ch_lib)}")
@@ -420,9 +431,9 @@ class Smoke:
                     [args[6].transpose(0, 1).contiguous()], level, N, B),
                 moved=update_moved(n, m, 1, N, B, level, 1),
             )
-        # B4 at levels 1 and 5 (the first and last pair of the main path;
-        # emission as the main path chooses it).
-        for level in (1, depth - 3):
+        # B4 at levels 1, 3 and 5 (the main path's three pairs; emission as
+        # the main path chooses it), also chained.
+        for level in (1, 3, depth - 3):
             U = depth - level - 1
             args = self.pair_args(N, B, level)
             emitted = 0 if args[-1] is None else U - 1
@@ -438,6 +449,7 @@ class Smoke:
                 moved=update_moved(n, m, n, N, B, level, U)
                 + 4 * B * 2 * U * nn * G2
                 + (emit_moved(G3, B, emitted) if emitted else 0),
+                chain=True,
             )
         # B1 at N=128 levels 1 and 5 (level 5 is on the main path there),
         # and at N=256 level 1 (the level_pairing=False path).
@@ -631,18 +643,25 @@ class Smoke:
                 F * sum(2 * j * (d - j) + (d - j) for j in range(d)),
                 (t.linalg.cholesky_ex, (ml(S),)),
                 # A's lower triangle read, L (zeros included) written.
-                moved=4 * F * (d * (d + 1) // 2 + d * d),
+                moved=4 * F * (d * (d + 1) // 2 + d * d), chain=True,
+                chain_library=False,
             )
-        for d, w in ((QX, QX), (QX, 1), (12, 12)):
-            Lc = pl.pchol_plain(self.spd(d, G, Bb))
-            X = R(d, w, G, Bb)
+        # B7 at the quadruped rsLQR's shapes: the separator solves at level
+        # 0 (G=256 groups) and level 4 (G=16), w=36, and the RHS sweep's
+        # w=1; then n=12 and, under a raised threshold (C6), n=16.
+        for d, w, Gs in ((QX, QX, G), (QX, QX, G >> 4), (QX, 1, G),
+                         (12, 12, G), (16, 16, G)):
+            Lc = pl.pchol_plain(self.spd(d, Gs, Bb))
+            X = R(d, w, Gs, Bb)
+            Fs = Gs * Bb
             self.compare(
-                "pcho_solve", f"n={d} w={w} G={G} B={Bb}",
+                "pcho_solve", f"n={d} w={w} G={Gs} B={Bb}",
                 lambda a, b, **k: (pl.pcho_solve(a, b, **k),), [Lc, X], {},
-                2 * d * d * w * F, (t.cholesky_solve, (ml(X), ml(Lc))),
+                2 * d * d * w * Fs, (t.cholesky_solve, (ml(X), ml(Lc))),
                 # L's lower triangle read, the right-hand side read and
                 # written.
-                moved=4 * F * (d * (d + 1) // 2 + 2 * d * w),
+                moved=4 * Fs * (d * (d + 1) // 2 + 2 * d * w), chain=True,
+                chain_library=False,
             )
         depth = QN.bit_length() - 1
         for nx, nu, q, level in ((QX, QU, QX, 0), (QX, QU, QX, depth - 2),
@@ -1288,6 +1307,38 @@ class Smoke:
             print(f"phase3e {label} n={nx} m={nu} N={N} B={B} f32 "
                   f"default options: rel_diff_vs_off={d:.3e} (bar "
                   f"{SLICE_BAR}) launches {json.dumps(ran)}", flush=True)
+        self.raised_threshold_solve()
+
+    def raised_threshold_solve(self):
+        """A state dim past the small-block kernels' 8 under a raised
+        ``mxu_block_threshold`` (ROADMAP C6): f32, threshold 16, nx=12,
+        nu=4, N=256, B=1024. It takes the planes route (B7 and B9 launch,
+        no small-block or flat kernel) and equals ``kernels="off"``."""
+        t, pt = self.torch, self.pt
+        N, B, nx, nu = N_MAIN, BATCH, 12, 4
+        opts = pt.SolveOptions(mxu_block_threshold=16)
+        prob = pt.random_problem(t.Generator().manual_seed(nx), N, nx, nu,
+                                 dtype=t.float32, device=self.dev)
+        b = pt.batch_problems(prob, B, t.Generator().manual_seed(N + nx))
+        for mod in (self.schur, self.flat, self.planes):
+            mod.reset_launch_counts()
+        got = pt.solve_kkt(b, options=opts)
+        t.cuda.synchronize()
+        planes_c = self.planes.launch_counts()
+        small = {k: v for mod in (self.schur, self.flat)
+                 for k, v in mod.launch_counts().items() if v}
+        d = rel_err(got, pt.solve_kkt(b, options=pt.SolveOptions(
+            mxu_block_threshold=16, kernels="off")))
+        ok = (planes_c["pcho_solve"] > 0
+              and planes_c["schur3_update_planes"] > 0 and not small
+              and d <= SLICE_BAR and bool(t.isfinite(got).all()))
+        self.check(ok, f"raised threshold n={nx} m={nu}: planes launches "
+                       f"{planes_c}, small-block {small}, rel diff vs off "
+                       f"{d:.3e}")
+        print(f"phase3e raised threshold (16) n={nx} m={nu} N={N} B={B} "
+              f"f32: rel_diff_vs_off={d:.3e} (bar {SLICE_BAR}) launches "
+              f"{json.dumps(planes_c)} small-block {json.dumps(small)}",
+              flush=True)
 
     # -- phase 5 ---------------------------------------------------------
     def profile(self, b, label, solve=None, top=14):

@@ -36,7 +36,8 @@ class SolveOptions:
     kernels: str = "auto"
     factor_dtype: str = ""
     # Block dim above which linalg and the sweep take the mid-block planes
-    # route (up to 64).
+    # route (up to 64); the sweep also takes it for a state dim past 8, the
+    # small-block kernels' limit (rslqr_em._mid_block).
     mxu_block_threshold: int = 8
     # Two sweep levels per slab pass (rslqr_em._sweep_pair_em); False = one
     # level per pass.

@@ -42,15 +42,15 @@
 // solved separator of each lane's knot group; lambda rows that no lane's
 // knot keeps skip the product and only write the separator rows.
 //
-// pcho_solve_kernel: one thread per (plane element, right-hand column),
-// the column in registers, L staged per block in shared memory (see the
-// kernel). pchol_kernel: one thread per plane element, its working values
-// in the output L (read back through L1/L2). Both are instantiated for
-// register columns of 12, 36 and 64 floats (the tests' n=12, the quadruped
-// path's 36, and 64 for any larger block), launched with the smallest that
-// holds the block; their unrolled loops carry no branch on the runtime dim
-// (padding entries are 0 and their loads repeat the last valid address), so
-// the loads of a row are in flight together.
+// pcho_solve_kernel: one right-hand column per thread in registers, L's
+// triangle staged in shared memory per block (see the kernel). pchol_kernel:
+// one thread per plane element, its working values in the output L (read
+// back through L1/L2). Both are instantiated for register columns of 12,
+// 16, 36 and 64 floats (n <= 12, the state dims 13..16 a raised
+// mxu_block_threshold sends here, the quadruped path's 36, and 64 for any
+// larger block), launched with the smallest that holds the block; their
+// unrolled loops index the registers statically and skip the rows past the
+// runtime dim with uniform branches.
 //
 // Each launcher returns cudaGetLastError() right after the launch; the
 // Python wrapper (rslqr_tpu_torch/ops/planes.py) raises on a nonzero code.
@@ -62,14 +62,16 @@ namespace {
 
 constexpr int MAXD = 64;        // largest block dim (matches ops/planes.py)
 constexpr int LANES = 32;       // plane elements per block (one per lane)
-constexpr int SMEM_MAX = 232448;  // shared memory a block can use (H100)
 
 // Runs the statement list (a lambda) with the constexpr int W set to the
-// register-column width (12, 36 or 64) that holds d values.
+// register-column width (12, 16, 36 or 64) that holds d values.
 #define RSLQR_BY_WIDTH(d, ...)   \
   do {                           \
     if ((d) <= 12) {             \
       constexpr int W = 12;      \
+      __VA_ARGS__();             \
+    } else if ((d) <= 16) {      \
+      constexpr int W = 16;      \
       __VA_ARGS__();             \
     } else if ((d) <= 36) {      \
       constexpr int W = 36;      \
@@ -79,23 +81,6 @@ constexpr int SMEM_MAX = 232448;  // shared memory a block can use (H100)
       __VA_ARGS__();             \
     }                            \
   } while (0)
-
-// Index k of a length-K column, clamped into it (the padding's stand-in).
-__device__ __forceinline__ int clampk(int k, int K) {
-  return k < K ? k : K - 1;
-}
-
-// Column j of a [K, q, F] block at plane element f into registers (0 past K).
-template <int W>
-__device__ __forceinline__ void load_col(float (&col)[W],
-                                         const float* __restrict__ src, int K,
-                                         int q, int j, size_t F, size_t f) {
-#pragma unroll
-  for (int k = 0; k < W; ++k) {
-    const float v = src[((size_t)clampk(k, K) * q + j) * F + f];
-    col[k] = k < K ? v : 0.f;
-  }
-}
 
 // What rows_kernel computes: C_g[i, :] (=, or -=) A_g[i, :] @ R for up to
 // three row groups g, stacked (rows of group 0, then 1, then 2). For the
@@ -298,94 +283,177 @@ __global__ void __launch_bounds__(128)
   }
 }
 
-// (L L') X = B, one right-hand column per thread: the column lives in
-// registers through forward (L y = b) and back (L' x = y) substitution. A
-// block owns 32 plane elements (one per lane) and its warps (up to
-// SOLVE_WARPS) take the columns. With STAGE (several columns, and W <= 36:
-// n(n+1)/2 * 32 floats, 85 KB at n=36) the block first stages the lanes'
-// lower triangles of L in shared memory, so L is read from device memory
-// once and every term is a shared-memory load; otherwise L is read through
-// L1/L2 (one column: nothing to share).
-constexpr int SOLVE_WARPS = 8;  // 256 threads: 255 registers for the column
+// (L L') X = B in place on X (B7). What bounds it: bytes. At n = w = 36 a
+// plane element moves 666 floats of L's lower triangle and 2 x 1,296 of X
+// (0.854 GB over F = 65,536: 0.255 ms at 3.35 TB/s) against 46,656 FMAs.
+//
+// Mapping. A block owns 32 plane elements (one per lane: coalesced lines)
+// and ``blockDim.y`` right-hand columns, one per warp, each thread keeping
+// its column in registers. The grid runs (plane chunk x group of columns),
+// the groups of one chunk next to each other (L comes from HBM once, then
+// from L2); the launcher picks the warps per block that split the columns
+// evenly and still give the card two blocks per SM, down to one warp per
+// block on the upper levels' small planes (F = 512: 16 chunks x 36 columns
+// = 576 blocks, where one block per chunk would leave most SMs idle). 12
+// warps per block ran the quadruped's n = w = 36 solves ~10% faster than 9
+// and ~30% faster than 18 (PERF.md).
+//
+// STAGED (several columns, n <= 36): the block first copies its lanes'
+// lower triangles of L into shared memory (cp.async, every copy in flight at
+// once; 85 KB at n = 36, so two blocks of up to 12 warps per SM, and one's
+// copy overlaps the other's substitution), then runs both substitutions
+// right-looking, so each step's updates are independent of each other:
+// forward (L y = b) by columns, x_k /= l_kk, then x_i -= l_ik x_k for
+// i > k; back (L' x = y) by rows from the bottom, x_i /= l_ii, then
+// x_k -= l_ik x_i for k < i. Each x_i takes its terms one FMA at a time, in
+// ascending k (forward) and descending i (back), and is divided by the
+// diagonal as the reference does; no inverse of L is formed.
+//
+// Direct (one column, or n > 36, whose triangle would not fit): L read
+// through L1/L2 by rows only (a column of L spans n x F floats of device
+// memory, and walking one ran 1.5-2.0x slower), the forward pass
+// left-looking, x_i = (b_i - sum_k l_ik x_k) / l_ii, the back pass
+// right-looking. Both modes skip the rows and columns
+// past n with uniform branches, which also keep ptxas from hoisting every
+// load of the unrolled loops (with n fixed at compile time the instances
+// spilled 6-9 KB). Two or four columns per thread (one load of l_ik for
+// several FMAs) lost to one: their registers cost the warps that hide the
+// substitutions' latency (PERF.md).
+constexpr int SOLVE_WARPS = 12;  // most columns (warps) per staged block
+constexpr int DIRECT_WARPS = 4;  // the same, direct mode
+constexpr int SM_COUNT = 132;    // H100 SXM
+constexpr int STAGE_MAX_W = 36;  // widest triangle staged (85 KB)
 
-template <int W>
-constexpr bool kSolveSmem = W * (W + 1) / 2 * LANES * 4 <= SMEM_MAX;
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
+}
 
-template <int W, bool STAGE>
-__global__ void __launch_bounds__(LANES * SOLVE_WARPS)
+// Offset of l(i, k), k <= i, in the staged triangle [i(i+1)/2 + k][LANES].
+__host__ __device__ constexpr int tri(int i, int k) {
+  return (i * (i + 1) / 2 + k) * LANES;
+}
+
+// Register cap: staged, two blocks per SM (shared memory allows no more at
+// n = 36: 24 warps, 85 registers); direct, 128 registers (a cap of 73 at
+// n = 36 spilled 396 bytes and ran the one-column solve in 0.53 ms, against
+// 0.16 ms at 80 registers).
+template <bool STAGED>
+constexpr int kSolveMinBlocks = STAGED ? 2 : 4;
+
+template <int W, bool STAGED>
+__global__ void __launch_bounds__(LANES*(STAGED ? SOLVE_WARPS : DIRECT_WARPS),
+                                  kSolveMinBlocks<STAGED>)
     pcho_solve_kernel(const float* __restrict__ L, float* __restrict__ X,
-                      int n, int w, int F) {
-  extern __shared__ float Ls[];  // packed lower triangles [i(i+1)/2 + k][LANES]
+                      int n, int w, int F, int groups) {
+  extern __shared__ float Ls[];  // STAGED: [tri(i, k) + lane]
   const int lane = threadIdx.x;
-  const int warp = threadIdx.y;
-  const int f0 = blockIdx.x * LANES + lane;
+  const int chunk = blockIdx.x / groups;
+  const int c = (blockIdx.x % groups) * blockDim.y + threadIdx.y;
+  const int f0 = chunk * LANES + lane;
   const bool live = f0 < F;
   const size_t Fs = F;
-  const size_t f = live ? f0 : F - 1;
-  if constexpr (STAGE) {
-    for (int i = 0; i < n; ++i) {
-#pragma unroll 4
-      for (int k = warp; k <= i; k += blockDim.y)
-        Ls[(i * (i + 1) / 2 + k) * LANES + lane] = L[((size_t)i * n + k) * Fs + f];
-    }
-    __syncthreads();
+  const size_t f = live ? f0 : F - 1;  // dead lanes read a valid address
+  if constexpr (STAGED) {
+    for (int i = 0; i < n; ++i)
+      for (int k = threadIdx.y; k <= i; k += blockDim.y)
+        cp_async4(Ls + tri(i, k) + lane, L + ((size_t)i * n + k) * Fs + f);
   }
-  auto l = [&](int i, int k) {
-    if constexpr (STAGE)
-      return Ls[(i * (i + 1) / 2 + k) * LANES + lane];
-    else
-      return L[((size_t)i * n + k) * Fs + f];
-  };
-  for (int c = warp; c < w; c += blockDim.y) {
-    float x[W];
-    load_col(x, X, n, w, c, Fs, f);
+  // The thread's column, loaded while the triangle's copies are in flight.
+  float x[W];
 #pragma unroll
-    for (int i = 0; i < W; ++i) {
-      if (i < n) {
-        float s = x[i];
+  for (int k = 0; k < W; ++k)
+    x[k] = k < n ? X[((size_t)k * w + c) * Fs + f] : 0.f;
+  if constexpr (STAGED) {
+    cp_async_wait_all();
+    __syncthreads();
+    const float* Ll = Ls + lane;
 #pragma unroll
-        for (int k = 0; k < i; ++k) s = fmaf(-l(i, k), x[k], s);
-        x[i] = s / l(i, i);
+    for (int k = 0; k < W; ++k) {
+      if (k < n) {
+        x[k] = x[k] / Ll[tri(k, k)];
+#pragma unroll
+        for (int i = k + 1; i < W; ++i)
+          if (i < n) x[i] = fmaf(-Ll[tri(i, k)], x[k], x[i]);
       }
     }
 #pragma unroll
     for (int i = W - 1; i >= 0; --i) {
       if (i < n) {
-        float s = x[i];
+        x[i] = x[i] / Ll[tri(i, i)];
 #pragma unroll
-        for (int k = i + 1; k < W; ++k)  // x[k] = 0 for k >= n
-          s = fmaf(-l(clampk(k, n), i), x[k], s);
-        x[i] = s / l(i, i);
+        for (int k = 0; k < i; ++k) x[k] = fmaf(-Ll[tri(i, k)], x[i], x[k]);
       }
     }
-    if (live) {
+  } else {
 #pragma unroll
-      for (int i = 0; i < W; ++i)
-        if (i < n) X[((size_t)i * w + c) * Fs + f] = x[i];
+    for (int i = 0; i < W; ++i) {
+      if (i < n) {
+        const float* row = L + (size_t)i * n * Fs + f;
+        float s = x[i];
+#pragma unroll
+        for (int k = 0; k < i; ++k) s = fmaf(-__ldg(row + k * Fs), x[k], s);
+        x[i] = s / __ldg(row + i * Fs);
+      }
+    }
+#pragma unroll
+    for (int i = W - 1; i >= 0; --i) {
+      if (i < n) {
+        const float* row = L + (size_t)i * n * Fs + f;
+        x[i] = x[i] / __ldg(row + i * Fs);
+#pragma unroll
+        for (int k = 0; k < i; ++k)
+          x[k] = fmaf(-__ldg(row + k * Fs), x[i], x[k]);
+      }
     }
   }
+  if (!live) return;
+#pragma unroll
+  for (int k = 0; k < W; ++k)
+    if (k < n) X[((size_t)k * w + c) * Fs + f] = x[k];
 }
 
-// Launch the solve for width W: staged where it fits and there are several
-// columns. The staged instance exists only for widths that fit.
+// Warps (columns) per block: the most, up to ``most``, that divide the
+// columns and still give two blocks per SM; one warp per block otherwise.
+int solve_warps(int w, int chunks, int most) {
+  for (int wpb = most; wpb > 1; --wpb)
+    if (w % wpb == 0 && (long long)chunks * (w / wpb) >= 2 * SM_COUNT)
+      return wpb;
+  return 1;
+}
+
+template <int W, bool STAGED>
+int launch_solve_mode(const float* L, float* X, int n, int w, int F,
+                      cudaStream_t st) {
+  const int chunks = (F + LANES - 1) / LANES;
+  const int wpb = solve_warps(w, chunks, STAGED ? SOLVE_WARPS : DIRECT_WARPS);
+  const int groups = w / wpb;
+  const long long blocks = (long long)chunks * groups;
+  if (blocks >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = STAGED ? tri(n, 0) * (int)sizeof(float) : 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        pcho_solve_kernel<W, STAGED>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const dim3 grid((unsigned)blocks), block(LANES, wpb);
+  pcho_solve_kernel<W, STAGED><<<grid, block, smem, st>>>(L, X, n, w, F,
+                                                          groups);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Staged where the triangle fits and there are several columns.
 template <int W>
 int launch_solve(const float* L, float* X, int n, int w, int F,
                  cudaStream_t st) {
-  const dim3 grid((F + LANES - 1) / LANES);
-  const dim3 block(LANES, w < SOLVE_WARPS ? w : SOLVE_WARPS);
-  if constexpr (kSolveSmem<W>) {
-    if (w > 1) {
-      const int smem = n * (n + 1) / 2 * LANES * (int)sizeof(float);
-      const cudaError_t e = cudaFuncSetAttribute(
-          pcho_solve_kernel<W, true>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (e != cudaSuccess) return static_cast<int>(e);
-      pcho_solve_kernel<W, true><<<grid, block, smem, st>>>(L, X, n, w, F);
-      return static_cast<int>(cudaGetLastError());
-    }
-  }
-  pcho_solve_kernel<W, false><<<grid, block, 0, st>>>(L, X, n, w, F);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (W <= STAGE_MAX_W)
+    if (w > 1) return launch_solve_mode<W, true>(L, X, n, w, F, st);
+  return launch_solve_mode<W, false>(L, X, n, w, F, st);
 }
 
 bool dims_ok(int a) { return a >= 1 && a <= MAXD; }

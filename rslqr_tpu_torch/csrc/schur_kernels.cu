@@ -3,7 +3,8 @@
 // Four kernels, one per TPU kernel of rslqr_tpu/ops/schur_pallas.py:
 //   row_level_kernel <- schur_update_level_em (one tree level, every upper
 //                       slab; row_groups.cuh, on row groups)
-//   pair_kernel      <- schur_update_pair_em  (levels L and L+1 in one pass)
+//   row_pair_kernel  <- schur_update_pair_em  (levels L and L+1 in one pass;
+//                       row_groups.cuh, on the same row groups)
 //   leaf_kernel      <- leaf_schur_level0_em  (leaf factors + level 0)
 //   rhs_kernel       <- rhs_update_level_em   (one level of the RHS sweep)
 //
@@ -15,11 +16,12 @@
 // (8, 8) capacities with n, m at run time, and the wide tag whose u rows
 // come in chunks of 8).
 //
-// Mapping of pair_kernel, leaf_kernel and rhs_kernel (row_level_kernel:
-// see row_groups.cuh): one thread per (knot, batch column). A block is TB=32 batch
-// columns (one warp, so every slab load/store is a coalesced 128-byte line)
-// by TK=8 knots (4 at the (8, 8) capacity, whose staging of 8 knots would
-// pass the 48 KB of static shared memory). Knot tiles are shifted by one:
+// Mapping of leaf_kernel and rhs_kernel (row_level_kernel and
+// row_pair_kernel: see row_groups.cuh): one thread per (knot, batch
+// column). A block is TB=32 batch columns (one warp, so every slab
+// load/store is a coalesced 128-byte line) by TK=8 knots (4 at the (8, 8)
+// capacity, whose staging of 8 knots would pass the 48 KB of static shared
+// memory). Knot tiles are shifted by one:
 // block row y covers knots y*TK-1 .. y*TK+TK-2, so each (odd knot, odd
 // knot + 1) pair lies in one block. The next-level product emission needs
 // exactly such a pair (the separator row r, always odd, and r+1) and nothing
@@ -308,161 +310,6 @@ __global__ void rhs_kernel(const float* __restrict__ Fl,
 }
 
 // ---------------------------------------------------------------------------
-// B4: levels L and L+1 in one pass.
-// ---------------------------------------------------------------------------
-
-// Row i of a slab M (n columns) at this thread's knot, zero past n.
-template <int NP>
-__device__ __forceinline__ void load_row(float (&r)[NP], const float* M,
-                                         int i, int n, const Site& s) {
-#pragma unroll
-  for (int j = 0; j < NP; ++j)
-    r[j] = j < n ? M[(i * n + j) * s.plane + s.idx] : 0.0f;
-}
-
-template <class K>
-__global__ void pair_kernel(const float* __restrict__ FLl,
-                            const float* __restrict__ FLx,
-                            const float* __restrict__ FLu, Ptrs Fls, Ptrs Fxs,
-                            Ptrs Fus, CPtrs fsol1,
-                            const float* __restrict__ Sbar2, CPtrs fsol2,
-                            const float* __restrict__ Asep3,
-                            const float* __restrict__ Bsep3, Ptrs Sout, int U,
-                            int N, int B, int level, int emit, int n_,
-                            int m_) {
-  constexpr int NP = K::NP, MP = K::MP;
-  const int n = K::EX ? NP : n_, m = K::EX ? MP : m_;
-  const int nn = n * n;
-  __shared__ Stage<K> st;
-  const Site s = site<tk_of<K>()>(N, B);
-  const int k = s.k, half = 1 << level, span = 2 * half, span2 = 2 * span;
-  const bool keep1 = (k & (half - 1)) != 0 || k == 0;
-  const bool sep1 = (k & (span - 1)) == half;
-  const bool keep2 = (k & (span - 1)) != 0 || k == 0;
-  const bool sep2 = (k & (span2 - 1)) == span;
-  const int g1 = k >> (level + 1), g2 = k >> (level + 2);
-  const int pos = k & (2 * span2 - 1);
-  const bool er = emit && s.live && pos == span2 - 1;
-  const bool er1 = emit && s.live && pos == span2;
-  const int slot = threadIdx.y >> 1;
-  const int t = threadIdx.x;
-  float ml[NP * NP], mx[NP * NP], mu[MP * NP];
-  // The wide tag's u multiplier: chunk i0 of FLu's rows, re-read per slab.
-  const auto mu_wide = [&](int i0, int mc, float (&mw)[MP * NP]) {
-    load_blk<MP, NP>(mw, mc, n, [&](int e) {
-      return FLu[(i0 * n + e) * s.plane + s.idx];
-    });
-  };
-  if (s.live) {
-    load_planes<NP, NP>(ml, FLl, n, n, s);
-    load_planes<NP, NP>(mx, FLx, n, n, s);
-    if constexpr (!K::WIDE) load_planes<MP, NP>(mu, FLu, m, n, s);
-    // Slab L+1: level-L update, then its Sbar at the level-(L+1) sep+1 rows.
-    float f[NP * NP];
-    load_group<NP, NP>(f, fsol1.p[0], n, n, g1, B, s.b);
-    if constexpr (K::WIDE)
-      update_trio<K>(ml, mx, mu_wide, f, keep1, sep1, Fls.p[0], Fxs.p[0],
-                     Fus.p[0], st, slot, false, s, n, m);
-    else
-      update_trio<K>(ml, mx, mu, f, keep1, sep1, Fls.p[0], Fxs.p[0],
-                     Fus.p[0], st, slot, false, s, n, m);
-    if (sep2) {
-#pragma unroll
-      for (int e = 0; e < NP * NP; ++e)
-        if (e < nn)
-          Fls.p[0][e * s.plane + s.idx] = Sbar2[gidx(g2, nn, e, B, s.b)];
-    }
-  }
-  // Upper slabs: level-L update, then level L+1 with slab L+1 (this
-  // thread's own knot, just written) as the multiplier.
-  const float* M2l = Fls.p[0];
-  const float* M2x = Fxs.p[0];
-  const float* M2u = Fus.p[0];
-  for (int uu = 1; uu < U; ++uu) {
-    if (s.live) {
-      float f1[NP * NP], f2[NP * NP];
-      load_group<NP, NP>(f1, fsol1.p[uu], n, n, g1, B, s.b);
-      load_group<NP, NP>(f2, fsol2.p[uu - 1], n, n, g2, B, s.b);
-      float* ol = Fls.p[uu];
-      float* ox = Fxs.p[uu];
-      float* ou = Fus.p[uu];
-#pragma unroll
-      for (int i = 0; i < NP; ++i) {
-        if (i >= n) continue;
-        float r2[NP];
-        load_row<NP>(r2, M2l, i, n, s);
-#pragma unroll
-        for (int c = 0; c < NP; ++c) {
-          if (c >= n) continue;
-          const size_t o = (i * n + c) * s.plane + s.idx;
-          float v = ol[o];
-          v = sep1 ? f1[i * NP + c]
-                   : (keep1 ? v - dot_row<NP>(ml, i, f1, c) : v);
-          float acc2 = r2[0] * f2[c];
-#pragma unroll
-          for (int j = 1; j < NP; ++j) acc2 += r2[j] * f2[j * NP + c];
-          ol[o] = sep2 ? f2[i * NP + c] : (keep2 ? v - acc2 : v);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < NP; ++i) {
-        if (i >= n) continue;
-        float r2[NP];
-        load_row<NP>(r2, M2x, i, n, s);
-#pragma unroll
-        for (int c = 0; c < NP; ++c) {
-          if (c >= n) continue;
-          const int e = i * n + c;
-          const size_t o = e * s.plane + s.idx;
-          float acc2 = r2[0] * f2[c];
-#pragma unroll
-          for (int j = 1; j < NP; ++j) acc2 += r2[j] * f2[j * NP + c];
-          const float v = (ox[o] - dot_row<NP>(mx, i, f1, c)) - acc2;
-          ox[o] = v;
-          if (er) st.x[slot][e][t] = v;
-        }
-      }
-      for (int ch = 0, i0 = 0; ch < chunks<K>(m); ++ch, i0 += MP) {
-        const int mc = chunk_rows<K>(m, i0);
-        float mw[MP * NP];
-        const float* mu_c = mu;
-        if constexpr (K::WIDE) {
-          mu_wide(i0, mc, mw);
-          mu_c = mw;
-        }
-#pragma unroll
-        for (int i = 0; i < MP; ++i) {
-          if (i >= mc) continue;
-          float r2[NP];
-          load_row<NP>(r2, M2u, i0 + i, n, s);
-#pragma unroll
-          for (int c = 0; c < NP; ++c) {
-            if (c >= n) continue;
-            const int e = (i0 + i) * n + c;
-            const size_t o = e * s.plane + s.idx;
-            float acc2 = r2[0] * f2[c];
-#pragma unroll
-            for (int j = 1; j < NP; ++j) acc2 += r2[j] * f2[j * NP + c];
-            const float v = (ou[o] - dot_row<NP>(mu_c, i, f1, c)) - acc2;
-            ou[o] = v;
-            if constexpr (!K::WIDE)
-              if (er) st.u[slot][e][t] = v;
-          }
-        }
-      }
-    }
-    if (emit) {
-      __syncthreads();
-      if (er1)
-        emit_products<K>(st, slot, Asep3, Bsep3, Sout.p[uu - 1], Fls.p[uu],
-                         Fxs.p[uu], Fus.p[uu], uu == 1, k >> (level + 3), B,
-                         s, n, m);
-      __syncthreads();
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // B3: leaf factors + level-0 update of every level's slab.
 // ---------------------------------------------------------------------------
 
@@ -682,6 +529,8 @@ int rslqr_schur_update_level(const float* FLl, const float* FLx,
   });
 }
 
+// B4 on the same plan as B1 (ops/schur.py:_level_plan); the pair needs
+// whole level-(L+1) groups and at most MAXU upper slabs.
 int rslqr_schur_update_pair(const float* FLl, const float* FLx,
                             const float* FLu, void* const* Fls,
                             void* const* Fxs, void* const* Fus,
@@ -689,14 +538,17 @@ int rslqr_schur_update_pair(const float* FLl, const float* FLx,
                             void* const* fsol2, const float* Asep3,
                             const float* Bsep3, void* const* S, int U, int N,
                             int B, int level, int emit, int n, int m,
-                            void* stream) {
-  if (U < 1 || U > MAXU) return static_cast<int>(cudaErrorInvalidValue);
+                            int shift, int gy, int rgs, void* stream) {
+  if (U < 1 || !small_blocks::row_plan_ok(U, N, level, emit, n, m, shift, gy,
+                                          rgs) ||
+      (N >> (level + 2)) < 1 || (emit && (N >> (level + 3)) < 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
   return with_block(n, m, [&](auto k) {
     using K = decltype(k);
-    pair_kernel<K><<<grid_for<K>(N, B), block_for<K>(), 0, st>>>(
-        FLl, FLx, FLu, ptrs(Fls), ptrs(Fxs), ptrs(Fus), cptrs(fsol1), Sbar2,
-        cptrs(fsol2), Asep3, Bsep3, ptrs(S), U, N, B, level, emit, n, m);
+    small_blocks::launch_row_pair<K, small_blocks::GroupMajor>(
+        FLl, FLx, FLu, Fls, Fxs, Fus, fsol1, Sbar2, fsol2, Asep3, Bsep3, S,
+        U, N, B, level, emit, n, m, shift, gy, st);
   });
 }
 

@@ -156,7 +156,7 @@ def load() -> ctypes.CDLL:
         "rslqr_schur_update_level": [P] * 3 + [PP] * 4 + [P] * 2 + [PP]
         + [I] * 10 + [P],
         "rslqr_schur_update_pair": [P] * 3 + [PP] * 4 + [P, PP, P, P, PP]
-        + [I] * 7 + [P],
+        + [I] * 10 + [P],
         "rslqr_leaf_schur_level0": [P] * 5 + [PP] + [P] * 2 + [PP] * 4
         + [I] * 5 + [P],
         # csrc/planes_kernels.cu

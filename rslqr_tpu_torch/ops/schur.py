@@ -22,9 +22,13 @@ and decided before any launch: a kernel that applies launches or raises
 (a state dim outside 1..``MAX_STATE`` or an input dim outside
 1..``MAX_INPUT``, shapes, contiguity, a CUDA error); there is no fallback.
 The kernels are instantiated for every block size the small-block path
-takes under default options (``csrc/small_blocks.cuh``: the reference's
-small-block Schur kernels are gated on the state dim alone, so the input
-dim runs up to the mid-block limit). Each wrapper counts
+takes (``csrc/small_blocks.cuh``: the reference's small-block Schur
+kernels are gated on the state dim alone, so the input dim runs up to the
+mid-block limit). The solver sends a block here only when its state dim
+is at most ``min(mxu_block_threshold, MAX_STATE)``
+(``rslqr_em._mid_block``); a state dim of 9..threshold under a raised
+threshold takes the plane kernels (``ops/planes.py``) instead, so no
+solve reaches the limit below. Each wrapper counts
 its kernel launches in its ``launches`` attribute (see
 :func:`launch_counts`).
 
@@ -42,9 +46,9 @@ contiguous in a warp, so every slab load and store is a coalesced 128-byte
 line; the level-L multiplier blocks are loaded into registers once and
 reused for every upper level (the TPU kernels' VMEM reuse); and the
 next-level products are emitted from the values just computed, so the
-products stage re-reads no slab. B2-B4 run one thread per (knot, batch
-column); B1 splits each knot's slab rows into groups of three, one thread
-each (:func:`_level_plan`, ``csrc/row_groups.cuh``).
+products stage re-reads no slab. B2 and B3 run one thread per (knot,
+batch column); B1 and B4 split each knot's slab rows into groups of three,
+one thread each (:func:`_level_plan`, ``csrc/row_groups.cuh``).
 """
 
 from __future__ import annotations
@@ -95,8 +99,10 @@ def _pair_emits(level: int, N: int, B: int, U: int, n: int, m: int) -> bool:
 # ---------------------------------------------------------------------------
 
 # A block: LEVEL_TB batch columns by up to LEVEL_SLOTS row groups of
-# LEVEL_RPT slab rows by LEVEL_KB knots (at most 1,024 threads).
+# LEVEL_RPT slab rows by LEVEL_KB knots (at most 1,024 threads); the pair
+# kernel (B4) takes at most PAIR_WIDE_SLOTS at the wide inputs (m > 8).
 LEVEL_TB, LEVEL_KB, LEVEL_RPT, LEVEL_SLOTS = 32, 2, 3, 16
+PAIR_WIDE_SLOTS = 8
 
 
 class LevelPlan(NamedTuple):
@@ -122,16 +128,19 @@ def _row_groups(rows: int) -> int:
     return -(-rows // LEVEL_RPT)
 
 
-def _level_plan(N: int, B: int, emit: bool, n: int, m: int) -> LevelPlan:
+def _level_plan(N: int, B: int, emit: bool, n: int, m: int,
+                pair: bool = False) -> LevelPlan:
     """Knot pairs shifted by one when the level emits products, so that
     each next-level group's separator row r (odd) and r + 1 share a
     block; unshifted otherwise. Row groups: ``ceil(n / 3)`` for each of the
     lambda and x slabs, ``ceil(m / 3)`` for u, in at most ``LEVEL_SLOTS``
-    slots."""
+    slots (``pair``: the pair kernel's, at most ``PAIR_WIDE_SLOTS`` at the
+    wide inputs, m > ``MAX_STATE``)."""
     shift = int(emit)
     groups = (_row_groups(n), _row_groups(n), _row_groups(m))
+    cap = PAIR_WIDE_SLOTS if pair and m > MAX_STATE else LEVEL_SLOTS
     return LevelPlan(shift, (-(-B // LEVEL_TB), -(-(N + shift) // LEVEL_KB)),
-                     groups, min(sum(groups), LEVEL_SLOTS))
+                     groups, min(sum(groups), cap))
 
 
 # ---------------------------------------------------------------------------
@@ -342,8 +351,11 @@ def kernel_applies(kernels: str, device: torch.device,
     kernel runs for float32 tensors on a CUDA device under
     ``kernels="auto"``; CPU tensors, ``kernels="off"`` and other dtypes run
     the plain version. An unknown mode, or a device that is neither CPU nor
-    CUDA, raises. Block sizes do not route: a kernel that applies takes
-    every block size its path gives it, and raises on any other."""
+    CUDA, raises. Block sizes do not route here: the solver picks the path
+    by state dim before any launch (``rslqr_em._mid_block``: above
+    ``min(mxu_block_threshold, MAX_STATE)`` the plane kernels), so a kernel
+    that applies takes every block size its path gives it, and raises on
+    any other (a wrapper called directly past its limits)."""
     if kernels not in ("auto", "off"):
         raise ValueError(f"unknown kernel mode {kernels!r}")
     if kernels == "off" or device.type == "cpu":
@@ -536,9 +548,11 @@ def schur_update_pair_em(
     has ``U-1`` entries or is ``None``.
 
     Replaces ``rslqr_tpu/ops/schur_pallas.py:schur_update_pair_em``.
-    Kernel: ``pair_kernel`` (each thread re-reads the multiplier values of
-    its own knot, which it wrote, so no value crosses threads except the
-    product emission's separator rows).
+    Kernel: ``row_pair_kernel`` (``csrc/row_groups.cuh``, on the geometry of
+    :func:`_level_plan` with ``pair=True``): a thread's rows of slab L+1,
+    which it writes first, are the level-(L+1) multiplier rows its upper
+    slab rows need, so no value crosses threads except the product
+    emission's separator rows.
     """
     if not kernel_applies(kernels, FLl.device, FLl.dtype):
         return schur_update_pair_em_plain(
@@ -561,12 +575,14 @@ def schur_update_pair_em(
     _check("schur_update_pair_em", ts, shapes, n, m, FLl.device)
     S = [torch.empty((G3, nn, B), device=FLl.device)
          for _ in range(U - 1)] if emit else []
+    plan = _level_plan(N, B, emit, n, m, pair=True)
     _launch(
         "rslqr_schur_update_pair", FLl.device,
         _ptr(FLl), _ptr(FLx), _ptr(FLu), _ptrs(Fls), _ptrs(Fxs), _ptrs(Fus),
         _ptrs(fsol1), _ptr(Sbar2), _ptrs(fsol2),
         _ptr(Asep3 if emit else None), _ptr(Bsep3 if emit else None),
-        _ptrs(S), U, N, B, level, int(emit), n, m,
+        _ptrs(S), U, N, B, level, int(emit), n, m, plan.shift, plan.grid[1],
+        sum(plan.groups),
     )
     schur_update_pair_em.launches += 1
     return tuple(Fls), tuple(Fxs), tuple(Fus), (S if emit else None)

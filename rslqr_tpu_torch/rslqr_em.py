@@ -7,7 +7,8 @@ plane minor. The batch is always ONE trailing axis here (the front door
 flattens leading batch axes; a single problem runs as ``B = 1``).
 
 On every device this module runs the structure of the JAX package's kernel
-path. Small blocks (n at most ``SolveOptions.mxu_block_threshold``):
+path. Small blocks (n at most ``SolveOptions.mxu_block_threshold`` and at
+most ``ops.schur.MAX_STATE`` = 8):
 
 1. level-0 products from compact gathers of the problem data, a small
    Cholesky and stacked separator solves, then ONE fused leaf + level-0
@@ -17,8 +18,10 @@ path. Small blocks (n at most ``SolveOptions.mxu_block_threshold``):
 3. the RHS sweep: per level a compact separator solve in plain ops, then
    one pass over the level's slabs (``rhs_update_level_em``).
 
-Mid blocks (threshold < n <= 64, the quadruped regime), as the JAX module
-runs them when its Pallas Schur kernels do not apply (rslqr_em.py:202-242,
+Mid blocks (n above ``min(mxu_block_threshold, ops.schur.MAX_STATE)``, at
+most 64: the quadruped regime, and state dims 9..threshold under a raised
+threshold; :func:`_mid_block`), as the JAX module runs them when its
+Pallas Schur kernels do not apply (rslqr_em.py:202-242,
 388-421, 751-774, 935-963): the plain leaf (``_leaf_em``), then single
 levels only, each with its products (``planes.pgemm`` through
 ``linalg.bgemm``), Cholesky (``planes.pchol``), one separator solve per
@@ -282,9 +285,14 @@ def _level_cholsolve_em(Lc, Ss, level, opts):
 
 
 def _mid_block(n: int, opts: SolveOptions) -> bool:
-    """Whether the slabs take the mid-block planes route (JAX: its Pallas
-    Schur kernels' mode is None above the threshold)."""
-    return n > opts.mxu_block_threshold
+    """Whether the slabs take the mid-block planes route: one static rule,
+    decided before any launch, the same on every device. Above the
+    threshold (JAX: its Pallas Schur kernels' mode is None there), and also
+    for a state dim past the small-block kernels' ``schur.MAX_STATE`` under
+    a raised threshold (n in 9..threshold): there the plane kernels (B7,
+    B9) run the separator solves and Schur updates, where the reference
+    runs its small-block kernels; both give the same KKT solution."""
+    return n > min(opts.mxu_block_threshold, schur.MAX_STATE)
 
 
 def _pcho_solve(Lc, S, opts):

@@ -22,7 +22,11 @@ plain stages), in f32 at (n, m) = (4, 2), (8, 8) and (6, 12) they launch
 the small-block kernels (em and flat schedule), and all equal
 ``kernels="off"``. The mid-block plane kernels run at n=12 and 36
 (and the limit, 64), with one right-hand column (w=1, q=1), ragged planes,
-and Schur updates at level 0 and the top level. The flat-plane kernels run
+and Schur updates at level 0 and the top level; B7 at n = 9, 12, 16, 36,
+64 and w = 1, 2, 12, 36 on planes below one block, on grids smaller than
+the card and with several column tiles per block; an f32 solve with
+nx=12 under ``mxu_block_threshold=16`` launches B7 and B9 and no
+small-block kernel (ROADMAP C6). The flat-plane kernels run
 at the main path's shapes (N=256, B=1024), B10 at every level 0-6 with one
 upper slab and the most the tree allows, emitting and not. The parallel
 scan's kernels:
@@ -490,15 +494,28 @@ def test_pchol_kernel(dev, n, plane):
     assert not torch.triu(ks[0].movedim((0, 1), (-2, -1)), 1).any()
 
 
-@pytest.mark.parametrize("n,w,plane", [(12, 12, (7, 33)), (12, 1, (7, 33)),
-                                       (36, 36, (16, 40)), (36, 1, (9, 40)),
-                                       (64, 3, (2, 5))])
+# B7 at every register width (n = 9, 12, 16, 36, 64: the raised-threshold
+# dims, the quadruped's and the limit) and column count (one column, a
+# partial tile, whole tiles): on a plane below one block (F = 5), on a grid
+# smaller than the card (F = 640: one warp per block), and on planes where
+# blocks take several column tiles (F = 4,096).
+PCHO_CASES = sorted(
+    {(d, w, plane) for d in (9, 12, 16, 36, 64) for w in (1, 2, 12, 36)
+     for plane in ((1, 5), (16, 40))}
+    | {(12, 12, (7, 33)), (12, 1, (7, 33)), (36, 36, (16, 40)),
+       (36, 1, (9, 40)), (64, 3, (2, 5)), (36, 36, (64, 64)),
+       (16, 36, (64, 64)), (64, 36, (64, 64)), (36, 12, (64, 64))})
+
+
+@pytest.mark.parametrize("n,w,plane", PCHO_CASES)
 def test_pcho_solve_kernel(dev, n, w, plane):
     g = torch.Generator().manual_seed(n + w)
     L = planes.pchol_plain(_spd(g, dev, n, *plane))
     args = [L, _rand(g, dev, n, w, *plane)]
+    before = planes.pcho_solve.launches
     ks, ps, k, _ = _both(lambda *a, **kw: (planes.pcho_solve(*a, **kw),),
                          args, {})
+    assert planes.pcho_solve.launches == before + 1
     _assert_match(ks, ps)
 
 
@@ -539,6 +556,32 @@ def test_midblock_solve_kernel_path_matches_plain(dev):
     counts = planes.launch_counts()
     ref = pt.solve_kkt(batch, options=pt.SolveOptions(kernels="off"))
     assert all(counts[k] > 0 for k in RSLQR_MID_KERNELS), counts
+    scale = 1.0 + ref.abs().max().item()
+    assert (got - ref).abs().max().item() <= 1e-4 * scale
+
+
+def test_raised_threshold_solve_takes_plane_kernels(dev):
+    """An f32 solve at ``mxu_block_threshold=16``, nx=12, nu=4 (N=32,
+    B=40): the state dim past 8 takes the planes route (ROADMAP C6), so B7
+    and B9 launch and no small-block kernel does; it equals
+    ``kernels="off"``."""
+    import rslqr_tpu_torch as pt
+
+    prob = pt.random_problem(torch.Generator().manual_seed(12), 32, 12, 4,
+                             device=dev)
+    batch = pt.batch_problems(prob, 40, torch.Generator().manual_seed(1))
+    opts = pt.SolveOptions(mxu_block_threshold=16)
+    for mod in (schur, flat, planes):
+        mod.reset_launch_counts()
+    got = pt.solve_kkt(batch, options=opts)
+    torch.cuda.synchronize()
+    counts = planes.launch_counts()
+    assert counts["pcho_solve"] > 0 and counts["schur3_update_planes"] > 0
+    assert sum(schur.launch_counts().values()) == 0
+    assert sum(flat.launch_counts().values()) == 0
+    ref = pt.solve_kkt(batch, options=pt.SolveOptions(
+        mxu_block_threshold=16, kernels="off"))
+    assert bool(torch.isfinite(got).all())
     scale = 1.0 + ref.abs().max().item()
     assert (got - ref).abs().max().item() <= 1e-4 * scale
 

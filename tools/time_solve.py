@@ -4,7 +4,7 @@ kernels) on one GPU, for comparing two versions of the package on one card.
 
     python3 tools/time_solve.py [--root DIR] [--config small|quad]
                                 [--solver rslqr|pscan] [--reps 20]
-                                [--kernels]
+                                [--kernels [--sets sweep,plane,...]]
 
 Imports ``rslqr_tpu_torch`` from ``DIR`` (default: the checkout this script
 lies in), builds its kernels, and prints the card's name and power limit,
@@ -21,14 +21,19 @@ kernel path):
 events) and chained (CUDA-graph replays of 10 back-to-back calls against
 one), chip_smoke.py's phase-2 cases of the small-block sweep kernels at
 (n, m) = (6, 3) (B1 at N=128 levels 1 and 5 and N=256 level 1, B2, B3,
-B4, B11 and B12 at N=256, B=1024), its phase-2b cases of B5 (``pgemm``, no
-flags) and B9 (``schur3_update_planes``) and phase-2c cases of B5's
+B4 (levels 1, 3, 5), B11 and B12 at N=256, B=1024), its phase-2b cases
+of B5 (``pgemm``, no flags) and B9 (``schur3_update_planes``), B7
+(``pcho_solve``, n=36: w=36 at each quadruped level's plane, w=1 at levels
+0 and 7; n=w=12 and 16) and phase-2c cases of B5's
 ``lam_level`` (``schur_update_planes``), the scan's nine flagged B5
 products and B10 (``schur_update_level_flat``) at levels 1-6, beside the
 same timings of one PyTorch library call where there is one
 (``matmul``/``baddbmm`` on mat-last views; an unmasked ``baddbmm`` over
-every slab row for B1, B2, B9, B10, B12 and ``lam_level``). The clock is the
-timed tree's ``bench_kernels.launch_ms``/``chain_ms``. To compare two trees, unpack the
+every slab row for B1, B2, B9, B10, B12 and ``lam_level``). ``--sets``
+takes some of the case sets: ``sweep`` (the small-block kernels),
+``plane`` (B5, B9, ``lam_level``), ``pcho`` (B7), ``flagged`` and ``flat``
+(B10). The clock is the timed tree's
+``bench_kernels.launch_ms``/``chain_ms``. To compare two trees, unpack the
 other one (``git archive``) into a git-ignored directory and run the
 script on both in one machine, alternating: A, B, B, A.
 """
@@ -41,6 +46,8 @@ import time
 from pathlib import Path
 
 CONFIGS = {"small": (256, 6, 3, 1024), "quad": (512, 36, 12, 256)}
+# The --kernels case sets (all by default).
+SETS = ("sweep", "plane", "pcho", "flagged", "flat")
 
 
 # The quadruped scan's flagged products (chip_smoke.py phase 2c): label,
@@ -220,8 +227,9 @@ def sweep_times(torch, schur, flat, R):
                                                      N=N),
         lambda: (*map(f2, FL), *[f2(x.clone()) for x in z], zbf))
     del FL, z, zb, zbf
-    # B4 at levels 1 and 5 (emission as the main path chooses it).
-    for level in (1, 5):
+    # B4 at levels 1, 3 and 5 (the main path's pairs; emission as it
+    # chooses it).
+    for level in (1, 3, 5):
         U = depth - level - 1
         G1, G2, G3 = N >> (level + 1), N >> (level + 2), N >> (level + 3)
         emit = schur._pair_emits(level, N, B, U, n, m)
@@ -305,6 +313,28 @@ def plane_times(torch, planes, R):
     return out
 
 
+def pcho_times(torch, planes, R):
+    """``{case: (single ms, chained ms)}`` of B7 (``pcho_solve``) at the
+    quadruped rsLQR's separator solves, n=36: w=36 at every level's plane
+    (G = 256 / 2^L groups by B=256), w=1 at levels 0 and 7; and n=w=12, 16
+    at level 0 (its library call, ``cholesky_solve``, is chip_smoke.py's
+    phase 2b)."""
+    G, Bb = 256, 256
+    out = {}
+    cases = ([(36, 36, level) for level in range(8)]
+             + [(36, 1, 0), (36, 1, 7), (12, 12, 0), (16, 16, 0)])
+    for d, w, level in cases:
+        Gl = G >> level
+        M = R(Gl, Bb, d, d)
+        S = M @ M.transpose(-1, -2) + d * torch.eye(d, device="cuda")
+        Lc = planes.pchol_plain(S.permute(2, 3, 0, 1).contiguous())
+        X = R(d, w, Gl, Bb)
+        out[f"pcho n={d} w={w} L{level}"] = _pair(
+            torch, lambda x: planes.pcho_solve(Lc, x), lambda: (X.clone(),))
+        del M, S, Lc, X
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
@@ -312,6 +342,9 @@ def main() -> int:
     ap.add_argument("--solver", choices=("rslqr", "pscan"), default="rslqr")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--kernels", action="store_true")
+    ap.add_argument("--sets", default=",".join(SETS),
+                    help="kernel case sets for --kernels, of "
+                    + ", ".join(SETS))
     args = ap.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -364,11 +397,15 @@ def main() -> int:
     if args.kernels:
         gen = torch.Generator(device="cuda").manual_seed(1)
         R = lambda *s: torch.randn(s, generator=gen, device="cuda")
-        for case, (single, chained) in {**sweep_times(torch, schur, flat, R),
-                                        **plane_times(torch, planes, R),
-                                        **flagged_times(torch, planes, R),
-                                        **flat_level_times(torch, flat,
-                                                           R)}.items():
+        runs = {"sweep": lambda: sweep_times(torch, schur, flat, R),
+                "plane": lambda: plane_times(torch, planes, R),
+                "pcho": lambda: pcho_times(torch, planes, R),
+                "flagged": lambda: flagged_times(torch, planes, R),
+                "flat": lambda: flat_level_times(torch, flat, R)}
+        times = {}
+        for name in args.sets.split(","):
+            times.update(runs[name]())
+        for case, (single, chained) in times.items():
             print(f"time_solve root={root.name} kernel {case}: single "
                   f"{single:.4f} ms, chained {chained:.4f} ms", flush=True)
     return 0
