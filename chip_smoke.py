@@ -20,8 +20,9 @@ Phases, each printing one line of numbers:
    path's shapes (nx=36, nu=12, N=512, B=256) and once at n=12, m=4, with
    the time of one PyTorch library call on the same inputs beside each; B5
    and B9 (``rows_kernel``), B6 and B7 also chained, kernel and library
-   call, B7 at the level-0 and level-4 planes (w=36), at w=1 and at n=12
-   and 16;
+   call (B6's and B7's library calls single only), B6 also at the level-4
+   and level-8 planes, B7 at the level-0 and level-4 planes (w=36), at w=1
+   and at n=12 and 16;
 3. the small-block slice: ``solve_kkt`` on the BASELINE batched-MPC config
    (the double integrator, nx=6, nu=3, N=256, perturbed into B=1024
    instances, f32) and again at N=128 so that B1 launches, with launch
@@ -35,14 +36,16 @@ Phases, each printing one line of numbers:
    shapes, each also chained (CUDA-graph replays, kernel and library call),
    B5's ``schur_update_planes`` (lambda masked and not; ``rows_kernel``,
    also chained) and B8
-   ``plu_solve_multi`` with each right-hand-side pattern of the path;
+   ``plu_solve_multi`` with each right-hand-side pattern of the path, also
+   chained (its library call single only);
 3b. the mid-block slice: ``solve_kkt`` on BASELINE.json's quadruped config
    (``random_problem`` nx=36, nu=12, N=512, perturbed into B=256 instances,
    f32, one batch), with launch counts, agreement with ``kernels="off"``,
    the f64 Riccati oracle on 4 instances, the relative KKT residual and
    the peak device memory;
 3c. the parallel-scan slice: ``solve_pscan_kkt`` on the same quadruped
-   batch (launch counts, peak memory, agreement with ``kernels="off"``, with
+   batch (launch counts, B8's by (n, widths), peak memory, agreement with
+   ``kernels="off"``, with
    the rsLQR kernel path and, with ``pscan_batched_interior``, with the
    default; f64 plain pscan vs the f64 Riccati oracle on 4 instances; the
    relative KKT residual), and on the small-block batch of phase 3 (f64 vs
@@ -81,8 +84,8 @@ Phases, each printing one line of numbers:
    solve and the refined solve;
 5. one batched solve of each slice (and one quadruped pscan solve, one flat
    solve and one refined solve) traced with ``torch.profiler``: device time
-   by kernel, device kernel launches, and the device's busy share of the
-   solve's wall time;
+   by kernel (the top kernels and every hand kernel), device kernel
+   launches, and the device's busy share of the solve's wall time;
 6. the kernel-measurement entry points: ``bench_kernels``' six sections
    (update, leaf, rhs, sep, prod, planes) at their defaults, one JSON row
    per stage and level (chained, graph-replayed times with the card's name),
@@ -635,15 +638,18 @@ class Smoke:
                 lambda a, b, **k: (pl.pgemm(a, b, **k),), [A, Bm], {},
                 2 * p * K * q * F, (t.matmul, (ml(A), ml(Bm))), chain=True,
             )
-        for d in (QX, 12):
-            S = self.spd(d, G, Bb)
+        # B6 at the quadruped rsLQR's level-0 plane (G=256 groups), its
+        # level-4 and level-8 planes (G=16 and 1), and n=12.
+        for d, Gs in ((QX, G), (QX, G >> 4), (QX, G >> 8), (12, G)):
+            S = self.spd(d, Gs, Bb)
+            Fs = Gs * Bb
             self.compare(
-                "pchol", f"n={d} G={G} B={Bb}",
+                "pchol", f"n={d} G={Gs} B={Bb}",
                 lambda a, **k: (pl.pchol(a, **k),), [S], {},
-                F * sum(2 * j * (d - j) + (d - j) for j in range(d)),
+                Fs * sum(2 * j * (d - j) + (d - j) for j in range(d)),
                 (t.linalg.cholesky_ex, (ml(S),)),
                 # A's lower triangle read, L (zeros included) written.
-                moved=4 * F * (d * (d + 1) // 2 + d * d), chain=True,
+                moved=4 * Fs * (d * (d + 1) // 2 + d * d), chain=True,
                 chain_library=False,
             )
         # B7 at the quadruped rsLQR's shapes: the separator solves at level
@@ -795,7 +801,7 @@ class Smoke:
                 lambda a, bs, **k: pl.plu_solve_multi(a, *bs, **k),
                 [A, Bs], {}, F * (2 * n ** 3 / 3 + 2 * n * n * wt),
                 (lu_lib, (Aml, Bml)), 4 * F * (n * n + 2 * n * wt),
-                phase="phase2c",
+                phase="phase2c", chain=True, chain_library=False,
             )
 
     def schur1_case(self, lam):
@@ -1122,9 +1128,12 @@ class Smoke:
         for k in PSCAN_MID:
             self.check(counts[k] > 0,
                        f"{k} launched no time on the quadruped pscan path")
+        shapes = {f"n={k[0]} w={k[1]}": v for k, v in
+                  self.planes.plu_solve_multi.shape_launches.items()}
         print(f"phase3c launches pscan N={QN} B={QB} nx={QX} nu={QU}: "
               f"{json.dumps(counts)} small-block kernels: "
-              f"{json.dumps(small)}; peak device memory "
+              f"{json.dumps(small)}; plu_solve_multi by (n, widths): "
+              f"{json.dumps(shapes)}; peak device memory "
               f"{peak / 2**30:.2f} GiB", flush=True)
 
         self.check(tuple(got.shape) == (QB, b.nvars),
@@ -1364,7 +1373,11 @@ class Smoke:
               f"kernel time {busy:.3f} ms, busy share {busy / wall:.3f}, "
               f"{sum(e.count for e in dev)} device kernel launches",
               flush=True)
-        for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:top]:
+        ranked = sorted(dev, key=lambda e: -e.self_device_time_total)
+        # The top kernels, then every kernel below them that is not
+        # PyTorch's own (at::native): the hand kernels.
+        for e in ranked[:top] + [e for e in ranked[top:]
+                                 if "at::native::" not in e.key]:
             print(f"phase5   {e.self_device_time_total / 1e3:9.3f} ms "
                   f"{e.count:5d}x {e.key[:90]}", flush=True)
 

@@ -44,13 +44,13 @@
 //
 // pcho_solve_kernel: one right-hand column per thread in registers, L's
 // triangle staged in shared memory per block (see the kernel). pchol_kernel:
-// one thread per plane element, its working values in the output L (read
-// back through L1/L2). Both are instantiated for register columns of 12,
-// 16, 36 and 64 floats (n <= 12, the state dims 13..16 a raised
-// mxu_block_threshold sends here, the quadruped path's 36, and 64 for any
-// larger block), launched with the smallest that holds the block; their
-// unrolled loops index the registers statically and skip the rows past the
-// runtime dim with uniform branches.
+// one row of one plane element's block per thread in registers, eight
+// elements per block, right-looking over a shared column (see the kernel).
+// Both are instantiated for register widths of 12, 16, 36 and 64 floats
+// (n <= 12, the state dims 13..16 a raised mxu_block_threshold sends here,
+// the quadruped path's 36, and 64 for any larger block), launched with the
+// smallest that holds the block; their unrolled loops index the registers
+// statically and skip the rows past the runtime dim with branches.
 //
 // Each launcher returns cudaGetLastError() right after the launch; the
 // Python wrapper (rslqr_tpu_torch/ops/planes.py) raises on a nonzero code.
@@ -246,41 +246,75 @@ int launch_rows(const RowsArgs& a, cudaStream_t st) {
   }
 }
 
-// Left-looking Cholesky (the TPU kernel's _chol_kernel): column j is
-// A[j:, j] - L[j:, :j] L[j, :j]', scaled by 1/sqrt of its first entry. Row j
-// of L (columns < j) is held in registers; the rows below are read back
-// from L, which this thread wrote earlier. The column loop is unrolled, so
-// every inner loop has a compile-time length.
+// Cholesky, lower L (B6). What bounds it: bytes. At n = 36 a plane element
+// reads A's lower triangle (666 floats) and writes all of L (1,296, the zeros
+// included): 0.514 GB over F = 65,536, 0.154 ms at 3.35 TB/s, against n^3/6
+// = 7,776 FMAs.
+//
+// Mapping. A block owns CHOL_LANES = 8 plane elements (8 floats fill one
+// 32-byte sector) and gives each thread one row i of one element's block:
+// the row's lower part, L(i, 0..i), lives in registers from the load to the
+// store, so each element of A is read once and each element of L written
+// once. A warp holds four consecutive rows, so the rows' lengths differ
+// little within it. Right-looking, one step per column k: every row i >= k
+// publishes its entry u(i, k) of the updated matrix to a shared column (two
+// of them, used in turn, so one barrier a step suffices), row k also
+// 1/sqrt(u(k, k)); then each row i > k turns its u(i, k) into l(i, k) and
+// subtracts l(i, k) l(j, k) from its u(i, j), k < j <= i, reading u(j, k)
+// from the shared column: one shared load per FMA, and the n^3/6 dependent
+// chain that one thread per element would carry is spread over n threads.
+// At n = 36 a block is 9 warps and 2.3 KB of shared memory; eight plane
+// elements per block give the small upper-level planes (F = 256 at level
+// 8) 32 blocks, where 32 elements per block would give 8. The loops over k
+// and j are unrolled to the register width W (12, 16, 36 or 64), with
+// per-row branches on the runtime n and on j <= i, so that ptxas does not
+// hoist every load (24 B of spill at W = 36 and 64).
+constexpr int CHOL_LANES = 8;
+
+// Blocks per SM the register cap allows (four at W = 36: 56 registers).
 template <int W>
-__global__ void __launch_bounds__(128)
+constexpr int kCholMinBlocks = W <= 16 ? 8 : (W <= 36 ? 4 : 1);
+
+template <int W>
+__global__ void __launch_bounds__(CHOL_LANES * W, kCholMinBlocks<W>)
     pchol_kernel(const float* __restrict__ A, float* __restrict__ L, int n,
                  int F) {
-  const int f = blockIdx.x * blockDim.x + threadIdx.x;
-  if (f >= F) return;
+  __shared__ float col[2][W][CHOL_LANES];  // u(j, k) of step k, in turns
+  __shared__ float piv[2][CHOL_LANES];     // 1/sqrt(u(k, k))
+  const int lane = threadIdx.x % CHOL_LANES;
+  const int i = threadIdx.x / CHOL_LANES;  // the thread's row
+  const int f0 = blockIdx.x * CHOL_LANES + lane;
+  const bool live = f0 < F;
+  const bool row = i < n;  // the block's last warp may hold rows past n
   const size_t Fs = F;
-  auto at = [&](int i, int j) { return ((size_t)i * n + j) * Fs + f; };
-  for (int i = 0; i < n; ++i)
-    for (int j = i + 1; j < n; ++j) L[at(i, j)] = 0.f;
-  float rj[W];
+  const size_t f = live ? f0 : F - 1;  // dead lanes read a valid address
+  float r[W];
 #pragma unroll
-  for (int j = 0; j < W; ++j) {
-    if (j < n) {
+  for (int j = 0; j < W; ++j)
+    r[j] = row && j <= i ? A[((size_t)i * n + j) * Fs + f] : 0.f;
 #pragma unroll
-      for (int k = 0; k < j; ++k) rj[k] = L[at(j, k)];
-      float d = A[at(j, j)];
+  for (int k = 0; k < W; ++k) {
+    if (k < n) {
+      float* c = &col[k & 1][0][0] + lane;
+      if (row && i >= k) {
+        c[i * CHOL_LANES] = r[k];
+        if (i == k) piv[k & 1][lane] = rsqrtf(r[k]);
+      }
+      __syncthreads();
+      if (row && i >= k) {
+        const float inv = piv[k & 1][lane];
+        r[k] *= inv;  // l(i, k); l(k, k) = u(k, k) / sqrt(u(k, k))
+        const float mlt = r[k] * inv;  // l(i, k) / sqrt(u(k, k))
 #pragma unroll
-      for (int k = 0; k < j; ++k) d = fmaf(-rj[k], rj[k], d);
-      const float ljj = sqrtf(d);
-      const float inv = 1.f / ljj;
-      L[at(j, j)] = ljj;
-      for (int i = j + 1; i < n; ++i) {
-        float s = A[at(i, j)];
-#pragma unroll
-        for (int k = 0; k < j; ++k) s = fmaf(-L[at(i, k)], rj[k], s);
-        L[at(i, j)] = s * inv;
+        for (int j = k + 1; j < W; ++j)
+          if (j <= i) r[j] = fmaf(-mlt, c[j * CHOL_LANES], r[j]);
       }
     }
   }
+  if (!live || !row) return;
+#pragma unroll
+  for (int j = 0; j < W; ++j)
+    if (j < n) L[((size_t)i * n + j) * Fs + f] = r[j];  // zeros past i
 }
 
 // (L L') X = B in place on X (B7). What bounds it: bytes. At n = w = 36 a
@@ -506,10 +540,12 @@ int rslqr_schur_update_planes(const float* FL, const float* fsol, float* C,
 
 int rslqr_pchol(const float* A, float* L, int n, int F, void* stream) {
   if (!dims_ok(n) || F < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int tx = 128;
   const auto st = static_cast<cudaStream_t>(stream);
+  // Rows rounded up to whole warps (four rows a warp).
+  const int threads = CHOL_LANES * ((n + 3) / 4 * 4);
+  const unsigned blocks = (unsigned)((F + CHOL_LANES - 1) / CHOL_LANES);
   RSLQR_BY_WIDTH(n, [&] {
-    pchol_kernel<W><<<(F + tx - 1) / tx, tx, 0, st>>>(A, L, n, F);
+    pchol_kernel<W><<<blocks, threads, 0, st>>>(A, L, n, F);
   });
   return static_cast<int>(cudaGetLastError());
 }

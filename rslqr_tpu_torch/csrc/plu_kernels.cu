@@ -1,7 +1,7 @@
-// Hand-written Hopper kernel for the unpivoted multi-right-hand-side LU solve
-// on element planes (8 < n <= 64):
-//   plu_kernel  <- rslqr_tpu/ops/planes_pallas.py: plu_solve_multi / plu_solve
-//                  (_lu_solve_kernel)
+// Hand-written Hopper kernels for the unpivoted multi-right-hand-side LU
+// solve on element planes (8 < n <= 64):
+//   plu_kernel          <- rslqr_tpu/ops/planes_pallas.py: plu_solve_multi /
+//   plu_scratch_kernel     plu_solve (_lu_solve_kernel)
 //
 // Computes X_r = A^-1 B_r for 1..4 right-hand sides with ONE unpivoted
 // Doolittle LU of A per plane element: A [n, n, F], B_r and X_r [n, w_r, F],
@@ -10,28 +10,50 @@
 // have eigenvalues >= 1. X_r are fresh outputs (separate pointers from
 // B_r): the TPU kernel's donation of B_r is an aliasing hint there, and an
 // in-place write here would overwrite operands the caller still reads.
+// One launch per call: plu_kernel for n <= 36, plu_scratch_kernel above.
 //
 // Bound: at the scan's shapes (n = 36 with 74 or 37 right-hand columns,
 // n = 12 with 12) the LU and the substitutions do 2n^3/3 + 2n^2 w FLOP over
 // 4(n^2 + 2nw) bytes, ~6-9 FLOP/byte, under the H100's ~20 f32 FLOP/byte:
-// bytes-bound at the roofline, but with few blocks per call (F = 4096 plane
-// elements is 128 blocks) it is latency-bound in practice.
+// bytes-bound at the roofline. But the scan calls it on small planes
+// (F = 1,792-4,096), where what sets the time is how many SMs and warps
+// the call keeps busy and how long each block's chain of steps is.
 //
-// Design (a simple one that is right; the TPU kernel is one pallas_call with
-// a VMEM LU scratch, and this is one launch per call too): a block owns 32
-// plane elements, one per lane, so every load and store is a coalesced
-// 128-byte line. Its 8 warps first copy the lanes' A into the LU scratch
-// (shared memory: n^2 * 32 floats, 166 KB at n = 36; a lane-private slot of a
-// global scratch for n > 36, where it does not fit), then factor it
-// right-looking, one column step per __syncthreads with the rows below the
-// pivot spread over the warps. Then every warp takes right-hand columns: a
-// column lives in registers through the unit-lower forward and the upper
-// back substitution, reading L and U from the scratch. Register columns are
-// instantiated for 12, 36 and 64 floats, as in planes_kernels.cu, and their
-// unrolled loops carry no branch on the runtime n.
+// plu_kernel (n <= 36). A block owns LU_LANES = 8 plane elements (one
+// 32-byte sector) and W slots of 8 threads (W = 12 or 36, the register
+// width that holds n). The grid runs (plane chunk x column group), the
+// groups of one chunk next to each other (A comes from HBM once, then from
+// L2). Factor: slot i holds row i of its element's A in registers (every
+// load in flight at once) and the factorization runs right-looking, one
+// barrier a step: row k, final at step k, writes U(k, k..n-1) and
+// 1/u(k, k) to shared memory; each row i > k forms l(i, k), writes it
+// beside, and updates its entries from U's row k. The shared LU is
+// column-major (41.5 KB at n = 36: four blocks per SM, where the old
+// kernel's 166 KB allowed one). Solve: each slot takes right-hand columns
+// in turn, each in registers through the unit-lower forward and the upper
+// back substitution, both right-looking from the shared LU (one shared load
+// per FMA at an immediate offset; the four slots of a warp read the same
+// word). Every block refactors its chunk's A (at n = 36, 15k FMAs per
+// element against 1,260 per right-hand column), so the launcher makes as
+// many column groups as keep the grid within one wave of resident blocks:
+// at the pscan's (36, 1, 36, 1) on F = 2,048, 512 blocks of 8 elements and
+// 37 columns, where the old kernel ran 64 blocks of 32 elements whose 8
+// warps took the 74 columns in 10 passes. The loops are unrolled to W with
+// branches on the runtime n. Not chosen (PERF.md, timed on the H100): the
+// right-hand columns in each row's registers through the elimination
+// (1.1-1.6x slower than the old kernel), and the factorization in shared
+// memory by rows, a dependent shared load, FMA and store per update (no
+// faster than the old kernel).
 //
-// The launcher returns cudaGetLastError() right after the launch; the Python
-// wrapper (rslqr_tpu_torch/ops/planes.py) raises on a nonzero code.
+// plu_scratch_kernel (36 < n <= 64, whose LU would not fit a block's
+// static shared memory): a block owns 32 plane elements, one per lane; its
+// 8 warps copy the lanes' A into lane slots of a global scratch, factor it
+// right-looking (rows over the warps, a barrier a step), then take
+// right-hand columns, one per warp, in registers through both
+// substitutions.
+//
+// Each launcher returns cudaGetLastError() right after the launch; the
+// Python wrapper (rslqr_tpu_torch/ops/planes.py) raises on a nonzero code.
 
 #include <cuda_runtime.h>
 #include <cstddef>
@@ -39,28 +61,155 @@
 namespace {
 
 constexpr int MAXD = 64;      // largest block dim (matches ops/planes.py)
-constexpr int LANES = 32;     // plane elements per block (one per lane)
-constexpr int LU_WARPS = 8;   // warps per block
 constexpr int MAX_RHS = 4;    // right-hand sides per launch
-constexpr int SMEM_W = 36;    // widths up to this factor in shared memory
+constexpr int REG_MAX_N = 36;  // widest n plu_kernel takes (ops/planes.py)
+constexpr int LU_LANES = 8;   // plu_kernel: plane elements per block
+constexpr int LANES = 32;     // plu_scratch_kernel: plane elements per block
+constexpr int LU_WARPS = 8;   // plu_scratch_kernel: warps per block
 
 struct LuArgs {
   const float* A;          // [n, n, F]
-  float* scratch;          // [n, n, gridDim.x * LANES] (n > SMEM_W only)
+  float* scratch;          // [n, n, gridDim.x * LANES] (plu_scratch_kernel)
   const float* B[MAX_RHS];  // [n, w_r, F]
   float* X[MAX_RHS];        // [n, w_r, F]
-  int w[MAX_RHS];
+  int w[MAX_RHS];           // 0 past the last right-hand side in use
   int nrhs, n, F;
+  int groups, gw;  // plu_kernel: column groups per chunk, columns per group
 };
 
 __device__ __forceinline__ int clampk(int k, int K) {
   return k < K ? k : K - 1;
 }
 
-template <int W, bool SMEM>
-__global__ void __launch_bounds__(LANES * LU_WARPS)
+// Stacked right-hand column c: offset of its (row, column) origin in B_r /
+// X_r, its right-hand side r and that side's width.
+struct RhsCol {
+  int r, w;
+  size_t off;  // (0 * w + cc) * F, the column's row 0
+};
+
+__device__ __forceinline__ RhsCol rhs_col(const LuArgs& a, int c) {
+  int r = 0, cc = c;
+  const int w0 = a.w[0], w1 = a.w[1], w2 = a.w[2];
+  if (cc >= w0) {
+    cc -= w0;
+    r = 1;
+    if (cc >= w1) {
+      cc -= w1;
+      r = 2;
+      if (cc >= w2) {
+        cc -= w2;
+        r = 3;
+      }
+    }
+  }
+  const int w = r == 0 ? w0 : r == 1 ? w1 : r == 2 ? w2 : a.w[3];
+  return {r, w, (size_t)cc * a.F};
+}
+
+__device__ __forceinline__ const float* rhs_in(const LuArgs& a, int r) {
+  return r == 0 ? a.B[0] : r == 1 ? a.B[1] : r == 2 ? a.B[2] : a.B[3];
+}
+
+__device__ __forceinline__ float* rhs_out(const LuArgs& a, int r) {
+  return r == 0 ? a.X[0] : r == 1 ? a.X[1] : r == 2 ? a.X[2] : a.X[3];
+}
+
+// Offset of LU element (i, j) of lane 0 in a plu_kernel block's shared LU:
+// column-major with a column stride of W rows, so every access of the
+// unrolled loops is an immediate offset.
+template <int W>
+__device__ __forceinline__ constexpr int lu_at(int i, int j) {
+  return (j * W + i) * LU_LANES;
+}
+
+// W slots of 8 threads (12 at W = 12, 36 at W = 36): factor rows, then
+// right-hand columns.
+template <int W>
+__global__ void __launch_bounds__(LU_LANES * W, 4)
     plu_kernel(const LuArgs a) {
-  extern __shared__ float S[];  // [n][n][LANES] when SMEM
+  __shared__ float lu[W * W * LU_LANES];  // 41.5 KB at W = 36
+  __shared__ float dinv[W * LU_LANES];    // 1 / u(k, k)
+  const int lane = threadIdx.x % LU_LANES;
+  const int s = threadIdx.x / LU_LANES;  // the thread's slot
+  const int chunk = blockIdx.x / a.groups;
+  const int c0 = (blockIdx.x % a.groups) * a.gw;  // first stacked column
+  const int total = a.w[0] + a.w[1] + a.w[2] + a.w[3];
+  const int g = min(a.gw, total - c0);
+  const int n = a.n;
+  const int f0 = chunk * LU_LANES + lane;
+  const bool live = f0 < a.F;
+  const size_t F = a.F;
+  const size_t f = live ? f0 : a.F - 1;  // dead lanes load a valid address
+  float* my = lu + lane;
+
+  {  // Factor: slot s holds row s of A in registers, right-looking.
+    const int i = s;
+    const bool row = i < n;
+    float r[W];
+#pragma unroll
+    for (int j = 0; j < W; ++j)
+      r[j] = row && j < n ? a.A[((size_t)i * n + j) * F + f] : 0.f;
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      if (k < n) {
+        if (i == k) {  // U(k, k..n-1), final now, and 1 / u(k, k)
+#pragma unroll
+          for (int j = k; j < W; ++j)
+            if (j < n) my[lu_at<W>(k, j)] = r[j];
+          dinv[k * LU_LANES + lane] = 1.f / r[k];
+        }
+        __syncthreads();
+        if (row && i > k) {
+          const float l = r[k] * dinv[k * LU_LANES + lane];
+          my[lu_at<W>(i, k)] = l;
+#pragma unroll
+          for (int j = k + 1; j < W; ++j)
+            if (j < n) r[j] = fmaf(-l, my[lu_at<W>(k, j)], r[j]);
+        }
+      }
+    }
+  }  // the last step's barrier follows every write of L and U
+
+  // Solve: slot s takes right-hand columns c0 + s, + W, ... in registers
+  // through the unit-lower forward and the upper back substitution, both
+  // right-looking.
+  for (int cs = s; cs < g; cs += W) {
+    const RhsCol c = rhs_col(a, c0 + cs);
+    const float* B = rhs_in(a, c.r) + c.off + f;
+    const size_t rs = (size_t)c.w * F;  // row stride of B_r and X_r
+    float x[W];
+#pragma unroll
+    for (int k = 0; k < W; ++k) x[k] = k < n ? B[k * rs] : 0.f;
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      if (k < n) {
+#pragma unroll
+        for (int i = k + 1; i < W; ++i)
+          if (i < n) x[i] = fmaf(-my[lu_at<W>(i, k)], x[k], x[i]);
+      }
+    }
+#pragma unroll
+    for (int k = W - 1; k >= 0; --k) {
+      if (k < n) {
+        x[k] *= dinv[k * LU_LANES + lane];
+#pragma unroll
+        for (int i = 0; i < k; ++i)
+          x[i] = fmaf(-my[lu_at<W>(i, k)], x[k], x[i]);
+      }
+    }
+    if (live) {
+      float* X = rhs_out(a, c.r) + c.off + f;
+#pragma unroll
+      for (int k = 0; k < W; ++k)
+        if (k < n) X[k * rs] = x[k];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(LANES * LU_WARPS)
+    plu_scratch_kernel(const LuArgs a) {
+  constexpr int W = MAXD;
   const int lane = threadIdx.x;
   const int warp = threadIdx.y;
   const int f0 = blockIdx.x * LANES + lane;
@@ -68,17 +217,10 @@ __global__ void __launch_bounds__(LANES * LU_WARPS)
   const size_t F = a.F;
   const size_t f = live ? f0 : a.F - 1;  // dead lanes load a valid address
   const int n = a.n;
-  // This lane's LU element (i, j): its shared-memory slot, or its own slot
-  // of the global scratch (indexed by f0, so dead lanes write apart).
-  float* lu;
-  size_t ls;
-  if constexpr (SMEM) {
-    lu = S + lane;
-    ls = LANES;
-  } else {
-    lu = a.scratch + f0;
-    ls = (size_t)gridDim.x * LANES;
-  }
+  // This lane's slot of the global scratch (indexed by f0, so dead lanes
+  // write apart).
+  float* lu = a.scratch + f0;
+  const size_t ls = (size_t)gridDim.x * LANES;
   auto at = [&](int i, int j) -> float& {
     return lu[((size_t)i * n + j) * ls];
   };
@@ -99,33 +241,14 @@ __global__ void __launch_bounds__(LANES * LU_WARPS)
     __syncthreads();
   }
 
-  // Unused right-hand sides have width 0, so the stacked columns end at
-  // the last one in use.
-  const int w0 = a.w[0], w1 = a.w[1], w2 = a.w[2], w3 = a.w[3];
-  const int total = w0 + w1 + w2 + w3;
+  const int total = a.w[0] + a.w[1] + a.w[2] + a.w[3];
   for (int c = warp; c < total; c += LU_WARPS) {
-    // Column c of the stacked right-hand sides: RHS r, its column cc.
-    int r = 0, cc = c;
-    if (cc >= w0) {
-      cc -= w0;
-      r = 1;
-      if (cc >= w1) {
-        cc -= w1;
-        r = 2;
-        if (cc >= w2) {
-          cc -= w2;
-          r = 3;
-        }
-      }
-    }
-    const float* B = r == 0 ? a.B[0] : r == 1 ? a.B[1] : r == 2 ? a.B[2]
-                                                                 : a.B[3];
-    float* X = r == 0 ? a.X[0] : r == 1 ? a.X[1] : r == 2 ? a.X[2] : a.X[3];
-    const int w = r == 0 ? w0 : r == 1 ? w1 : r == 2 ? w2 : w3;
+    const RhsCol rc = rhs_col(a, c);
+    const float* B = rhs_in(a, rc.r) + rc.off + f;
     float x[W];
 #pragma unroll
     for (int k = 0; k < W; ++k) {
-      const float v = B[((size_t)clampk(k, n) * w + cc) * F + f];
+      const float v = B[(size_t)clampk(k, n) * rc.w * F];
       x[k] = k < n ? v : 0.f;
     }
 #pragma unroll
@@ -148,28 +271,42 @@ __global__ void __launch_bounds__(LANES * LU_WARPS)
       }
     }
     if (live) {
+      float* X = rhs_out(a, rc.r) + rc.off + f;
 #pragma unroll
       for (int i = 0; i < W; ++i)
-        if (i < n) X[((size_t)i * w + cc) * F + f] = x[i];
+        if (i < n) X[(size_t)i * rc.w * F] = x[i];
     }
   }
 }
 
+// Blocks of plu_kernel the card holds at once: 132 SMs (H100 SXM) x 4 (the
+// register cap; the 41.5 KB shared LU allows 5).
+constexpr int LU_WAVE = 132 * 4;
+
+// Column groups: one per W right-hand columns (a column per slot), but no
+// more than keep the grid within one wave, since each group refactors its
+// chunk's A; past that the slots take several columns in turn. At the
+// pscan's (36, 1, 36, 1) on F = 2,048 that is 2 groups of 37 (0.097 ms
+// chained on the H100, against 0.125 for 3 groups of 25), at (36, 1) on
+// F = 1,792 2 groups of 19 (0.057, against 0.071 for one group).
 template <int W>
-int launch_plu(const LuArgs& a, cudaStream_t st) {
+int launch_plu(LuArgs a, cudaStream_t st) {
+  const int total = a.w[0] + a.w[1] + a.w[2] + a.w[3];
+  const long long chunks = (a.F + LU_LANES - 1) / LU_LANES;
+  const long long fit = LU_WAVE / chunks;
+  a.groups = (int)(fit < 1 ? 1 : fit < (total + W - 1) / W
+                                     ? fit : (total + W - 1) / W);
+  a.gw = (total + a.groups - 1) / a.groups;  // even groups
+  const long long blocks = chunks * a.groups;
+  if (blocks >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  plu_kernel<W><<<(unsigned)blocks, LU_LANES * W, 0, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_plu_scratch(const LuArgs& a, cudaStream_t st) {
+  if (!a.scratch) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((a.F + LANES - 1) / LANES);
-  const dim3 block(LANES, LU_WARPS);
-  if constexpr (W <= SMEM_W) {
-    const int smem = a.n * a.n * LANES * (int)sizeof(float);
-    const cudaError_t e = cudaFuncSetAttribute(
-        plu_kernel<W, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    plu_kernel<W, true><<<grid, block, smem, st>>>(a);
-  } else {
-    if (!a.scratch) return static_cast<int>(cudaErrorInvalidValue);
-    plu_kernel<W, false><<<grid, block, 0, st>>>(a);
-  }
+  plu_scratch_kernel<<<grid, dim3(LANES, LU_WARPS), 0, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -200,8 +337,8 @@ int rslqr_plu_solve_multi(const float* A, float* scratch,
   a.F = F;
   const auto st = static_cast<cudaStream_t>(stream);
   if (n <= 12) return launch_plu<12>(a, st);
-  if (n <= SMEM_W) return launch_plu<36>(a, st);
-  return launch_plu<64>(a, st);
+  if (n <= REG_MAX_N) return launch_plu<36>(a, st);
+  return launch_plu_scratch(a, st);
 }
 
 }  // extern "C"

@@ -36,12 +36,14 @@ coalesced 128-byte line; the products and the Schur update stage a column
 slice of the right-hand operand of those plane elements in shared memory
 and give every output row, two per warp, of that slice to the block
 (column slices of one plane chunk run together, so the left operand comes
-from HBM once and from L2 after), and the Cholesky solve and the LU solve
-keep the factor in shared memory.
+from HBM once and from L2 after); the Cholesky solve keeps the factor in
+shared memory; the Cholesky and the LU give each thread one row of one
+plane element's block, eight elements per block, in registers.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
@@ -54,7 +56,8 @@ from .schur import _launch, _masks, _ptr, kernel_applies
 # Largest block dim the kernels take (their register columns hold 64).
 MAX_BLOCK = 64
 # Right-hand sides per plu_solve_multi launch, and the largest n whose LU
-# the kernel keeps in shared memory (above it, in a global scratch).
+# ``plu_kernel`` keeps in registers (above it, ``plu_scratch_kernel`` keeps
+# it in a global scratch).
 MAX_RHS = 4
 LU_SMEM_MAX = 36
 
@@ -448,7 +451,8 @@ def plu_solve_multi(A: torch.Tensor, *Bs: torch.Tensor, kernels: str = "auto"):
     such as the parallel scan's ``I + C J``.
 
     Replaces ``rslqr_tpu/ops/planes_pallas.py:plu_solve_multi``. Kernel:
-    ``plu_kernel`` (``csrc/plu_kernels.cu``).
+    ``plu_kernel`` (n <= 36; above, ``plu_scratch_kernel``;
+    ``csrc/plu_kernels.cu``).
     """
     if not 1 <= len(Bs) <= MAX_RHS:
         raise ValueError(f"plu_solve_multi takes 1..{MAX_RHS} right-hand "
@@ -470,6 +474,7 @@ def plu_solve_multi(A: torch.Tensor, *Bs: torch.Tensor, kernels: str = "auto"):
     _launch("rslqr_plu_solve_multi", A.device, _ptr(A), _ptr(scratch),
             ptrs(Bs), ptrs(Xs), (ctypes.c_int * MAX_RHS)(*ws), len(Bs), n, F)
     plu_solve_multi.launches += 1
+    plu_solve_multi.shape_launches[(n, tuple(ws))] += 1
     return Xs
 
 
@@ -495,6 +500,8 @@ def reset_launch_counts() -> None:
     for w in KERNEL_WRAPPERS:
         w.launches = 0
     pgemm.flagged_launches = 0
+    # plu_solve_multi's launches by (n, widths of the right-hand sides).
+    plu_solve_multi.shape_launches = collections.Counter()
 
 
 reset_launch_counts()

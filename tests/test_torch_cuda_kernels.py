@@ -26,7 +26,9 @@ and Schur updates at level 0 and the top level; B7 at n = 9, 12, 16, 36,
 64 and w = 1, 2, 12, 36 on planes below one block, on grids smaller than
 the card and with several column tiles per block; an f32 solve with
 nx=12 under ``mxu_block_threshold=16`` launches B7 and B9 and no
-small-block kernel (ROADMAP C6). The flat-plane kernels run
+small-block kernel (ROADMAP C6). B6 runs at n = 9, 12, 16, 36, 64 on
+planes of 5, 256, 640 and 4,096 elements and at n = 36 on the quadruped's
+level-0 plane (65,536), one launch per call. The flat-plane kernels run
 at the main path's shapes (N=256, B=1024), B10 at every level 0-6 with one
 upper slab and the most the tree allows, emitting and not. The parallel
 scan's kernels:
@@ -35,7 +37,8 @@ calls, at the quadruped scan's planes (16, 8 and 7 by 256), on wide planes
 (F >= 65,536) and on ragged planes (F = 1, 33, 2049) at block dims 1, 5,
 12, 36, 40 and 64 (all flags at once on a square output, exactly symmetric
 under ``sym``), ``schur_update_planes`` masked and not,
-``plu_solve_multi`` at widths 12, 36 and 64 with 1-4 right-hand sides, and
+``plu_solve_multi`` at widths 12, 20, 36 and 64 with 1-4 right-hand sides
+(also at the quadruped scan's three shapes and planes), and
 the pscan slice at small sizes. The probe kernels (``ops/probe.py``):
 ``pgemm_ib`` at every ``ib`` and ``t1``, with rows left over past a
 multiple of ``ib``, two column chunks and the 12-column chunk that a long
@@ -484,12 +487,24 @@ def test_pgemm_kernel(dev, p, K, q, plane):
     _assert_match(ks, ps)
 
 
-@pytest.mark.parametrize("n,plane", [(12, (7, 33)), (36, (16, 40)),
-                                     (64, (2, 5)), (9, (1, 1))])
+# B6 at every register width (n = 9, 12, 16, 36, 64) on a plane below one
+# block (F = 5), the quadruped rsLQR's top-level plane (F = 256: 32 blocks
+# of 8 elements), a plane of 80 blocks (F = 640) and one of 512 (F =
+# 4,096); and n = 36 at the level-0 plane (F = 65,536).
+PCHOL_CASES = [(12, (7, 33)), (36, (16, 40)), (64, (2, 5)), (9, (1, 1))]
+PCHOL_CASES += sorted(
+    {(d, plane) for d in (9, 12, 16, 36, 64)
+     for plane in ((1, 5), (1, 256), (16, 40), (16, 256))}
+    - set(PCHOL_CASES)) + [(36, (256, 256))]
+
+
+@pytest.mark.parametrize("n,plane", PCHOL_CASES)
 def test_pchol_kernel(dev, n, plane):
     g = torch.Generator().manual_seed(n)
     A = _spd(g, dev, n, *plane)
+    before = planes.pchol.launches
     ks, ps, *_ = _both(lambda *a, **k: (planes.pchol(*a, **k),), [A], {})
+    assert planes.pchol.launches == before + 1
     _assert_match(ks, ps)
     assert not torch.triu(ks[0].movedim((0, 1), (-2, -1)), 1).any()
 
@@ -731,11 +746,16 @@ def test_schur_update_planes_kernel(dev, p, n, q, N, B, level, lam):
     "n,ws,plane",
     [(12, (12,), (16, 33)), (12, (12, 1, 12, 1), (3, 7)),
      (36, (36, 1, 36, 1), (8, 40)), (36, (36, 1), (5, 33)),
-     (36, (1,), (1, 1)), (64, (64, 1, 3), (2, 33)), (20, (5, 5), (1, 45))],
+     (36, (1,), (1, 1)), (64, (64, 1, 3), (2, 33)), (20, (5, 5), (1, 45)),
+     (12, (12,), (16, 256)), (36, (36, 1, 36, 1), (8, 256)),
+     (36, (36, 1), (7, 256)), (36, (36, 1, 36, 1), (32, 256))],
 )
 def test_plu_solve_multi_kernel(dev, n, ws, plane):
     """Well-conditioned ``I + C J`` blocks (C, J PSD), 1-4 right-hand sides,
-    ragged planes; the operands are left as they are."""
+    ragged planes, and the quadruped pscan's three shapes at their planes
+    (the Woodbury solve at 16 x 256, the suffix tree's at 8 and 7 x 256),
+    and a plane wide enough (32 x 256) that one block takes all 74 columns,
+    up to three a slot; the operands are left as they are."""
     g = torch.Generator().manual_seed(500 + n + len(ws))
     M = torch.randn(plane + (n, n), generator=g, dtype=torch.float64)
     P = torch.randn(plane + (n, n), generator=g, dtype=torch.float64)
@@ -746,9 +766,11 @@ def test_plu_solve_multi_kernel(dev, n, ws, plane):
     Bs = [_rand(g, dev, n, w, *plane) for w in ws]
     A0, B0 = A.clone(), [b.clone() for b in Bs]
     before = planes.plu_solve_multi.launches
+    shape = planes.plu_solve_multi.shape_launches[(n, ws)]
     ks = planes.plu_solve_multi(A, *Bs)
     torch.cuda.synchronize()
     assert planes.plu_solve_multi.launches == before + 1
+    assert planes.plu_solve_multi.shape_launches[(n, ws)] == shape + 1
     assert torch.equal(A, A0) and all(torch.equal(b, c) for b, c in zip(Bs, B0))
     ps = planes.plu_solve_multi(A, *Bs, kernels="off")
     _assert_match(list(ks), list(ps))

@@ -24,15 +24,19 @@ one), chip_smoke.py's phase-2 cases of the small-block sweep kernels at
 B4 (levels 1, 3, 5), B11 and B12 at N=256, B=1024), its phase-2b cases
 of B5 (``pgemm``, no flags) and B9 (``schur3_update_planes``), B7
 (``pcho_solve``, n=36: w=36 at each quadruped level's plane, w=1 at levels
-0 and 7; n=w=12 and 16) and phase-2c cases of B5's
-``lam_level`` (``schur_update_planes``), the scan's nine flagged B5
-products and B10 (``schur_update_level_flat``) at levels 1-6, beside the
+0 and 7; n=w=12 and 16), B6 (``pchol``: n=36 at each quadruped level's
+plane, n=12 at level 0 and at the batched-interior plane), B8
+(``plu_solve_multi`` at the quadruped pscan's three shapes) and phase-2c
+cases of B5's ``lam_level`` (``schur_update_planes``), the scan's nine
+flagged B5 products and B10 (``schur_update_level_flat``) at levels 1-6,
+beside the
 same timings of one PyTorch library call where there is one
 (``matmul``/``baddbmm`` on mat-last views; an unmasked ``baddbmm`` over
 every slab row for B1, B2, B9, B10, B12 and ``lam_level``). ``--sets``
 takes some of the case sets: ``sweep`` (the small-block kernels),
-``plane`` (B5, B9, ``lam_level``), ``pcho`` (B7), ``flagged`` and ``flat``
-(B10). The clock is the timed tree's
+``plane`` (B5, B9, ``lam_level``), ``pcho`` (B7), ``pchol`` (B6), ``plu``
+(B8), ``flagged`` and ``flat`` (B10); B6's and B8's library calls are
+timed single only. The clock is the timed tree's
 ``bench_kernels.launch_ms``/``chain_ms``. To compare two trees, unpack the
 other one (``git archive``) into a git-ignored directory and run the
 script on both in one machine, alternating: A, B, B, A.
@@ -47,7 +51,7 @@ from pathlib import Path
 
 CONFIGS = {"small": (256, 6, 3, 1024), "quad": (512, 36, 12, 256)}
 # The --kernels case sets (all by default).
-SETS = ("sweep", "plane", "pcho", "flagged", "flat")
+SETS = ("sweep", "plane", "pcho", "pchol", "plu", "flagged", "flat")
 
 
 # The quadruped scan's flagged products (chip_smoke.py phase 2c): label,
@@ -313,6 +317,13 @@ def plane_times(torch, planes, R):
     return out
 
 
+def _spd(torch, R, d, *plane):
+    """Random SPD blocks ``[d, d, *plane]`` (f32, well conditioned)."""
+    M = R(*plane, d, d)
+    S = M @ M.transpose(-1, -2) + d * torch.eye(d, device="cuda")
+    return S.movedim((-2, -1), (0, 1)).contiguous()
+
+
 def pcho_times(torch, planes, R):
     """``{case: (single ms, chained ms)}`` of B7 (``pcho_solve``) at the
     quadruped rsLQR's separator solves, n=36: w=36 at every level's plane
@@ -325,13 +336,63 @@ def pcho_times(torch, planes, R):
              + [(36, 1, 0), (36, 1, 7), (12, 12, 0), (16, 16, 0)])
     for d, w, level in cases:
         Gl = G >> level
-        M = R(Gl, Bb, d, d)
-        S = M @ M.transpose(-1, -2) + d * torch.eye(d, device="cuda")
-        Lc = planes.pchol_plain(S.permute(2, 3, 0, 1).contiguous())
+        Lc = planes.pchol_plain(_spd(torch, R, d, Gl, Bb))
         X = R(d, w, Gl, Bb)
         out[f"pcho n={d} w={w} L{level}"] = _pair(
             torch, lambda x: planes.pcho_solve(Lc, x), lambda: (X.clone(),))
-        del M, S, Lc, X
+        del Lc, X
+    return out
+
+
+def pchol_times(torch, planes, R):
+    """``{case: (single ms, chained ms)}`` of B6 (``pchol``) at the
+    quadruped rsLQR's nine Cholesky planes, n=36 at F = (256 >> L) x 256 for
+    L = 0..8, and at n=12 on the level-0 plane and the batched-interior
+    gains pass's (511 x 256); beside each, ``cholesky_ex`` on mat-last
+    views, single only (a batched Cholesky captured in a CUDA graph breaks
+    MAGMA's next call)."""
+    cases = ([(36, 256 >> level, f"L{level}") for level in range(9)]
+             + [(12, 256, "L0"), (12, 511, "interior")])
+    out = {}
+    for d, G, tag in cases:
+        S = _spd(torch, R, d, G, 256)
+        out[f"pchol n={d} {tag} F={G}x256"] = _pair(
+            torch, planes.pchol, lambda: (S,))
+        ml = _ml(S)
+        out[f"library pchol n={d} {tag} F={G}x256"] = (
+            _med(torch, torch.linalg.cholesky_ex, lambda: (ml,)), None)
+        del S, ml
+    return out
+
+
+def plu_times(torch, planes, R):
+    """``{case: (single ms, chained ms)}`` of B8 (``plu_solve_multi``) at the
+    quadruped pscan's three shapes (chip_smoke.py phase 2c): n=12 w=(12,)
+    at 16 x 256 (the Woodbury solve), n=36 w=(36, 1, 36, 1) at 8 x 256 and
+    n=36 w=(36, 1) at 7 x 256 (the suffix tree's I + C J solves); beside
+    each, ``lu_factor_ex`` + ``lu_solve`` on mat-last views, single only."""
+    out = {}
+    for n, ws, G in ((12, (12,), 16), (36, (36, 1, 36, 1), 8),
+                     (36, (36, 1), 7)):
+        M = R(G, 256, n, n) * n ** -0.5
+        P = R(G, 256, n, n) * n ** -0.5
+        IC = torch.eye(n, device="cuda") + (M @ M.transpose(-1, -2)) @ (
+            P @ P.transpose(-1, -2))
+        A = IC.movedim((-2, -1), (0, 1)).contiguous()
+        Bs = [R(n, w, G, 256) for w in ws]
+        label = f"n={n} w={ws} F={G}x256"
+        out[f"plu {label}"] = _pair(
+            torch, lambda *a: planes.plu_solve_multi(*a), lambda: (A, *Bs))
+        Aml = _ml(A)
+        Bml = torch.cat([_ml(b) for b in Bs], dim=2)
+
+        def lib(a, b):
+            LU, piv, _ = torch.linalg.lu_factor_ex(a)
+            return torch.linalg.lu_solve(LU, piv, b)
+
+        out[f"library plu {label}"] = (_med(torch, lib, lambda: (Aml, Bml)),
+                                       None)
+        del M, P, IC, A, Bs, Aml, Bml
     return out
 
 
@@ -400,14 +461,17 @@ def main() -> int:
         runs = {"sweep": lambda: sweep_times(torch, schur, flat, R),
                 "plane": lambda: plane_times(torch, planes, R),
                 "pcho": lambda: pcho_times(torch, planes, R),
+                "pchol": lambda: pchol_times(torch, planes, R),
+                "plu": lambda: plu_times(torch, planes, R),
                 "flagged": lambda: flagged_times(torch, planes, R),
                 "flat": lambda: flat_level_times(torch, flat, R)}
         times = {}
         for name in args.sets.split(","):
             times.update(runs[name]())
         for case, (single, chained) in times.items():
+            ch = "none" if chained is None else f"{chained:.4f} ms"
             print(f"time_solve root={root.name} kernel {case}: single "
-                  f"{single:.4f} ms, chained {chained:.4f} ms", flush=True)
+                  f"{single:.4f} ms, chained {ch}", flush=True)
     return 0
 
 
