@@ -7,14 +7,17 @@ Phases, each printing one line of numbers:
 
 1. device: the card's name and power limit (nvidia-smi), then the kernel
    build from ``rslqr_tpu_torch/csrc/*.cu`` (one nvcc per source, in
-   parallel, timed);
+   parallel, timed), and beside it a ``-Xptxas -v`` compile of the two
+   small-block sources: the registers, stack and spills of every
+   instantiation of the fused leaf kernel (B3 and B11,
+   ``csrc/leaf_rows.cuh``);
 2. each of the four small-block sweep kernels (B1-B4) against its plain
    PyTorch version on clones of the same random f32 inputs, at the small
    path's shapes (N=256, B=1024; B1 at N=128 and with level pairing off),
    with the median time of each over 10 launches, and for B1 and B2 one
-   unmasked ``baddbmm`` on mat-last views (as B10, B12 in phase 2d); B1
-   and B4 (on row groups, ``csrc/row_groups.cuh``; B4 at levels 1, 3 and
-   5) also chained;
+   unmasked ``baddbmm`` on mat-last views (as B10, B12 in phase 2d); B1,
+   B3 and B4 (on row groups, ``csrc/row_groups.cuh`` and
+   ``csrc/leaf_rows.cuh``; B4 at levels 1, 3 and 5) also chained;
 2b. each of the four mid-block plane kernels (B5 pgemm, B6 pchol, B7
    pcho_solve, B9 schur3_update_planes) the same way, at the quadruped
    path's shapes (nx=36, nu=12, N=512, B=256) and once at n=12, m=4, with
@@ -51,7 +54,7 @@ Phases, each printing one line of numbers:
    relative KKT residual), and on the small-block batch of phase 3 (f64 vs
    Riccati on 16 instances; f32 difference to rsLQR, reported);
 2d. the three flat-plane kernels (B10 ``schur_update_level_flat`` at
-   levels 1-6, also chained, B11 ``leaf_schur_level0_flat``, B12
+   levels 1-6, and B11 ``leaf_schur_level0_flat``, also chained, B12
    ``rhs_update_level_flat`` at levels 0 and 5) the same way at the flat
    path's shapes (N=256, B=1024), each beside its em twin (B1, B3, B2 on
    the same data with group-major compacts) and, for B10 and B12, one
@@ -72,7 +75,7 @@ Phases, each printing one line of numbers:
 2f. B1-B4 and B10-B12 the same way at the other small block sizes, (n, m)
    = (4, 2), (8, 8), (5, 4) (the generic instantiations of
    ``csrc/small_blocks.cuh``), and the wide inputs (6, 12) and (8, 64) (its
-   wide tag), at the small path's shapes;
+   wide tag), at the small path's shapes, B3 and B11 also chained;
 3e. default-option f32 solves at those block sizes, em (N=256, and N=128
    where B1 launches) and flat schedule, with their launch counts and
    agreement with ``kernels="off"``; then a state dim past 8 under
@@ -101,10 +104,12 @@ without that last line; so does a machine without CUDA. Imports no JAX.
 
 import itertools
 import json
+import re
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 N_MAIN, N_ODD, BATCH = 256, 128, 1024
 # BASELINE.json quadruped config (bench.py:373-381): one batch on the card.
@@ -156,9 +161,11 @@ SOURCES = {k: PROBE_SRC if k in PROBES else SCHUR_SRC if k.endswith("_em")
            if k.startswith("plu") else FLAGGED_SRC if k == "pgemm_flagged"
            else PLANES_SRC for k in REPLACES}
 # B1's and B4's kernels (instantiated by schur_kernels.cu; B10's at the
-# wide blocks).
+# wide blocks), and B3's and B11's shared one.
 SOURCES["schur_update_level_em"] = "rslqr_tpu_torch/csrc/row_groups.cuh"
 SOURCES["schur_update_pair_em"] = "rslqr_tpu_torch/csrc/row_groups.cuh"
+SOURCES["leaf_schur_level0_em"] = "rslqr_tpu_torch/csrc/leaf_rows.cuh"
+SOURCES["leaf_schur_level0_flat"] = "rslqr_tpu_torch/csrc/leaf_rows.cuh"
 # The kernels of each mid-block path (the others launch no time there).
 RSLQR_MID = ("pgemm", "pchol", "pcho_solve", "schur3_update_planes")
 PSCAN_MID = ("pgemm", "pgemm_flagged", "plu_solve_multi")
@@ -198,6 +205,26 @@ def nvidia_smi() -> str:
     )
     return out.stdout.strip().splitlines()[0] if out.stdout.strip() else (
         "nvidia-smi: " + out.stderr.strip())
+
+
+def leaf_ptxas(build, report: str):
+    """One line per instantiation of the fused leaf kernel in a
+    ``-Xptxas -v`` report: block tag, layout, registers, stack and spills."""
+    lines = []
+    for name, (regs, stack, st, ld) in sorted(
+            build.ptxas_kernels(report).items()):
+        if "leaf_row_kernel" not in name:
+            continue
+        np_, mp, ex, wide = re.search(
+            r"BlkILi(\d+)ELi(\d+)ELb([01])ELb([01])E", name).groups()
+        tag = (f"Blk<{np_}, {mp}{', exact' if ex == '1' else ''}"
+               f"{', wide' if wide == '1' else ''}>")
+        lay = "GroupMajor (B3)" if "GroupMajor" in name else (
+            "ElementMajor (B11)")
+        lines.append(f"phase1 ptxas leaf_row_kernel {tag} {lay}: {regs} "
+                     f"registers, {stack} bytes stack, {st}/{ld} bytes spill "
+                     f"stores/loads")
+    return lines
 
 
 def rel_err(got, ref) -> float:
@@ -391,7 +418,9 @@ class Smoke:
               f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
               f"library_ms={fmt(lib_ms)}{extra} "
               f"bound_ms={bound_ms:.4f} ({bound_by}: {moved / 1e9:.3f} GB, "
-              f"{ops / 1e9:.3f} GFLOP)", flush=True)
+              f"{ops / 1e9:.3f} GFLOP) x_bound={ms / bound_ms:.2f}"
+              + (f" chained_x_bound={ch_ms / bound_ms:.2f}" if chain else ""),
+              flush=True)
         st = self.kernel_stats.setdefault(
             name, {"max_abs_err": 0.0, "case": case, "ms": ms,
                    "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -418,7 +447,7 @@ class Smoke:
              [R(N // 2, nn, B, scale=0.1) for _ in range(depth - 1)],
              R(N // 4, nn, B), R(N // 4, n * m, B)],
             dict(depth=depth, n=n, m=m),
-            sweep_ops(N, B, 0, depth - 1, depth - 1, N // 4),
+            sweep_ops(N, B, 0, depth - 1, depth - 1, N // 4), chain=True,
         )
         # B2 at levels 0, 3, 7 (the first, a middle and the top level).
         for level in (0, 3, depth - 1):
@@ -532,7 +561,7 @@ class Smoke:
                  R(N // 4, xx, B), R(N // 4, ux, B)],
                 dict(blk, depth=depth),
                 sweep_ops(N, B, 0, depth - 1, depth - 1, N // 4, nx, nu),
-                phase="phase2f",
+                phase="phase2f", chain=True,
             )
             self.compare(
                 "rhs_update_level_em", f"{tag} N={N} B={B} level=0",
@@ -575,7 +604,7 @@ class Smoke:
                  R(xx, rows(N // 4), 128), R(ux, rows(N // 4), 128)],
                 dict(blk, depth=depth, N=N),
                 sweep_ops(N, B, 0, depth - 1, depth - 1, N // 4, nx, nu),
-                phase="phase2f",
+                phase="phase2f", chain=True,
             )
             for level in (1, 3):
                 U = depth - level - 1
@@ -851,7 +880,7 @@ class Smoke:
             "leaf_schur_level0_flat", f"N={N} B={B}", f.leaf_schur_level0_flat,
             [A, Bm, q, r, S0, fs, As, Bs], dict(kw, N=N),
             sweep_ops(N, B, 0, depth - 1, depth - 1, N // 4), phase="phase2d",
-            twin=(s.leaf_schur_level0_em,
+            chain=True, twin=(s.leaf_schur_level0_em,
                   [em(A), em(Bm), em(q), em(r), gm(S0, N // 2),
                    [gm(x, N // 2) for x in fs], gm(As, N // 4),
                    gm(Bs, N // 4)], kw),
@@ -1472,14 +1501,21 @@ def main() -> int:
 
     card = nvidia_smi()
     print(card, flush=True)
-    t0 = time.perf_counter()
-    lib = _build.build()
-    build_s = time.perf_counter() - t0
+    small = [src for src in _build.SOURCES
+             if src.name in ("schur_kernels.cu", "flat_kernels.cu")]
+    with ThreadPoolExecutor(len(small)) as pool:
+        reports = [pool.submit(_build.ptxas_report, src) for src in small]
+        t0 = time.perf_counter()
+        lib = _build.build()
+        build_s = time.perf_counter() - t0
+        ptxas = [line for r in reports
+                 for line in leaf_ptxas(_build, r.result())]
     _build.load()
     print(f"phase1 device={torch.cuda.get_device_name(0)} "
           f"count={torch.cuda.device_count()} torch={torch.__version__} "
           f"cuda={torch.version.cuda} build_s={build_s:.2f} lib={lib.name}",
           flush=True)
+    print("\n".join(ptxas), flush=True)
 
     smoke = Smoke(torch, pt, schur, planes, flat, probe, dev)
     phases = (

@@ -14,9 +14,10 @@
 //   * wide (8, 8): n <= 8 < m <= MAX_INPUT_DIM, both at run time. The u rows
 //     are independent of each other in every update (u -= MU @ f, and the
 //     leaf value R^-1 B' is taken row by row since R is diagonal), so the
-//     kernels take them in chunks of MP = 8 rows (``chunks``), each chunk
-//     like the (8, 8) capacity's u block; the one sum over m, the product
-//     emission's B_sep @ u[r], reads u[r] back from device memory.
+//     RHS kernels take them in chunks of MP = 8 rows (``chunks``) and the
+//     row-group kernels (row_groups.cuh, leaf_rows.cuh) loop over more row
+//     groups; the one sum over m, the product emission's B_sep @ u[r],
+//     reads u[r] back from device memory.
 // So every small block the solver routes to these kernels (1 <= n <= 8,
 // 1 <= m <= 64: the reference's small-block Schur kernels are gated on n
 // alone) has one, and the path's own (6, 3) pays nothing for the others.
@@ -101,17 +102,6 @@ __device__ __forceinline__ void load_blk(float (&r)[R * C], int rows,
 #pragma unroll
     for (int j = 0; j < C; ++j)
       r[i * C + j] = (i < rows && j < cols) ? at(i * cols + j) : 0.0f;
-}
-
-// (M @ f)[i, c] for register blocks M (p x n, stride NP) and f (n x n,
-// stride NP), zero past n: the terms past n add exact zeros.
-template <int NP>
-__device__ __forceinline__ float dot_row(const float* M, int i,
-                                         const float* f, int c) {
-  float acc = M[i * NP] * f[c];
-#pragma unroll
-  for (int j = 1; j < NP; ++j) acc += M[i * NP + j] * f[j * NP + c];
-  return acc;
 }
 
 }  // namespace small_blocks

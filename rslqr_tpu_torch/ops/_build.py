@@ -15,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -31,7 +32,8 @@ SOURCES = (
 )
 # Included by the small-block sources (schur_kernels.cu, flat_kernels.cu).
 HEADERS = (_PKG / "csrc" / "small_blocks.cuh",
-           _PKG / "csrc" / "row_groups.cuh")
+           _PKG / "csrc" / "row_groups.cuh",
+           _PKG / "csrc" / "leaf_rows.cuh")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -144,6 +146,23 @@ def ptxas_report(source: Path) -> str:
     return out.stdout + out.stderr
 
 
+def ptxas_kernels(report: str) -> dict:
+    """``{mangled kernel name: (registers, stack bytes, spill store bytes,
+    spill load bytes)}`` from a :func:`ptxas_report`."""
+    out, name, frame = {}, None, (0, 0, 0)
+    for line in report.splitlines():
+        if "Function properties for " in line:
+            name = line.split("Function properties for ")[1].strip()
+            frame = (0, 0, 0)
+        elif "bytes stack frame" in line and name:
+            frame = tuple(int(w) for w in re.findall(r"(\d+) bytes", line))
+        elif "Used " in line and " registers" in line and name:
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            out[name] = (regs, *frame)
+            name = None
+    return out
+
+
 @functools.lru_cache(maxsize=None)
 def load() -> ctypes.CDLL:
     """Build if needed, load, and declare every C entry point's types."""
@@ -158,7 +177,7 @@ def load() -> ctypes.CDLL:
         "rslqr_schur_update_pair": [P] * 3 + [PP] * 4 + [P, PP, P, P, PP]
         + [I] * 10 + [P],
         "rslqr_leaf_schur_level0": [P] * 5 + [PP] + [P] * 2 + [PP] * 4
-        + [I] * 5 + [P],
+        + [I] * 8 + [P],
         # csrc/planes_kernels.cu
         "rslqr_pgemm": [P] * 3 + [I] * 4 + [P],
         "rslqr_schur_update_planes": [P] * 3 + [I] * 7 + [P],
@@ -174,7 +193,7 @@ def load() -> ctypes.CDLL:
         "rslqr_flat_schur_update_level": [P] * 3 + [PP] * 4 + [P] * 2 + [PP]
         + [I] * 10 + [P],
         "rslqr_flat_leaf_schur_level0": [P] * 5 + [PP] + [P] * 2 + [PP] * 4
-        + [I] * 5 + [P],
+        + [I] * 8 + [P],
         # csrc/probe_kernels.cu
         "rslqr_pgemm_ib": [P] * 3 + [I] * 6 + [P],
         "rslqr_fma_peak": [P] * 2 + [I] * 2 + [P],

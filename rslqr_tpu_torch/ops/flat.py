@@ -30,7 +30,8 @@ from typing import Optional, Sequence
 import torch
 
 from . import schur
-from .schur import _check, _launch, _level_plan, _ptr, _ptrs, kernel_applies
+from .schur import (_check, _launch, _level_plan, _ptr, _ptrs, _stacked,
+                    kernel_applies)
 
 
 # ---------------------------------------------------------------------------
@@ -73,7 +74,8 @@ def flat_ok(N: int, B: int, dtype) -> bool:
 # flat_level_kernel's block and launch plan are the row-group level
 # update's (ops/schur.py:_level_plan): B10 runs its own kernel of that
 # design at n, m <= 8 (one slot per row group) and csrc/row_groups.cuh's at
-# the wide blocks.
+# the wide blocks; B11 runs csrc/leaf_rows.cuh's on the pair kernel's
+# emitting plan.
 
 
 def _flat_emits(level: int, N: int) -> bool:
@@ -248,10 +250,13 @@ def leaf_schur_level0_flat(
     into its slab).
 
     Returns ``(Fls, Fxs, Fus, S_next)``: per-level tuples of length
-    ``depth`` (new tensors) and the list of ``depth-1`` level-1 products.
+    ``depth`` (new tensors; on the kernel route, views of one allocation
+    per kind) and the list of ``depth-1`` level-1 products.
 
     Replaces ``rslqr_tpu/ops/schur_planes.py:leaf_schur_level0_flat``.
-    Kernel: ``flat_leaf_kernel``.
+    Kernel: B3's ``leaf_row_kernel`` (``csrc/leaf_rows.cuh``) on the
+    element-major compacts, on the same plan (:func:`_level_plan` with
+    ``pair``).
     """
     if depth < 2:
         raise ValueError("the fused leaf needs a tree of depth >= 2")
@@ -271,19 +276,18 @@ def leaf_schur_level0_flat(
         + [(nn, r0, 128)] * U + [(nn, r1, 128), (mn, r1, 128)],
         n, m, A.device,
     )
-    new = lambda *s: torch.empty(s, device=A.device)
-    Fls = [new(nn, R, 128) for _ in range(depth)]
-    Fxs = [new(nn, R, 128) for _ in range(depth)]
-    Fus = [new(mn, R, 128) for _ in range(depth)]
-    S = [new(nn, r1, 128) for _ in range(U)]
+    Fls, Fxs, Fus, S = _stacked(A.device, (depth, nn, R, 128),
+                                (depth, nn, R, 128), (depth, mn, R, 128),
+                                (U, nn, r1, 128))
+    plan = _level_plan(N, Bb, True, n, m, pair=True)
     _launch(
         "rslqr_flat_leaf_schur_level0", A.device,
         _ptr(A), _ptr(B), _ptr(qinv), _ptr(rinv), _ptr(S0), _ptrs(fsol),
         _ptr(Asep), _ptr(Bsep), _ptrs(Fls), _ptrs(Fxs), _ptrs(Fus), _ptrs(S),
-        depth, N, Bb, n, m,
+        depth, N, Bb, n, m, plan.shift, plan.grid[1], sum(plan.groups),
     )
     leaf_schur_level0_flat.launches += 1
-    return tuple(Fls), tuple(Fxs), tuple(Fus), S
+    return Fls, Fxs, Fus, list(S)
 
 
 def rhs_update_level_flat(

@@ -46,9 +46,10 @@ contiguous in a warp, so every slab load and store is a coalesced 128-byte
 line; the level-L multiplier blocks are loaded into registers once and
 reused for every upper level (the TPU kernels' VMEM reuse); and the
 next-level products are emitted from the values just computed, so the
-products stage re-reads no slab. B2 and B3 run one thread per (knot,
-batch column); B1 and B4 split each knot's slab rows into groups of three,
-one thread each (:func:`_level_plan`, ``csrc/row_groups.cuh``).
+products stage re-reads no slab. B2 runs one thread per (knot, batch
+column); B1, B3 and B4 split each knot's slab rows into groups of three,
+one thread each (:func:`_level_plan`, ``csrc/row_groups.cuh``,
+``csrc/leaf_rows.cuh``).
 """
 
 from __future__ import annotations
@@ -94,8 +95,8 @@ def _pair_emits(level: int, N: int, B: int, U: int, n: int, m: int) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# Launch geometry of the row-group level update (csrc/row_groups.cuh): B1
-# here, and B10 in ops/flat.py.
+# Launch geometry of the row-group kernels (csrc/row_groups.cuh,
+# csrc/leaf_rows.cuh): B1, B3 and B4 here, B10 and B11 in ops/flat.py.
 # ---------------------------------------------------------------------------
 
 # A block: LEVEL_TB batch columns by up to LEVEL_SLOTS row groups of
@@ -398,6 +399,13 @@ def _ptrs(ts: Sequence[torch.Tensor]):
     return (ctypes.c_void_p * MAXU)(*(t.data_ptr() for t in ts))
 
 
+def _stacked(device, *shapes):
+    """One f32 allocation per shape ``(count, *slab)``, each returned as the
+    tuple of its ``count`` contiguous slabs: the fused leaf's outputs, in
+    four allocations instead of one per slab."""
+    return tuple(torch.empty(s, device=device).unbind(0) for s in shapes)
+
+
 def _launch(fn_name: str, device, *args):
     """Call one C launcher on the device's current stream; raise on any
     CUDA error it reports (cudaGetLastError right after the launch)."""
@@ -609,11 +617,14 @@ def leaf_schur_level0_em(
     into its slab).
 
     Returns ``(Fls, Fxs, Fus, S_next)``: per-level tuples of length
-    ``depth`` (new tensors) and the list of ``depth-1`` level-1 products.
+    ``depth`` (new tensors; on the kernel route, views of one allocation
+    per kind) and the list of ``depth-1`` level-1 products.
 
     Replaces ``rslqr_tpu/ops/schur_pallas.py:leaf_schur_level0_em``.
-    Kernel: ``leaf_kernel`` (reads 63 floats of problem data per knot and
-    batch column, writes ``depth`` slab trios).
+    Kernel: ``leaf_row_kernel`` (``csrc/leaf_rows.cuh``, on the pair
+    kernel's emitting plan, :func:`_level_plan` with ``pair``: reads 63
+    floats of problem data per knot and batch column at (6, 3), writes each
+    element of the ``depth`` slab trios once).
     """
     if depth < 2:
         raise ValueError("the fused leaf needs a tree of depth >= 2")
@@ -631,19 +642,18 @@ def leaf_schur_level0_em(
         + [(G0, nn, Bb)] * U + [(G1, nn, Bb), (G1, mn, Bb)],
         n, m, A.device,
     )
-    new = lambda *s: torch.empty(s, device=A.device)
-    Fls = [new(nn, N, Bb) for _ in range(depth)]
-    Fxs = [new(nn, N, Bb) for _ in range(depth)]
-    Fus = [new(mn, N, Bb) for _ in range(depth)]
-    S = [new(G1, nn, Bb) for _ in range(U)]
+    Fls, Fxs, Fus, S = _stacked(A.device, (depth, nn, N, Bb),
+                                (depth, nn, N, Bb), (depth, mn, N, Bb),
+                                (U, G1, nn, Bb))
+    plan = _level_plan(N, Bb, True, n, m, pair=True)
     _launch(
         "rslqr_leaf_schur_level0", A.device,
         _ptr(A), _ptr(B), _ptr(qinv), _ptr(rinv), _ptr(S0), _ptrs(fsol),
         _ptr(Asep), _ptr(Bsep), _ptrs(Fls), _ptrs(Fxs), _ptrs(Fus), _ptrs(S),
-        depth, N, Bb, n, m,
+        depth, N, Bb, n, m, plan.shift, plan.grid[1], sum(plan.groups),
     )
     leaf_schur_level0_em.launches += 1
-    return tuple(Fls), tuple(Fxs), tuple(Fus), S
+    return Fls, Fxs, Fus, list(S)
 
 
 KERNEL_WRAPPERS = (

@@ -16,7 +16,10 @@ the block sizes of their generic instantiations, (n, m) = (4, 2), (3, 2),
 (4, 1), (1, 1), (8, 8), (5, 4) and (7, 5), B1 and B10 with their last row
 groups masked, and at wide inputs (n <= 8 < m <= 64: (6, 12), (1, 9),
 (5, 33), (8, 64)), where B1 and B10 loop over more row groups than a
-block has slots. Default-option solves (``solve_kkt``,
+block has slots. The fused leaf (B3 and B11, one row-group kernel) also
+runs at depth 2 and 8, at one batch column and ragged strips, with masked
+last row groups and wide blocks, on outputs the allocator last held as NaN
+(every element written). Default-option solves (``solve_kkt``,
 ``solve_pscan_kkt``) in f64 at nx=6 and 36 launch no kernel (f64 runs the
 plain stages), in f32 at (n, m) = (4, 2), (8, 8) and (6, 12) they launch
 the small-block kernels (em and flat schedule), and all equal
@@ -149,6 +152,75 @@ def test_leaf_kernel(dev, N, B):
             R(N // 4, nn, B), R(N // 4, n * m, B)]
     ks, ps, *_ = _both(schur.leaf_schur_level0_em, args,
                        dict(depth=depth, n=n, m=m))
+    _assert_match(ks, ps)
+
+
+def _tensors(out):
+    res = []
+    for o in out:
+        res.extend(o if isinstance(o, (list, tuple)) else [o])
+    return res
+
+
+def _leaf_args(g, dev, N, B, bn, bm, kind):
+    """Random arguments of B3 (``kind`` "em": group-major compacts) or B11
+    ("flat": flat planes, element-major compacts) at block (bn, bm)."""
+    xx, ux = bn * bn, bm * bn
+    depth = N.bit_length() - 1
+    R = lambda *s: _rand(g, dev, *s)
+    pos = lambda *s: (0.5 + torch.rand(s, generator=g)).to(dev)
+    args = [R(xx, N, B), R(ux, N, B), pos(bn, N, B), pos(bm, N, B),
+            R(N // 2, xx, B), [R(N // 2, xx, B) for _ in range(depth - 1)],
+            R(N // 4, xx, B), R(N // 4, ux, B)]
+    if kind == "em":
+        return schur.leaf_schur_level0_em, args, dict(depth=depth)
+    plane = lambda x: x.reshape(x.shape[0], -1, 128)
+    compact = lambda x: x.transpose(0, 1).contiguous().reshape(
+        x.shape[1], -1, 128)
+    return flat.leaf_schur_level0_flat, (
+        [plane(x) for x in args[:4]] + [compact(args[4]),
+                                        [compact(x) for x in args[5]],
+                                        compact(args[6]), compact(args[7])]
+    ), dict(depth=depth, N=N)
+
+
+# The fused leaf's shapes: depth 2 (N=4) and 8 (N=256), one batch column
+# and a ragged strip of them (em: B = 1, 33; flat, whose compacts need
+# N/4 * B to be a multiple of 128: B = 128 at N=4, 2 and 34 at N=256);
+# blocks with the last row group masked ((7, 5), (5, 4)) and wide blocks
+# with more row groups than slots ((5, 33): 15 in 8; (8, 64): 28 in 8).
+LEAF_SHAPES = [("em", 4, 1), ("em", 4, 33), ("em", 256, 1), ("em", 256, 33),
+               ("flat", 4, 128), ("flat", 256, 2), ("flat", 256, 34)]
+LEAF_BLOCKS = [(6, 3), (1, 1), (7, 5), (5, 4), (5, 33), (8, 64)]
+
+
+@pytest.mark.parametrize("bn,bm", LEAF_BLOCKS)
+@pytest.mark.parametrize("kind,N,B", LEAF_SHAPES)
+def test_leaf_kernels_write_every_element(dev, kind, N, B, bn, bm):
+    """B3 and B11 (one shared row-group kernel) write every output element
+    once: the caching allocator hands them memory it last held as NaN (the
+    outputs' own allocations, filled and freed just before the call), and
+    no NaN is left; each element equals the plain twin's; one launch."""
+    g = torch.Generator().manual_seed(1300 + 10 * bn + bm + N + B)
+    fn, args, kw = _leaf_args(g, dev, N, B, bn, bm, kind)
+    kw = dict(kw, n=bn, m=bm)
+    clone = lambda: [[x.clone() for x in a] if isinstance(a, list)
+                     else a.clone() for a in args]
+    kargs, pargs = clone(), clone()
+    first = fn(*clone(), **kw)
+    shapes = [s for o in first for s in
+              [(len(o), *o[0].shape)] + [x.shape for x in o]]
+    del first
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    nan = [torch.full(s, float("nan"), device=dev) for s in shapes]
+    del nan
+    before = fn.launches
+    ks = _tensors(fn(*kargs, **kw))
+    assert fn.launches == before + 1
+    torch.cuda.synchronize()
+    assert not any(bool(torch.isnan(k).any()) for k in ks)
+    ps = _tensors(fn(*pargs, kernels="off", **kw))
     _assert_match(ks, ps)
 
 

@@ -35,8 +35,10 @@ same timings of one PyTorch library call where there is one
 every slab row for B1, B2, B9, B10, B12 and ``lam_level``). ``--sets``
 takes some of the case sets: ``sweep`` (the small-block kernels),
 ``plane`` (B5, B9, ``lam_level``), ``pcho`` (B7), ``pchol`` (B6), ``plu``
-(B8), ``flagged`` and ``flat`` (B10); B6's and B8's library calls are
-timed single only. The clock is the timed tree's
+(B8), ``flagged``, ``flat`` (B10) and ``leaf`` (B3 and B11 at
+chip_smoke.py's phase-2f blocks, (n, m) = (4, 2), (8, 8), (5, 4), (6, 12)
+and (8, 64), N=256, B=1024); B6's and B8's library calls are timed single
+only. The clock is the timed tree's
 ``bench_kernels.launch_ms``/``chain_ms``. To compare two trees, unpack the
 other one (``git archive``) into a git-ignored directory and run the
 script on both in one machine, alternating: A, B, B, A.
@@ -51,7 +53,9 @@ from pathlib import Path
 
 CONFIGS = {"small": (256, 6, 3, 1024), "quad": (512, 36, 12, 256)}
 # The --kernels case sets (all by default).
-SETS = ("sweep", "plane", "pcho", "pchol", "plu", "flagged", "flat")
+SETS = ("sweep", "plane", "pcho", "pchol", "plu", "flagged", "flat", "leaf")
+# The other and wide small blocks of chip_smoke.py's phase 2f.
+LEAF_BLOCKS = ((4, 2), (8, 8), (5, 4), (6, 12), (8, 64))
 
 
 # The quadruped scan's flagged products (chip_smoke.py phase 2c): label,
@@ -196,23 +200,8 @@ def sweep_times(torch, schur, flat, R):
     out = {}
     N = 256
     depth = N.bit_length() - 1
-    pos = lambda *s: 0.5 + torch.rand(s, device="cuda")
     # B3 and B11: the fused leaf at depth 8.
-    leaf = [R(nn, N, B), 0.2 * R(mn, N, B), pos(n, N, B), pos(m, N, B),
-            R(N // 2, nn, B), [0.1 * R(N // 2, nn, B) for _ in range(depth - 1)],
-            R(N // 4, nn, B), R(N // 4, mn, B)]
-    out["B3 N=256"] = _pair(
-        torch, lambda *a: schur.leaf_schur_level0_em(*a, depth=depth, n=n,
-                                                     m=m), lambda: leaf)
-    rows = lambda G: G * B // 128
-    fl = lambda x: x.reshape(x.shape[0], -1, 128) if x.shape[1] == N else (
-        x.transpose(0, 1).reshape(x.shape[1], -1, 128))
-    fleaf = [fl(x) if not isinstance(x, list) else [fl(y) for y in x]
-             for x in leaf]
-    out["B11 N=256"] = _pair(
-        torch, lambda *a: flat.leaf_schur_level0_flat(
-            *a, depth=depth, n=n, m=m, N=N), lambda: fleaf)
-    del leaf, fleaf
+    out.update(_leaf_pair(torch, schur, flat, R, n, m, ""))
     # B2 and B12 at level 0.
     G = N // 2
     FL = [R(nn, N, B), R(nn, N, B), R(mn, N, B)]
@@ -396,6 +385,40 @@ def plu_times(torch, planes, R):
     return out
 
 
+def _leaf_pair(torch, schur, flat, R, n, m, tag):
+    """``{case: (single ms, chained ms)}`` of B3 and B11 on the same data at
+    block (n, m), N=256, B=1024, depth 8."""
+    N, B = 256, 1024
+    depth = N.bit_length() - 1
+    xx, ux = n * n, m * n
+    pos = lambda *s: 0.5 + torch.rand(s, device="cuda")
+    leaf = [R(xx, N, B), 0.2 * R(ux, N, B), pos(n, N, B), pos(m, N, B),
+            R(N // 2, xx, B),
+            [0.1 * R(N // 2, xx, B) for _ in range(depth - 1)],
+            R(N // 4, xx, B), R(N // 4, ux, B)]
+    out = {f"B3 {tag}N=256": _pair(
+        torch, lambda *a: schur.leaf_schur_level0_em(
+            *a, depth=depth, n=n, m=m), lambda: leaf)}
+    fl = lambda x: x.reshape(x.shape[0], -1, 128) if x.shape[1] == N else (
+        x.transpose(0, 1).reshape(x.shape[1], -1, 128))
+    fleaf = [fl(x) if not isinstance(x, list) else [fl(y) for y in x]
+             for x in leaf]
+    del leaf
+    out[f"B11 {tag}N=256"] = _pair(
+        torch, lambda *a: flat.leaf_schur_level0_flat(
+            *a, depth=depth, n=n, m=m, N=N), lambda: fleaf)
+    return out
+
+
+def leaf_times(torch, schur, flat, R):
+    """``{case: (single ms, chained ms)}`` of B3 and B11 at the other and
+    wide small blocks."""
+    out = {}
+    for n, m in LEAF_BLOCKS:
+        out.update(_leaf_pair(torch, schur, flat, R, n, m, f"n={n} m={m} "))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
@@ -464,7 +487,8 @@ def main() -> int:
                 "pchol": lambda: pchol_times(torch, planes, R),
                 "plu": lambda: plu_times(torch, planes, R),
                 "flagged": lambda: flagged_times(torch, planes, R),
-                "flat": lambda: flat_level_times(torch, flat, R)}
+                "flat": lambda: flat_level_times(torch, flat, R),
+                "leaf": lambda: leaf_times(torch, schur, flat, R)}
         times = {}
         for name in args.sets.split(","):
             times.update(runs[name]())
