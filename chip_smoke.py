@@ -8,9 +8,10 @@ Phases, each printing one line of numbers:
 1. device: the card's name and power limit (nvidia-smi), then the kernel
    build from ``rslqr_tpu_torch/csrc/*.cu`` (one nvcc per source, in
    parallel, timed), and beside it a ``-Xptxas -v`` compile of the two
-   small-block sources: the registers, stack and spills of every
-   instantiation of the fused leaf kernel (B3 and B11,
-   ``csrc/leaf_rows.cuh``);
+   small-block sources and of ``csrc/probe_kernels.cu``: the registers,
+   stack and spills of every instantiation of the fused leaf kernel (B3 and
+   B11, ``csrc/leaf_rows.cuh``) and of the probe kernels (P1 at every ib,
+   column tile and t1; P2);
 2. each of the four small-block sweep kernels (B1-B4) against its plain
    PyTorch version on clones of the same random f32 inputs, at the small
    path's shapes (N=256, B=1024; B1 at N=128 and with level pairing off),
@@ -69,9 +70,9 @@ Phases, each printing one line of numbers:
 2e. the two probe kernels of ``probes/probe_pgemm.py`` the same way, at
    the probe's shapes: P1 ``pgemm_ib`` (p = K = q = 36, F = 512*128) at
    every ib (1, 2, 4) and t1 (8, 16 warps per block), each beside one
-   ``torch.matmul`` on mat-last views, and P2 ``fma_peak`` at a shape that
-   fills the card (F = 132*2048*4, reps = 32768) and at the probe's (F =
-   512*128, reps = 4096);
+   ``torch.matmul`` on mat-last views, both also chained, and P2
+   ``fma_peak`` at a shape that fills the card (F = 132*2048*4, reps =
+   32768) and at the probe's (F = 512*128, reps = 4096);
 2f. B1-B4 and B10-B12 the same way at the other small block sizes, (n, m)
    = (4, 2), (8, 8), (5, 4) (the generic instantiations of
    ``csrc/small_blocks.cuh``), and the wide inputs (6, 12) and (8, 64) (its
@@ -95,7 +96,11 @@ Phases, each printing one line of numbers:
    with the launch counts of that run (set to 0 just before it); 6b
    ``probe_pgemm.main(["--rounds", "1"])``, with the probe kernels' launch
    counts of that run (wrapper calls: the eager warm-ups and the graph
-   captures; replays launch without counting).
+   captures; replays launch without counting);
+7. the port's bench entry, ``bench_torch.main`` with ``BENCH_REPS=1`` and
+   its default families (rslqr, pscan, refine at N=256, B=1024; rslqr and
+   pscan on the quadruped) and gates: exit 0, and its JSON line printed as
+   a line of its own.
 
 Then a JSON line with every kernel's launches, error, times and bound, and
 last ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
@@ -106,7 +111,6 @@ import itertools
 import json
 import re
 import statistics
-import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -197,16 +201,6 @@ nn, mn = n * n, m * n
 EXTRA_BLOCKS = ((4, 2), (8, 8), (5, 4), (6, 12), (8, 64))
 
 
-def nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0] if out.stdout.strip() else (
-        "nvidia-smi: " + out.stderr.strip())
-
-
 def leaf_ptxas(build, report: str):
     """One line per instantiation of the fused leaf kernel in a
     ``-Xptxas -v`` report: block tag, layout, registers, stack and spills."""
@@ -224,6 +218,21 @@ def leaf_ptxas(build, report: str):
         lines.append(f"phase1 ptxas leaf_row_kernel {tag} {lay}: {regs} "
                      f"registers, {stack} bytes stack, {st}/{ld} bytes spill "
                      f"stores/loads")
+    return lines
+
+
+def probe_ptxas(build, report: str):
+    """One line per kernel of ``csrc/probe_kernels.cu`` in a ``-Xptxas -v``
+    report: P1's (ib, column tile, warps) or P2, registers, stack and
+    spills."""
+    lines = []
+    for name, (regs, stack, st, ld) in sorted(
+            build.ptxas_kernels(report).items()):
+        m = re.search(r"pgemm_ib_kernelILi(\d+)ELi(\d+)ELi(\d+)E", name)
+        what = (f"pgemm_ib_kernel ib={m[1]} TC={m[2]} t1={m[3]}" if m
+                else "fma_peak_kernel" if "fma_peak" in name else name)
+        lines.append(f"phase1 ptxas {what}: {regs} registers, {stack} bytes "
+                     f"stack, {st}/{ld} bytes spill stores/loads")
     return lines
 
 
@@ -348,7 +357,7 @@ class Smoke:
 
     def compare(self, name, case, fn, args, kwargs, ops, library=None,
                 moved=None, phase="phase2", twin=None, chain=False,
-                chain_library=True):
+                chain_library=True, chain_args=None):
         """Kernel vs plain on clones of ``args``; record error, times and
         the bound of the first case of each kernel. ``ops``: the FLOPs the
         call does; ``library``: ``(fn, args)`` of one PyTorch call on the
@@ -360,7 +369,9 @@ class Smoke:
         times include the wrapper's host time while the card idles);
         ``chain_library=False``: the library call single only (the batched
         Cholesky calls go through MAGMA, whose queue setup fails once such a
-        call has been captured in a CUDA graph)."""
+        call has been captured in a CUDA graph); ``chain_args``: the
+        kernel's arguments for the chained time in place of ``args`` (an
+        in-place chain whose values must stay normal over every call)."""
         t = self.torch
         clones = lambda: clone_args(args)
 
@@ -407,7 +418,7 @@ class Smoke:
             extra = f" em_twin_ms={twin_ms:.4f} ({tw_fn.__name__})"
         ch_ms = ch_lib = None
         if chain:
-            a = clones()
+            a = clone_args(args if chain_args is None else chain_args)
             ch_ms = self.chained(lambda: fn(*a, **kwargs))
             if library is not None and chain_library:
                 ch_lib = self.chained(lambda: lib_fn(*lib_args))
@@ -656,6 +667,8 @@ class Smoke:
         """B5, B6, B7, B9 at the quadruped path's level-0 shapes (G=256
         groups of the N=512 horizon, B=256), B9 also at the top level and
         with one column, and one case each at n=12, m=4."""
+        from rslqr_tpu_torch.bench_kernels import chain_spd
+
         t, pl, R = self.torch, self.planes, self.drand
         ml = self.mat_last
         G, Bb = QN // 2, QB
@@ -684,6 +697,10 @@ class Smoke:
         # B7 at the quadruped rsLQR's shapes: the separator solves at level
         # 0 (G=256 groups) and level 4 (G=16), w=36, and the RHS sweep's
         # w=1; then n=12 and, under a raised threshold (C6), n=16.
+        # The comparison's blocks give L's off-diagonal entries an O(1)
+        # share of the answer. The chain solves in place, so its own blocks
+        # keep X normal over every call of the timing
+        # (bench_kernels.chain_spd).
         for d, w, Gs in ((QX, QX, G), (QX, QX, G >> 4), (QX, 1, G),
                          (12, 12, G), (16, 16, G)):
             Lc = pl.pchol_plain(self.spd(d, Gs, Bb))
@@ -697,6 +714,7 @@ class Smoke:
                 # written.
                 moved=4 * Fs * (d * (d + 1) // 2 + 2 * d * w), chain=True,
                 chain_library=False,
+                chain_args=[pl.pchol_plain(chain_spd(R(Gs, Bb, d, d))), X],
             )
         depth = QN.bit_length() - 1
         for nx, nu, q, level in ((QX, QU, QX, 0), (QX, QU, QX, depth - 2),
@@ -968,7 +986,7 @@ class Smoke:
                     "pgemm_ib", f"ib={ib} t1={t1} {p}x{K}.{K}x{q} F={F}",
                     lambda a, b, **k: (pr.pgemm_ib(a, b, **k),), [A, Bm],
                     dict(ib=ib, t1=t1), 2 * p * K * q * F, lib,
-                    phase="phase2e",
+                    phase="phase2e", chain=True,
                 )
         del A, Bm, lib
         for Fx, reps in FMA_CASES[::-1]:
@@ -1454,6 +1472,49 @@ class Smoke:
             self.check(counts[k] > 0, f"probe_pgemm: {k} launched no time")
         print(f"phase6b launches: {json.dumps(counts)}", flush=True)
 
+    # -- phase 7 ---------------------------------------------------------
+    def bench_entry(self, bench_torch, card):
+        """``bench_torch.main`` with BENCH_REPS=1 and its default families
+        (the environment's other BENCH_ variables set aside): exit 0, one
+        JSON line with every family's statistics and the card, printed here
+        as a line of its own."""
+        import contextlib
+        import io
+        import os
+
+        t = self.torch
+        saved = {k: os.environ.pop(k) for k in list(os.environ)
+                 if k.startswith("BENCH_")}
+        os.environ["BENCH_REPS"] = "1"
+        out = io.StringIO()
+        t.cuda.empty_cache()
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = bench_torch.main()
+        finally:
+            del os.environ["BENCH_REPS"]
+            os.environ.update(saved)
+        lines = out.getvalue().strip().splitlines()
+        self.check(rc == 0, f"bench_torch exited with {rc}")
+        self.check(len(lines) == 1, f"bench_torch printed {len(lines)} "
+                                    f"lines on stdout")
+        if not lines:
+            return
+        print(lines[-1], flush=True)
+        rec = json.loads(lines[-1])
+        self.check(set(rec) == {"metric", "value", "unit", "detail",
+                                "device"} and rec["device"] == card,
+                   f"bench_torch line keys {sorted(rec)}, device "
+                   f"{rec.get('device')!r}")
+        d = rec.get("detail", {})
+        for fam in ("pscan", "rslqr", "refine", "rslqr_quadruped",
+                    "pscan_quadruped"):
+            ms = d.get(fam, {}).get("ms_per_batched_solve", float("nan"))
+            self.check(0 < ms < 1e5, f"bench_torch {fam}: {ms} ms")
+        print(f"phase7 bench_torch: rc={rc} " + " ".join(
+            f"{k}={v['ms_per_batched_solve']:.3f}ms" for k, v in d.items()
+            if isinstance(v, dict) and "median" in v), flush=True)
+
     # -- phase 4 ---------------------------------------------------------
     def time_solves(self, card, b, reps, label, solve=None):
         """Median host-clock ms per batched solve (CUDA-synchronized), the
@@ -1487,7 +1548,9 @@ def main() -> int:
     try:
         import torch
 
+        import bench_torch
         import rslqr_tpu_torch as pt
+        from rslqr_tpu_torch.bench_kernels import device_name
         from rslqr_tpu_torch.ops import _build, flat, planes, probe, schur
     except ImportError as exc:
         print(f"chip_smoke: cannot import the port: {exc}", file=sys.stderr)
@@ -1499,17 +1562,21 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
 
-    card = nvidia_smi()
+    card = device_name(dev)
     print(card, flush=True)
     small = [src for src in _build.SOURCES
              if src.name in ("schur_kernels.cu", "flat_kernels.cu")]
-    with ThreadPoolExecutor(len(small)) as pool:
+    probe_src = next(src for src in _build.SOURCES
+                     if src.name == "probe_kernels.cu")
+    with ThreadPoolExecutor(len(small) + 1) as pool:
         reports = [pool.submit(_build.ptxas_report, src) for src in small]
+        probe_report = pool.submit(_build.ptxas_report, probe_src)
         t0 = time.perf_counter()
         lib = _build.build()
         build_s = time.perf_counter() - t0
         ptxas = [line for r in reports
                  for line in leaf_ptxas(_build, r.result())]
+        ptxas += probe_ptxas(_build, probe_report.result())
     _build.load()
     print(f"phase1 device={torch.cuda.get_device_name(0)} "
           f"count={torch.cuda.device_count()} torch={torch.__version__} "
@@ -1560,6 +1627,7 @@ def main() -> int:
                           f"B={BATCH}", smoke.refined_solve))),
         ("phase6", smoke.bench_sections),
         ("phase6b", smoke.probe_entry),
+        ("phase7", lambda: smoke.bench_entry(bench_torch, card)),
     )
     for name, run in phases:
         t0 = time.perf_counter()

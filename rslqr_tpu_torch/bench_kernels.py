@@ -44,6 +44,7 @@ from __future__ import annotations
 import json
 import os
 import statistics
+import subprocess
 import sys
 import time
 
@@ -378,6 +379,39 @@ def chain_diff(make_run, K, reps, device):
         del f1, fK  # the graphs and their memory pools
     torch.cuda.empty_cache()
     return min(ts), first_s
+
+
+def chain_spd(M: torch.Tensor) -> torch.Tensor:
+    """SPD blocks ``[d, d, *plane]`` for timing B7 (``pcho_solve``, which
+    solves ``(L L') X = B`` in place on X) chained, from ``M [*plane, d,
+    d]`` of standard normal entries: ``I + M M' / (25 d)``, every
+    eigenvalue in about [1, 1.16] (the largest of ``M M'`` is about 4 d).
+    The chain carries X through every call of a timing (:func:`chain_diff`'s
+    warm-ups and replays: 55 at K=10 and 3 reps), so X never grows and
+    shrinks by at most 1.16x a call; ``M M' + d I`` shrinks it d-fold a
+    call, into subnormals within ~25 calls, and eigenvalues that straddle 1
+    trade that for overflow."""
+    d = M.shape[-1]
+    S = torch.eye(d, dtype=M.dtype, device=M.device) + (
+        M @ M.transpose(-1, -2)) / (25 * d)
+    return S.movedim((-2, -1), (0, 1)).contiguous()
+
+
+def device_name(device) -> str:
+    """The card's name and power limit, as nvidia-smi gives them ("cpu" for
+    a run on the CPU)."""
+    if torch.device(device).type != "cuda":
+        return "cpu"
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        out = ""
+    if out:
+        return out.splitlines()[0]
+    return f"{torch.cuda.get_device_name(0)}, power limit not read"
 
 
 def chain_ms(call, device="cuda", K: int = 10, reps: int = 3) -> float:

@@ -44,8 +44,9 @@ under ``sym``), ``schur_update_planes`` masked and not,
 (also at the quadruped scan's three shapes and planes), and
 the pscan slice at small sizes. The probe kernels (``ops/probe.py``):
 ``pgemm_ib`` at every ``ib`` and ``t1``, with rows left over past a
-multiple of ``ib``, two column chunks and the 12-column chunk that a long
-contraction forces, and ``fma_peak`` with a ragged tail. Bar: ``max|kernel - plain| <= 1e-4 * (1 + max|plain|)``
+multiple of ``ib``, every column tile (12, 9, 6 and 1 columns) with q not a
+multiple of it, K = 64 and planes not a multiple of 32, and ``fma_peak``
+with a ragged tail. Bar: ``max|kernel - plain| <= 1e-4 * (1 + max|plain|)``
 (summation order only; the f32 atol of tests/test_pallas_ops.py:110-118).
 """
 
@@ -877,7 +878,13 @@ def test_pscan_kernel_path_matches_plain(dev, n, m, N, B, chunk, batched):
 @pytest.mark.parametrize("t1", probe.T1S)
 @pytest.mark.parametrize(
     "p,K,q,plane", [(36, 36, 36, (16, 40)), (13, 12, 12, (5, 33)),
-                    (7, 64, 64, (2, 33)), (3, 5, 1, (1, 1))],
+                    (7, 64, 64, (2, 33)), (3, 5, 1, (1, 1)),
+                    # Column tiles (9 at K = 36 and 33, 12 for K <= 32, 6 up
+                    # to 64, 1 for q = 1) with q not a multiple of the tile,
+                    # q = 1, K = 64, F not a multiple of 32, p = 64.
+                    (36, 36, 13, (3, 50)), (37, 36, 1, (700,)),
+                    (36, 64, 36, (1, 100)), (5, 33, 20, (77,)),
+                    (64, 64, 64, (1, 40))],
 )
 def test_pgemm_ib_kernel(dev, ib, t1, p, K, q, plane):
     g = torch.Generator().manual_seed(p * K + q)

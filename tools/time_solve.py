@@ -318,14 +318,17 @@ def pcho_times(torch, planes, R):
     quadruped rsLQR's separator solves, n=36: w=36 at every level's plane
     (G = 256 / 2^L groups by B=256), w=1 at levels 0 and 7; and n=w=12, 16
     at level 0 (its library call, ``cholesky_solve``, is chip_smoke.py's
-    phase 2b)."""
+    phase 2b). The chain solves in place, so L's blocks are
+    ``bench_kernels.chain_spd``'s, which keep X normal over every call."""
+    from rslqr_tpu_torch.bench_kernels import chain_spd
+
     G, Bb = 256, 256
     out = {}
     cases = ([(36, 36, level) for level in range(8)]
              + [(36, 1, 0), (36, 1, 7), (12, 12, 0), (16, 16, 0)])
     for d, w, level in cases:
         Gl = G >> level
-        Lc = planes.pchol_plain(_spd(torch, R, d, Gl, Bb))
+        Lc = planes.pchol_plain(chain_spd(R(Gl, Bb, d, d)))
         X = R(d, w, Gl, Bb)
         out[f"pcho n={d} w={w} L{level}"] = _pair(
             torch, lambda x: planes.pcho_solve(Lc, x), lambda: (X.clone(),))
