@@ -83,13 +83,33 @@ Phases, each printing one line of numbers:
    ``mxu_block_threshold=16`` (nx=12, nu=4, N=256, B=1024, f32), which
    takes the plane kernels (B7 and B9 launch, no small-block kernel) and
    equals ``kernels="off"``;
+3f. the grid and large-block slice: (a) ``solve_kkt(layout="grid")`` on
+   phase 3b's quadruped batch at full width and batch, with no hand-kernel
+   launch (as JAX's grid path reaches no Pallas kernel), its peak device
+   memory, agreement with 3b's em kernel path (3e-3 relative), the f64
+   grid solve of 4 instances against the f64 Riccati oracle and the
+   relative KKT residual; (b) ``factorize`` once and ``solve_rhs`` of the
+   batch with ``x0 + 0.1``, ``q + 0.5``, ``r - 0.25``, against a fresh grid
+   solve (bit for bit, or within 1e-6 relative); (c) the large-block route
+   (``random_problem`` N=64, nx=72, nu=24, B=32): rsLQR and pscan in f64
+   against the f64 Riccati oracle and in f32 against the f64 answer, and
+   ``solve_refined`` (2 iterations, grid branch) against the oracle; (d)
+   phase 3's first instance through the JSON writer and reader, bit for
+   bit, and ``check_solution`` / ``factorization_ok`` on a batch with one
+   poisoned instance on both layouts;
 4. time per batched solve of both slices, kernel path and
    ``kernels="off"``; 4c the same for the parallel scan; 4d for the flat
-   solve and the refined solve;
+   solve and the refined solve; 4e the grid slice in turns: the quadruped
+   grid solve beside the em kernel path, the re-solve beside the full grid
+   solve, large-block rsLQR and pscan;
 5. one batched solve of each slice (and one quadruped pscan solve, one flat
-   solve and one refined solve) traced with ``torch.profiler``: device time
-   by kernel (the top kernels and every hand kernel), device kernel
-   launches, and the device's busy share of the solve's wall time;
+   solve, one refined solve and one quadruped grid solve) traced with
+   ``torch.profiler``: device time by kernel (the top kernels and every
+   hand kernel), device kernel launches, and the device's busy share of
+   the solve's wall time (and the grid re-solve and large-block rsLQR
+   and pscan); 5b ``profile_solve`` (per-phase device and host
+   ms) on the quadruped grid batch and the small em batch, with
+   ``print_solve_summary``;
 6. the kernel-measurement entry points: ``bench_kernels``' six sections
    (update, leaf, rhs, sep, prod, planes) at their defaults, one JSON row
    per stage and level (chained, graph-replayed times with the card's name),
@@ -107,17 +127,23 @@ last ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
 without that last line; so does a machine without CUDA. Imports no JAX.
 """
 
+import dataclasses
 import itertools
 import json
+import os
 import re
 import statistics
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
 N_MAIN, N_ODD, BATCH = 256, 128, 1024
 # BASELINE.json quadruped config (bench.py:373-381): one batch on the card.
 QN, QX, QU, QB = 512, 36, 12, 256
+# The large-block coverage case of phase 3f (c): no BASELINE config has a
+# block above 64.
+LN, LX, LU, LB = 64, 72, 24, 32
 REPS = 10
 QREPS = 5
 # Chained device times (phases 2c, 2d): CUDA-graph replays of CHAIN_K
@@ -321,6 +347,15 @@ class Smoke:
         if not ok:
             self.failures.append(what)
             print(f"FAIL: {what}", flush=True)
+
+    def hand_launches(self):
+        """Every hand kernel wrapper's launches since the last reset."""
+        return {k: v for mod in (self.schur, self.flat, self.planes)
+                for k, v in mod.launch_counts().items() if v}
+
+    def reset_hand_launches(self):
+        for mod in (self.schur, self.flat, self.planes):
+            mod.reset_launch_counts()
 
     # -- inputs --------------------------------------------------------
     def rand(self, *shape, scale=1.0):
@@ -1004,13 +1039,10 @@ class Smoke:
         stages on the card) against ``kernels="off"``, with every wrapper's
         launches counted from 0 just before it; returns the rel diff."""
         t, pt = self.torch, self.pt
-        mods = (self.schur, self.flat, self.planes)
-        for mod in mods:
-            mod.reset_launch_counts()
+        self.reset_hand_launches()
         got = solve(b64)
         t.cuda.synchronize()
-        launched = {k: v for mod in mods
-                    for k, v in mod.launch_counts().items() if v}
+        launched = self.hand_launches()
         ref = solve(b64, options=pt.SolveOptions(kernels="off"))
         d = rel_err(got, ref)
         self.check(not launched and got.dtype == t.float64
@@ -1254,6 +1286,11 @@ class Smoke:
             b, iterations=2, solve_dtype=self.torch.float32,
             options=self.flat_options(options)).kkt_vector()
 
+    def grid_solve(self, b, options=None):
+        """``solve_kkt`` on the knot-major grid path."""
+        return self.pt.solve_kkt(b, options=self.pt.SolveOptions(
+            layout="grid"))
+
     def flat_checks(self):
         """The flat-plane slice on phase 3's N=256 batch, then refinement
         of the same batch in f64 on the flat schedule."""
@@ -1395,6 +1432,260 @@ class Smoke:
               f"f32: rel_diff_vs_off={d:.3e} (bar {SLICE_BAR}) launches "
               f"{json.dumps(planes_c)} small-block {json.dumps(small)}",
               flush=True)
+
+    # -- phase 3f --------------------------------------------------------
+    def grid_checks(self):
+        """The grid and large-block slice: (a) the quadruped batch of phase
+        3b through ``layout="grid"`` (no hand kernel), (b) the multi-RHS
+        front door on it, (c) the large-block route at nx=72, (d) JSON I/O
+        and diagnostics."""
+        t, pt = self.torch, self.pt
+        G = pt.SolveOptions(layout="grid")
+        b = self.quad_batch
+        # (a) Full width and batch, against phase 3b's em kernel path.
+        t.cuda.synchronize()
+        t.cuda.reset_peak_memory_stats()
+        self.reset_hand_launches()
+        got = pt.solve_kkt(b, options=G)
+        t.cuda.synchronize()
+        launched = self.hand_launches()
+        peak = t.cuda.max_memory_allocated()
+        self.check(not launched, f"grid quadruped launched hand kernels "
+                                 f"{launched}")
+        self.check(tuple(got.shape) == (QB, b.nvars)
+                   and bool(t.isfinite(got).all()),
+                   f"grid quadruped: shape {tuple(got.shape)} or non-finite")
+        d_em = rel_err(got, self.quad_got)
+        self.check(d_em <= QUAD_SLICE_BAR,
+                   f"grid quadruped vs em kernel path rel diff {d_em:.3e}")
+        ric = self.quad_ric
+        g64 = pt.solve_kkt(self.quad_sub64, options=G)
+        e64 = float((g64 - ric).abs().max())
+        bar64 = F64_BAR * (1.0 + float(ric.abs().max()))
+        self.check(e64 <= bar64, f"grid quadruped: f64 vs f64 Riccati "
+                                 f"{e64:.3e} > {bar64:.3e}")
+        res = max(float(pt.kkt_residual(b.map(lambda x: x[i]), got[i]))
+                  for i in range(2))
+        scale = max(float(got[:2].abs().max()), 1.0)
+        self.check(res / scale <= QUAD_RESIDUAL_BAR,
+                   f"grid quadruped: relative KKT residual {res / scale:.3e}")
+        print(f"phase3f (a) grid quadruped N={QN} B={QB} nx={QX} nu={QU} "
+              f"f32: rel_diff_vs_em_kernels={d_em:.3e} (bar "
+              f"{QUAD_SLICE_BAR}) f64_vs_riccati={e64:.3e} (bar "
+              f"{bar64:.3e}) kkt_residual={res:.4e} rel={res / scale:.3e} "
+              f"(bar {QUAD_RESIDUAL_BAR}); hand-kernel launches "
+              f"{json.dumps(launched)}; peak device memory "
+              f"{peak / 2**30:.2f} GiB", flush=True)
+        del got, g64
+
+        # (b) Factor once, re-solve a perturbed problem.
+        b2 = self.perturbed(b)
+        self.reset_hand_launches()
+        t.cuda.synchronize()
+        t.cuda.reset_peak_memory_stats()
+        fact, _ = pt.factorize(b, options=G)
+        re = pt.solve_rhs(b2, fact, pt.leaf_solve_rhs(b2),
+                          options=G).kkt_vector()
+        t.cuda.synchronize()
+        peak = t.cuda.max_memory_allocated()
+        del fact
+        fresh = pt.solve_kkt(b2, options=G)
+        t.cuda.synchronize()
+        launched = self.hand_launches()
+        same = bool(t.equal(re, fresh))
+        d = rel_err(re, fresh)
+        self.check((same or d <= 1e-6) and not launched,
+                   f"grid re-solve vs fresh solve rel diff {d:.3e}, "
+                   f"launches {launched}")
+        print(f"phase3f (b) multi-RHS (x0 + 0.1, q + 0.5, r - 0.25): "
+              f"re-solve {'equals the fresh grid solve bit for bit' if same
+                          else f'within {d:.3e} of the fresh grid solve'} "
+              f"(bar 1e-6); hand-kernel launches {json.dumps(launched)}; "
+              f"peak device memory (factorize + re-solve) "
+              f"{peak / 2**30:.2f} GiB", flush=True)
+        del re, fresh
+
+        self.large_block_checks()
+        self.io_diagnostics_checks()
+
+    @staticmethod
+    def perturbed(b):
+        """Phase 3f (b)'s new right-hand side (tests/test_rslqr.py:174-189)."""
+        return dataclasses.replace(b, x0=b.x0 + 0.1, q=b.q + 0.5,
+                                   r=b.r - 0.25)
+
+    def large_batch(self, dtype):
+        """The large-block coverage case: ``random_problem`` N=64, nx=72,
+        nu=24, B=32 (no BASELINE config has a block above 64)."""
+        t, pt = self.torch, self.pt
+        prob = pt.random_problem(t.Generator().manual_seed(72), LN, LX, LU,
+                                 dtype=t.float64, device=self.dev)
+        b = pt.batch_problems(prob, LB, t.Generator().manual_seed(LX))
+        return b.to(dtype=dtype)
+
+    def large_block_checks(self):
+        """(c) rsLQR and pscan in f32 and f64, f64 against the f64 Riccati
+        oracle, f32 against the f64 answer, and ``solve_refined`` (grid
+        branch, 2 iterations) against the oracle."""
+        t, pt = self.torch, self.pt
+        b64, b32 = self.large_batch(t.float64), self.large_batch(t.float32)
+        ric = pt.solve_riccati(b64).kkt_vector()
+        bar64 = F64_BAR * (1.0 + float(ric.abs().max()))
+        out = []
+        for name, solve in (("rslqr", pt.solve_kkt),
+                            ("pscan", pt.solve_pscan_kkt)):
+            self.reset_hand_launches()
+            x64 = solve(b64)
+            t.cuda.synchronize()
+            t.cuda.reset_peak_memory_stats()
+            x32 = solve(b32)
+            t.cuda.synchronize()
+            peak = t.cuda.max_memory_allocated()
+            launched = self.hand_launches()
+            e64 = float((x64 - ric).abs().max())
+            d32 = rel_err(x32.double(), x64)
+            self.check(e64 <= bar64 and d32 <= QUAD_SLICE_BAR
+                       and bool(t.isfinite(x32).all()) and not launched,
+                       f"large {name}: f64 vs Riccati {e64:.3e} (bar "
+                       f"{bar64:.3e}), f32 vs f64 {d32:.3e}, launches "
+                       f"{launched}")
+            out.append(f"{name} f64_vs_riccati={e64:.3e} "
+                       f"f32_vs_f64={d32:.3e} launches "
+                       f"{json.dumps(launched)} f32 peak device memory "
+                       f"{peak / 2**30:.2f} GiB")
+        ref = pt.solve_refined(b64, iterations=2)
+        e_rf = float((ref.kkt_vector() - ric).abs().max())
+        self.check(e_rf <= bar64 and isinstance(ref.fact,
+                                                pt.RsLqrFactorization),
+                   f"large refined: vs Riccati {e_rf:.3e} > {bar64:.3e}")
+        print(f"phase3f (c) large block N={LN} nx={LX} nu={LU} B={LB}: "
+              + "; ".join(out) + f"; refined (2 iterations, f32 grid "
+              f"factor) f64_vs_riccati={e_rf:.3e}; bars: f64 {bar64:.3e}, "
+              f"f32 {QUAD_SLICE_BAR}", flush=True)
+
+    def io_diagnostics_checks(self):
+        """(d) Phase 3's first instance written with the port's JSON writer
+        and read back onto the card, bit for bit; ``check_solution`` and
+        ``factorization_ok`` on a batch with one poisoned instance, on both
+        layouts."""
+        t, pt = self.torch, self.pt
+        from rslqr_tpu_torch import diagnostics
+
+        one = self.main_batch.map(lambda x: x[0])
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "prob.json")
+            pt.write_lqr_problem_json(path, one)
+            back, _ = pt.read_lqr_problem_json(path, dtype=t.float32,
+                                               device=self.dev)
+        fields = [f.name for f in dataclasses.fields(one)]
+        same = all(t.equal(getattr(back, k), getattr(one, k))
+                   for k in fields)
+        self.check(same and back.A.is_cuda, "JSON round trip differs")
+        sub = self.main_batch.map(lambda x: x[:8])
+        Q = sub.Qdiag.clone()
+        Q[3] = -Q[3]
+        bad = dataclasses.replace(sub, Qdiag=Q)
+        want = [k != 3 for k in range(8)]
+        notes = []
+        for layout in ("auto", "grid"):
+            sol = pt.solve(bad, options=pt.SolveOptions(layout=layout))
+            vec = sol.kkt_vector()
+            tol = QUAD_RESIDUAL_BAR * max(
+                float(vec[[k for k in range(8) if want[k]]].abs().max()), 1.0)
+            rep = diagnostics.check_solution(bad, vec, tol)
+            status = rep.status.tolist()
+            ok = diagnostics.factorization_ok(sol.fact).tolist()
+            good = (ok == want and status[3] != 0
+                    and all(s == 0 for k, s in enumerate(status) if k != 3))
+            self.check(good, f"diagnostics {layout}: status {status}, "
+                             f"factorization_ok {ok}")
+            notes.append(f"{layout} ({type(sol.fact).__name__}): status "
+                         f"{status} factorization_ok {ok}")
+        print(f"phase3f (d) JSON round trip N={one.nhorizon} f32: "
+              f"{'equal bit for bit' if same else 'DIFFERS'}; poisoned "
+              f"instance 3 of 8: " + "; ".join(notes), flush=True)
+
+    # -- phase 4e --------------------------------------------------------
+    def time_grid(self, card):
+        """Median host-clock ms (CUDA-synchronized) of the grid slice, each
+        beside its em twin where it has one, in turns: (a) the quadruped
+        grid solve and em kernel path, (b) the re-solve through one
+        factorization and the full grid solve, (c) large-block rsLQR and
+        pscan, f32."""
+        t, pt = self.torch, self.pt
+        G = pt.SolveOptions(layout="grid")
+        b = self.quad_batch
+        b2 = self.perturbed(b)
+        self.turns(card, f"phase4e (a) quadruped N={QN} B={QB}", {
+            "grid": lambda: pt.solve_kkt(b, options=G),
+            "em kernels": lambda: pt.solve_kkt(b)})
+        fact, _ = pt.factorize(b, options=G)
+        self.turns(card, f"phase4e (b) quadruped N={QN} B={QB}", {
+            "re-solve": lambda: pt.solve_rhs(
+                b2, fact, pt.leaf_solve_rhs(b2), options=G).kkt_vector(),
+            "full grid solve": lambda: pt.solve_kkt(b2, options=G)})
+        del fact
+        b32 = self.large_batch(t.float32)
+        self.turns(card, f"phase4e (c) large block N={LN} nx={LX} nu={LU} "
+                         f"B={LB} f32", {
+            "rslqr": lambda: pt.solve_kkt(b32),
+            "pscan": lambda: pt.solve_pscan_kkt(b32)})
+
+    def turns(self, card, label, fns, reps=QREPS):
+        """Median wall of each of ``fns`` over ``reps`` rounds, in turns,
+        after one warm-up round."""
+        t = self.torch
+        walls = {k: [] for k in fns}
+        for r in range(reps + 1):
+            for k, fn in fns.items():
+                t.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                t.cuda.synchronize()
+                if r:
+                    walls[k].append(1e3 * (time.perf_counter() - t0))
+        print(f"{label} on {card}: " + ", ".join(
+            f"{k} {statistics.median(v):.3f} ms (min {min(v):.3f})"
+            for k, v in walls.items()) + f"; median of {reps}", flush=True)
+
+    def profile_grid(self):
+        """Phase 5's traces of the grid slice: the quadruped grid solve,
+        the re-solve through one factorization, and large-block rsLQR and
+        pscan (f32)."""
+        t, pt = self.torch, self.pt
+        G = pt.SolveOptions(layout="grid")
+        b = self.quad_batch
+        self.profile(b, f"grid quadruped N={QN} B={QB}", self.grid_solve)
+        fact, _ = pt.factorize(b, options=G)
+        self.profile(self.perturbed(b),
+                     f"grid re-solve quadruped N={QN} B={QB}",
+                     lambda b2, options=None: pt.solve_rhs(
+                         b2, fact, pt.leaf_solve_rhs(b2),
+                         options=G).kkt_vector())
+        del fact
+        b32 = self.large_batch(t.float32)
+        self.profile(b32, f"large block rsLQR N={LN} nx={LX} nu={LU} "
+                          f"B={LB}")
+        self.profile(b32, f"large block pscan N={LN} nx={LX} nu={LU} "
+                          f"B={LB}", pt.solve_pscan_kkt)
+
+    # -- phase 5b --------------------------------------------------------
+    def profiles(self):
+        """``profile_solve`` on the quadruped grid batch and the small em
+        batch, printed with ``print_solve_summary``."""
+        pt = self.pt
+        from rslqr_tpu_torch import profile
+
+        for b, label, opts in (
+                (self.quad_batch, f"grid quadruped N={QN} B={QB}",
+                 pt.SolveOptions(layout="grid")),
+                (self.main_batch, f"em N={N_MAIN} B={BATCH}", None)):
+            p = profile.profile_solve(b, repeats=2, options=opts)
+            print(f"phase5b profile_solve {label} (device ms, host ms "
+                  f"issuing):", flush=True)
+            p.print()
+            profile.print_solve_summary(p.t_total_ms, problem=b)
+            sys.stdout.flush()
 
     # -- phase 5 ---------------------------------------------------------
     def profile(self, b, label, solve=None, top=14):
@@ -1597,6 +1888,7 @@ def main() -> int:
         ("phase3c", smoke.pscan_checks),
         ("phase3d", smoke.flat_checks),
         ("phase3e", smoke.block_solves),
+        ("phase3f", smoke.grid_checks),
         ("phase4", lambda: smoke.time_solves(
             card, smoke.main_batch, REPS, f"phase4 N={N_MAIN}")),
         ("phase4b", lambda: smoke.time_solves(
@@ -1615,6 +1907,7 @@ def main() -> int:
             smoke.time_solves(card, smoke.main_batch64, QREPS,
                               f"phase4d refined flat (2 iterations, f64) "
                               f"N={N_MAIN}", smoke.refined_solve))),
+        ("phase4e", lambda: smoke.time_grid(card)),
         ("phase5", lambda: (
             smoke.profile(smoke.main_batch, f"N={N_MAIN} B={BATCH}"),
             smoke.profile(smoke.quad_batch, f"quadruped N={QN} B={QB}"),
@@ -1624,7 +1917,9 @@ def main() -> int:
                           smoke.flat_solve),
             smoke.profile(smoke.main_batch64,
                           f"refined flat (2 iterations, f64) N={N_MAIN} "
-                          f"B={BATCH}", smoke.refined_solve))),
+                          f"B={BATCH}", smoke.refined_solve),
+            smoke.profile_grid())),
+        ("phase5b", smoke.profiles),
         ("phase6", smoke.bench_sections),
         ("phase6b", smoke.probe_entry),
         ("phase7", lambda: smoke.bench_entry(bench_torch, card)),

@@ -2,7 +2,8 @@
 
 PyTorch runs eagerly, so there is no trace-time global config to snapshot:
 every entry point takes an explicit :class:`SolveOptions` (``None`` means
-the defaults).
+the defaults). The JAX package's global ``config``, ``set_layout``,
+``set_pallas`` and ``linear_algebra_backend`` are left out by design.
 """
 
 from __future__ import annotations
@@ -10,7 +11,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-_LAYOUTS = ("auto", "em")
+_LAYOUTS = ("auto", "em", "grid")
 _KERNEL_MODES = ("auto", "off")
 
 
@@ -27,8 +28,20 @@ class SolveOptions:
     * ``"off"``: the plain PyTorch versions on every device (the reference
       path that ``chip_smoke.py`` times and compares the kernels against).
 
-    ``layout`` accepts ``"auto"`` and ``"em"``; both run the element-major
-    path. The knot-major grid path is not ported yet.
+    ``layout`` (JAX config.py:35, 175-177):
+
+    * ``"auto"``: the element-major path for ``max(n, m) <= 64`` on every
+      device, the knot-major grid path (the large-block route, torch.matmul
+      and torch.linalg on mat-last views) above 64. This departs on purpose
+      from the JAX package's CPU dispatch (rslqr.py:498-533), which sends
+      mid blocks to its grid path where no Pallas kernel engages: the
+      port's plain element-major path is exact on the CPU, so one rule
+      serves every device.
+    * ``"em"``: the element-major path (blocks up to 64; larger ones raise
+      ``ValueError``).
+    * ``"grid"``: the knot-major grid path (``rslqr.factorize``), which
+      launches no hand kernel, as in the JAX package; for ``solve_pscan``
+      the batch-last scan.
     ``factor_dtype`` accepts only ``""`` (slabs in the problem dtype).
     """
 

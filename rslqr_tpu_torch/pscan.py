@@ -9,15 +9,19 @@ an associative suffix scan over conditional value-function elements
 structure as the JAX module, function for function; each ``lax.scan``
 becomes a Python loop over contiguous ``[s, ...]`` slices.
 
-:func:`solve_pscan` routes by block size, as ``rslqr.solve`` does (leading
-batch axes flattened to one):
+:func:`solve_pscan` routes by block size and ``layout`` (leading batch
+axes flattened to one; JAX pscan.py:1078-1130):
 
-* small blocks (n, m at most ``mxu_block_threshold``): the batch-last path
-  (elements ``[L, n, n, B]``; the tiny block dims unroll in :mod:`linalg`,
-  no kernel of its own);
-* mid blocks (above the threshold, at most 64; the quadruped config): the
-  element-major path on ``[p, q, L, B]`` slabs with the chunked hybrid
-  scan, whatever ``layout`` is. Its products run ``planes.pgemm`` (B5, with
+* small blocks (n, m at most ``mxu_block_threshold``), ``layout="grid"``,
+  and blocks above 64 (the large-block route): the batch-last path
+  (elements ``[L, n, n, B]``). The tiny block dims unroll in :mod:`linalg`;
+  mid and large blocks, whose operands carry the leading scan axis, take
+  its mat-last route (``torch.matmul``, ``torch.linalg``), one batched call
+  for the whole batch where JAX vmaps single solves (pscan.py:1101-1109).
+  No hand kernel runs on this path;
+* mid blocks (above the threshold, at most 64; the quadruped config) under
+  ``"auto"`` or ``"em"``: the element-major path on ``[p, q, L, B]`` slabs
+  with the chunked hybrid scan. Its products run ``planes.pgemm`` (B5, with
   its flags) through ``linalg.bgemm``/``bgemm_tt``; its ``I + C J`` and
   Woodbury ``I + V J U`` solves run ``planes.plu_solve_multi`` (B8) through
   ``linalg.bsolve_multi``; with ``pscan_chunk=1`` or
@@ -28,7 +32,7 @@ Every linalg call gets the solve's options (kernel mode, threshold). No
 operand is updated in place: the kernels of this path write new tensors,
 since the scan hands them strided views (``_even_odd``) and operands it reads
 again. Not ported yet: the JAX module's ``_reduce_full`` and ``seed`` (used
-only by its horizon-sharded solver) and its large-block vmap route.
+only by its horizon-sharded solver).
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ from .config import SolveOptions, resolve_options
 from .ops.planes import MAX_BLOCK
 from .problem import LQRProblem, pack_solution
 from .riccati import RiccatiSolution
-from .rslqr import _bf, _to_batch_last
+from .rslqr import _bf, _one_batch_axis, _to_batch_last
 
 
 def _eye_like(S: torch.Tensor, nb: int) -> torch.Tensor:
@@ -735,8 +739,11 @@ def _solve_pscan_em(prob: LQRProblem, opts: SolveOptions) -> RiccatiSolution:
 
 def _solve_pscan_impl(prob: LQRProblem, opts: SolveOptions) -> RiccatiSolution:
     """Route one flattened batch (JAX pscan.py:1078-1132): mid blocks to the
-    element-major path, small blocks to the batch-last path."""
-    if max(prob.nstates, prob.ninputs) > opts.mxu_block_threshold:
+    element-major path unless ``layout="grid"``; small blocks, ``"grid"``
+    and blocks above 64 to the batch-last path."""
+    big = max(prob.nstates, prob.ninputs)
+    if (opts.mxu_block_threshold < big <= MAX_BLOCK
+            and opts.layout != "grid"):
         return _solve_pscan_em(prob, opts)
     pbl = _to_batch_last(prob, 1)
     P, p = _value_scan(pbl, 1, opts)
@@ -756,25 +763,13 @@ def solve_pscan(prob: LQRProblem,
     the same outputs as :func:`rslqr_tpu_torch.solve_riccati`.
 
     Mid blocks (8 < max(n, m) <= 64 at the default threshold) run the
-    element-major path, small blocks the batch-last path; larger blocks
-    raise ``NotImplementedError``. Options read here: ``kernels``,
-    ``mxu_block_threshold``, ``pscan_chunk``, ``pscan_batched_interior``.
-
-    Sets ``torch.backends.cuda.matmul.allow_tf32`` and
-    ``torch.backends.cudnn.allow_tf32`` to False, as ``rslqr.solve`` does.
+    element-major path unless ``layout="grid"``; small blocks, ``"grid"``
+    and blocks above 64 the batch-last path. Options read here:
+    ``layout``, ``kernels``, ``mxu_block_threshold``, ``pscan_chunk``,
+    ``pscan_batched_interior``. Sets TF32 off, as ``rslqr.solve`` does.
     """
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    opts = resolve_options(options)
-    n, m = prob.nstates, prob.ninputs
-    if max(n, m) > MAX_BLOCK:
-        raise NotImplementedError(
-            f"blocks n={n}, m={m} above {MAX_BLOCK}: the large-block "
-            "route is not ported yet"
-        )
-    bshape = prob.batch_shape
-    flat = prob.map(lambda x: x.reshape((-1,) + x.shape[len(bshape):]))
-    sol = _solve_pscan_impl(flat, opts)
+    flat, bshape = _one_batch_axis(prob)
+    sol = _solve_pscan_impl(flat, resolve_options(options))
     return RiccatiSolution(**{
         f.name: getattr(sol, f.name).reshape(
             bshape + getattr(sol, f.name).shape[1:])

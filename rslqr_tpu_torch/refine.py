@@ -1,7 +1,6 @@
 """Mixed-precision iterative refinement: f32 factorization, f64 accuracy.
 
-Counterpart of ``rslqr_tpu.refine`` (its element-major branch). Factor and
-solve in float32 (the heavy block work, on the kernel path), then iterate
+Counterpart of ``rslqr_tpu.refine``. Factor and solve in float32 (the heavy block work, on the kernel path), then iterate
 
     r = b - K s            (the KKT residual, in float64)
     delta = K_f32^{-1} r   (a re-solve through the cached f32
@@ -16,9 +15,12 @@ arithmetic; the double-float ``(hi, lo)`` residual of the JAX package
 (refine.py:297-440), which exists because the TPU has none, is not ported.
 
 Every entry point takes a problem with any number of leading batch axes and
-flattens them to one, as :func:`rslqr_tpu_torch.solve` does; blocks above 64
-raise ``NotImplementedError`` (the grid path is not ported). Everything runs
-on the problem's device, eagerly; the only host round trips are those of
+flattens them to one, and factors on the layout :func:`rslqr_tpu_torch.solve`
+would take: the element-major path (its kernels), or the knot-major grid
+path (``layout="grid"``, blocks above 64), where every re-solve is one
+:func:`rslqr_tpu_torch.rslqr._solve_rhs_bl` sweep over the one
+factorization (JAX refine.py:124-130, 195-196, 228). Everything runs on the
+problem's device, eagerly; the only host round trips are those of
 :func:`solve_refined_host`, by design.
 """
 
@@ -33,13 +35,17 @@ from . import rslqr_em
 from .config import SolveOptions, resolve_options
 from .problem import LQRProblem, pack_solution
 from .rslqr import (
+    RsLqrFactorization,
     RsLqrSolution,
     _bf,
+    _factorize_bl,
     _leaf_rhs_transform,
     _one_batch_axis,
+    _solve_rhs_bl,
     _to_batch_last,
+    _use_em_layout,
 )
-from .tree import TreeTables
+from .tree import TreeTables, build_tree_tables
 
 # The problem fields the host residual reads.
 _HOST_FIELDS = ("A", "B", "f", "q", "r", "Qdiag", "Rdiag", "x0")
@@ -105,10 +111,16 @@ def _sweep(pbl: LQRProblem, fact, rhs_em, opts):
 def _refine_factor_init(prob: LQRProblem, opts: SolveOptions,
                         tables: Optional[TreeTables] = None):
     """Device half: factorization and initial solve of ``prob`` (one
-    leading batch axis, in the solve dtype). Returns ``(fact, (zy, zx,
-    zu))`` batch-last, ``zu`` with the terminal scratch row."""
+    leading batch axis, in the solve dtype) on the layout ``solve`` would
+    take. Returns ``(fact, (zy, zx, zu))`` batch-last, ``zu`` with the
+    terminal scratch row."""
+    pbl = _to_batch_last(prob, 1)
+    if not _use_em_layout(prob, opts):
+        t = tables or build_tree_tables(prob.nhorizon)
+        fact, rhs = _factorize_bl(pbl, t, 1, opts)
+        return fact, _solve_rhs_bl(pbl, fact, rhs, t, opts)
     fact, rhs = rslqr_em.factorize_em(prob, tables, options=opts)
-    return fact, _sweep(_to_batch_last(prob, 1), fact, rhs, opts)
+    return fact, _sweep(pbl, fact, rhs, opts)
 
 
 def _refine_resolve(prob: LQRProblem, fact, r_bl, opts: SolveOptions):
@@ -117,6 +129,9 @@ def _refine_resolve(prob: LQRProblem, fact, r_bl, opts: SolveOptions):
     factorization."""
     pbl = _to_batch_last(prob, 1)
     r_lo = _leaf_rhs_transform(pbl, r_bl)
+    if isinstance(fact, RsLqrFactorization):
+        t = build_tree_tables(prob.nhorizon)
+        return _solve_rhs_bl(pbl, fact, r_lo, t, opts)
     return _sweep(pbl, fact, rslqr_em.em_rhs_from_bl(r_lo), opts)
 
 

@@ -61,7 +61,7 @@ from . import linalg as la
 from .config import SolveOptions, resolve_options
 from .ops import flat, planes, schur
 from .problem import LQRProblem, pack_solution
-from .rslqr import RsLqrSolution, _bf, _to_batch_last
+from .rslqr import RsLqrSolution, _bf, _no_clock, _to_batch_last
 from .tree import TreeTables, build_tree_tables
 
 NB = 1  # trailing batch axes of every element-major array
@@ -392,24 +392,34 @@ def _level_update_planes_em(level, depth, Fls, Fxs, Fus, fsols, opts):
         )
 
 
-def _sweep_level_em(A, B, level, depth, Fls, Fxs, Fus, n, m, ex, opts):
+def _sweep_level_em(A, B, level, depth, Fls, Fxs, Fus, n, m, ex, opts,
+                    clock=_no_clock):
     """One level of the factorization sweep (ref solve.c:68-134); updates
     the slabs in place, returns the level's Cholesky factors
-    ``[n, n, G, B]`` and the next level's products (or None)."""
-    Ss = _level_products_em(A, B, level, depth, Fls, Fxs, Fus, ex, n, opts)
-    Lc = la.bcholesky(Ss[0], NB + 1, opts)
+    ``[n, n, G, B]`` and the next level's products (or None). ``clock``
+    times each reference phase (``profile.py``)."""
+    with clock("products"):
+        Ss = _level_products_em(A, B, level, depth, Fls, Fxs, Fus, ex, n,
+                                opts)
+    with clock("cholesky"):
+        Lc = la.bcholesky(Ss[0], NB + 1, opts)
     if ex is None:
-        _level_writeback_em(Fls, level, Ss[0])
-    fsols = _level_cholsolve_em(Lc, Ss, level, opts)
+        with clock("shur"):
+            _level_writeback_em(Fls, level, Ss[0])
+    with clock("cholsolve"):
+        fsols = _level_cholsolve_em(Lc, Ss, level, opts)
     if level + 1 >= depth:
         return Lc, None
-    if _mid_block(n, opts):
-        _level_update_planes_em(level, depth, Fls, Fxs, Fus, fsols, opts)
-        return Lc, None
-    stage = (_schur_flat if _flat_path_ok(A.dtype, NB, A.shape[2],
-                                          A.shape[3:], n, opts)
-             else _schur_kernel)
-    return Lc, stage(A, B, level, depth, Fls, Fxs, Fus, fsols, n, m, opts)
+    with clock("shur"):
+        if _mid_block(n, opts):
+            _level_update_planes_em(level, depth, Fls, Fxs, Fus, fsols,
+                                    opts)
+            return Lc, None
+        stage = (_schur_flat if _flat_path_ok(A.dtype, NB, A.shape[2],
+                                              A.shape[3:], n, opts)
+                 else _schur_kernel)
+        return Lc, stage(A, B, level, depth, Fls, Fxs, Fus, fsols, n, m,
+                         opts)
 
 
 def _pair_prepass(A, B, level, depth, Fls, Fxs, Fus, fsols1, opts):
@@ -472,25 +482,36 @@ def _schur_kernel_pair(
     return S_next
 
 
-def _sweep_pair_em(A, B, level, depth, Fls, Fxs, Fus, n, m, ex, opts):
+def _sweep_pair_em(A, B, level, depth, Fls, Fxs, Fus, n, m, ex, opts,
+                   clock=_no_clock):
     """TWO levels of the factorization sweep (ref solve.c:68-134, two
     iterations) with a single slab pass: compact stages for both levels'
     Cholesky factors and separator solves, then the paired kernel.
     Returns ``(Lc1, Lc2, ex_next)``."""
-    Ss = _level_products_em(A, B, level, depth, Fls, Fxs, Fus, ex, n, opts)
-    Lc1 = la.bcholesky(Ss[0], NB + 1, opts)
+    with clock("products"):
+        Ss = _level_products_em(A, B, level, depth, Fls, Fxs, Fus, ex, n,
+                                opts)
+    with clock("cholesky"):
+        Lc1 = la.bcholesky(Ss[0], NB + 1, opts)
     if ex is None:
-        _level_writeback_em(Fls, level, Ss[0])
-    fsols1 = _level_cholsolve_em(Lc1, Ss, level, opts)
-    S2 = _pair_prepass(A, B, level, depth, Fls, Fxs, Fus, fsols1, opts)
-    Lc2 = la.bcholesky(S2[0], NB + 1, opts)
-    fsols2 = {
-        level + 2 + i: s
-        for i, s in enumerate(_cholsolve_stacked(Lc2, S2[1:], opts))
-    }
-    ex_next = _schur_kernel_pair(
-        A, B, level, depth, Fls, Fxs, Fus, fsols1, S2[0], fsols2, n, m, opts
-    )
+        with clock("shur"):
+            _level_writeback_em(Fls, level, Ss[0])
+    with clock("cholsolve"):
+        fsols1 = _level_cholsolve_em(Lc1, Ss, level, opts)
+    with clock("products"):
+        S2 = _pair_prepass(A, B, level, depth, Fls, Fxs, Fus, fsols1, opts)
+    with clock("cholesky"):
+        Lc2 = la.bcholesky(S2[0], NB + 1, opts)
+    with clock("cholsolve"):
+        fsols2 = {
+            level + 2 + i: s
+            for i, s in enumerate(_cholsolve_stacked(Lc2, S2[1:], opts))
+        }
+    with clock("shur"):
+        ex_next = _schur_kernel_pair(
+            A, B, level, depth, Fls, Fxs, Fus, fsols1, S2[0], fsols2, n, m,
+            opts
+        )
     return Lc1, Lc2, ex_next
 
 
@@ -585,11 +606,13 @@ def _leaf_products0(pbl: LQRProblem, t: TreeTables, n: int, m: int, opts):
 
 def factorize_em(
     prob: LQRProblem, tables: Optional[TreeTables] = None,
-    options: Optional[SolveOptions] = None,
+    options: Optional[SolveOptions] = None, clock=_no_clock,
 ):
     """Leaf solves + level sweep (ref solve.c:50-134). ``prob`` carries ONE
     leading batch axis. Returns the factorization and the leaf-solved
-    element-major RHS ``(zy, zx, zu)``."""
+    element-major RHS ``(zy, zx, zu)``. ``clock`` times each reference
+    phase (``profile.py``): the fused leaf kernel counts as leaves, the
+    compact products from which it starts as products."""
     opts = resolve_options(options)
     pbl = _to_batch_last(prob, 1)
     t = tables or build_tree_tables(pbl.A.shape[0])
@@ -602,38 +625,44 @@ def factorize_em(
         # Fused leaf + level 0: level-0 products from compact gathers, then
         # ONE kernel writes every slab in its post-level-0 state and emits
         # the level-1 products.
-        A, B, qinv, rinv, Ss = _leaf_products0(pbl, t, n, m, opts)
-        Lc0 = la.bcholesky(Ss[0], NB + 1, opts)
-        fsols0 = _cholsolve_stacked(Lc0, Ss[1:], opts)
-        A = A.contiguous()
-        B = B.contiguous()
-        if use_flat:
-            Fls, Fxs, Fus, ex = flat.leaf_schur_level0_flat(
-                _flat(A), _flat(B), _flatv(qinv.contiguous()),
-                _flatv(rinv.contiguous()), _flat(Ss[0].contiguous()),
-                [_flat(f.contiguous()) for f in fsols0],
-                _sep_flat(A, 1), _sep_flat(B, 1),
-                depth=t.depth, n=n, m=m, N=N, kernels=opts.kernels,
-            )
-            ex = [S.view(n, n, N // 4, Bb) for S in ex]
-        else:
-            Fls, Fxs, Fus, ex = schur.leaf_schur_level0_em(
-                A.view(n * n, N, Bb), B.view(n * m, N, Bb),
-                qinv.contiguous(), rinv.contiguous(),
-                _gm(Ss[0]), [_gm(f) for f in fsols0],
-                _sep_gm(A, 1), _sep_gm(B, 1),
-                depth=t.depth, n=n, m=m, kernels=opts.kernels,
-            )
-        Fls = [x.view(n, n, N, Bb) for x in Fls]
-        Fxs = [x.view(n, n, N, Bb) for x in Fxs]
-        Fus = [x.view(m, n, N, Bb) for x in Fus]
-        zy, zx, zu = _leaf_z(pbl)
+        with clock("products"):
+            A, B, qinv, rinv, Ss = _leaf_products0(pbl, t, n, m, opts)
+        with clock("cholesky"):
+            Lc0 = la.bcholesky(Ss[0], NB + 1, opts)
+        with clock("cholsolve"):
+            fsols0 = _cholsolve_stacked(Lc0, Ss[1:], opts)
+        with clock("leaves"):
+            A = A.contiguous()
+            B = B.contiguous()
+            if use_flat:
+                Fls, Fxs, Fus, ex = flat.leaf_schur_level0_flat(
+                    _flat(A), _flat(B), _flatv(qinv.contiguous()),
+                    _flatv(rinv.contiguous()), _flat(Ss[0].contiguous()),
+                    [_flat(f.contiguous()) for f in fsols0],
+                    _sep_flat(A, 1), _sep_flat(B, 1),
+                    depth=t.depth, n=n, m=m, N=N, kernels=opts.kernels,
+                )
+                ex = [S.view(n, n, N // 4, Bb) for S in ex]
+            else:
+                Fls, Fxs, Fus, ex = schur.leaf_schur_level0_em(
+                    A.view(n * n, N, Bb), B.view(n * m, N, Bb),
+                    qinv.contiguous(), rinv.contiguous(),
+                    _gm(Ss[0]), [_gm(f) for f in fsols0],
+                    _sep_gm(A, 1), _sep_gm(B, 1),
+                    depth=t.depth, n=n, m=m, kernels=opts.kernels,
+                )
+            Fls = [x.view(n, n, N, Bb) for x in Fls]
+            Fxs = [x.view(n, n, N, Bb) for x in Fxs]
+            Fus = [x.view(m, n, N, Bb) for x in Fus]
+            zy, zx, zu = _leaf_z(pbl)
         chols = [Lc0]
         level = 1
     else:
         # Plain leaf slabs: the tree is too shallow for the fused leaf
         # kernel, or the blocks are mid-size (no fused leaf there in JAX).
-        Fls, Fxs, Fus, A, B, zy, zx, zu = _leaf_em(pbl, t.levels, t.depth)
+        with clock("leaves"):
+            Fls, Fxs, Fus, A, B, zy, zx, zu = _leaf_em(pbl, t.levels,
+                                                       t.depth)
         chols = []
         ex = None
         level = 0
@@ -645,13 +674,13 @@ def factorize_em(
         if (level <= t.depth - 3 and opts.level_pairing and not mid
                 and not use_flat):
             Lc1, Lc2, ex = _sweep_pair_em(
-                A, B, level, t.depth, Fls, Fxs, Fus, n, m, ex, opts
+                A, B, level, t.depth, Fls, Fxs, Fus, n, m, ex, opts, clock
             )
             chols.extend([Lc1, Lc2])
             level += 2
         else:
             Lc, ex = _sweep_level_em(
-                A, B, level, t.depth, Fls, Fxs, Fus, n, m, ex, opts
+                A, B, level, t.depth, Fls, Fxs, Fus, n, m, ex, opts, clock
             )
             chols.append(Lc)
             level += 1

@@ -12,6 +12,11 @@ def is_power_of_two(x: int) -> bool:
     return x > 0 and (x & (x - 1)) == 0
 
 
+def power_of_two(exponent: int) -> int:
+    """2**exponent via bit shift (ref: utils.c:11)."""
+    return 1 << exponent
+
+
 def log2_int(x: int) -> int:
     """Integer log2 of a power of two (ref: utils.c:13-15)."""
     if not is_power_of_two(x):

@@ -121,7 +121,7 @@ def test_schur3_update_planes_plain_matches_pallas(level, q):
 def test_linalg_mid_block_dispatch():
     """``linalg`` sends contractions / factors above the threshold to the
     planes wrappers and keeps small contractions on the broadcast route;
-    blocks above 64 raise."""
+    blocks above 64 take the mat-last route (``torch.linalg``)."""
     rng = np.random.default_rng(5)
     A = torch.as_tensor(rng.standard_normal((12, 12, 4, 8)))
     Bs = torch.as_tensor(rng.standard_normal((12, 4, 4, 8)))
@@ -139,9 +139,10 @@ def test_linalg_mid_block_dispatch():
     y = tla.bcho_solve_vec(L, x, 2)
     assert torch.equal(x, x0)  # the right-hand side is left as it is
     assert torch.allclose(tla.bgemv(S, y, 2), x, atol=1e-10)
-    big = torch.zeros((65, 65, 2, 2), dtype=torch.float64)
-    with pytest.raises(NotImplementedError):
-        tla.bcholesky(big, 2)
+    big = torch.as_tensor(_spd(rng, 65, (2, 2)))
+    Lbig = tla.bcholesky(big, 2)
+    ref_big = torch.linalg.cholesky(big.permute(2, 3, 0, 1))
+    assert torch.allclose(Lbig.permute(2, 3, 0, 1), ref_big, atol=1e-12)
 
 
 @pytest.mark.parametrize("n", [6, 12])

@@ -149,7 +149,8 @@ def test_pscan_chunk_invalid_raises(chunk):
 
 def test_solve_pscan_batch_shapes():
     """A single problem and two leading batch axes give the flattened
-    batch's answers in their own shapes; blocks above 64 raise."""
+    batch's answers in their own shapes; blocks above 64 take the
+    batch-last scan (the large-block route) and match the Riccati oracle."""
     sol, tb = _port("s8")
     one = pt.solve_pscan(tb.map(lambda x: x[3]),
                          pt.SolveOptions(pscan_chunk=8))
@@ -162,6 +163,7 @@ def test_solve_pscan_batch_shapes():
         assert rel_err(getattr(two, f).reshape(full.shape).numpy(),
                        full.numpy()) < 1e-14
     big = pt.random_problem(torch.Generator().manual_seed(0), 2, 65, 2,
-                            device="cpu")
-    with pytest.raises(NotImplementedError):
-        pt.solve_pscan(big)
+                            dtype=torch.float64, device="cpu")
+    got = pt.solve_pscan_kkt(big)
+    ric = pt.solve_riccati(big).kkt_vector()
+    assert rel_err(got.numpy(), ric.numpy()) < 1e-9

@@ -95,10 +95,13 @@ def test_options_validation():
     with pytest.raises(ValueError):
         pt.SolveOptions(factor_dtype="bfloat16")
     with pytest.raises(ValueError):
-        pt.SolveOptions(layout="grid")
-    # Mid blocks (n <= 64) run the planes path; larger blocks are not
-    # ported yet.
+        pt.SolveOptions(layout="planes")
+    # Mid blocks (n <= 64) run the planes path; larger blocks the grid
+    # path (the large-block route), which layout="em" refuses.
     big = pt.double_integrator_problem(2, nstates=130, ninputs=65,
                                        device="cpu")
-    with pytest.raises(NotImplementedError):
-        pt.solve(big)
+    sol = pt.solve(big)
+    assert isinstance(sol.fact, pt.RsLqrFactorization)
+    assert float(pt.kkt_residual(big, sol.kkt_vector())) < 1e-8
+    with pytest.raises(ValueError):
+        pt.solve(big, options=pt.SolveOptions(layout="em"))
