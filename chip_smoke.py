@@ -97,11 +97,36 @@ Phases, each printing one line of numbers:
    phase 3's first instance through the JSON writer and reader, bit for
    bit, and ``check_solution`` / ``factorization_ok`` on a batch with one
    poisoned instance on both layouts;
+3g. gradients through the solve (``rslqr_tpu_torch.autodiff``) at full
+   width: the loss ``Σ U² + <wX, X>`` (seeded ``wX``) differentiated with
+   respect to every field on phase 3's N=256 batch (em kernel path), phase
+   3b's quadruped batch, the same batch on the grid path and through
+   ``solve_pscan``; each field's f32 gradient error against the f64 plain
+   gradient of the same solver (16 instances; 4 on the quadruped) at most
+   2x the f32 ``kernels="off"`` error + 1e-6, the f64 gradient against a
+   fourth-order central difference on 3 seeded coordinates of each field
+   (1e-4 max(1, |fd|)), forward and backward ms, each one's hand-kernel
+   launches (the backward's solves, one for the adjoint and one refinement
+   step each for it and the solution: rsLQR sweeps through the cached
+   factorization, B2 at least 8 times on the small batch, B7 and B9 on the
+   quadruped, none on the grid path; pscan scans again, B5's flagged
+   products and B8) and the peak device memory;
+3h. the sharded solvers (``rslqr_tpu_torch.parallel``) on 2 and 4 spawned
+   ranks that share the card (gloo on cuda:0, the ``all_reduce``
+   transport) on phase 3's N=256 batch: ``solve_seq_sharded`` on (1, D)
+   and (2, 2), ``solve_pscan_sharded`` on (1, D), ``solve_batch_sharded``
+   on (D,), each within 1e-4 relative of the single-device solve, the
+   collective signature equal to the closed-form model of
+   tests/test_collective_audit.py:71-102, every batch shard's em kernels
+   launched, no hand kernel in seq; then ``dryrun_multichip(4, "cuda")``;
 4. time per batched solve of both slices, kernel path and
    ``kernels="off"``; 4c the same for the parallel scan; 4d for the flat
    solve and the refined solve; 4e the grid slice in turns: the quadruped
    grid solve beside the em kernel path, the re-solve beside the full grid
-   solve, large-block rsLQR and pscan;
+   solve, large-block rsLQR and pscan; 4f forward against forward +
+   backward (small and quadruped, and quadruped pscan) in turns, and each
+   sharded solve's wall at each rank count (ranks sharing one card:
+   time-sharing, not scaling);
 5. one batched solve of each slice (and one quadruped pscan solve, one flat
    solve, one refined solve and one quadruped grid solve) traced with
    ``torch.profiler``: device time by kernel (the top kernels and every
@@ -127,6 +152,7 @@ last ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
 without that last line; so does a machine without CUDA. Imports no JAX.
 """
 
+import collections
 import dataclasses
 import itertools
 import json
@@ -137,6 +163,8 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
 
 N_MAIN, N_ODD, BATCH = 256, 128, 1024
 # BASELINE.json quadruped config (bench.py:373-381): one batch on the card.
@@ -225,6 +253,41 @@ nn, mn = n * n, m * n
 # (4, 4) capacity, (8, 8) and (5, 4) in the (8, 8) one, and the wide inputs
 # (6, 12) and (8, 64) (n <= 8 < m <= 64, the wide tag).
 EXTRA_BLOCKS = ((4, 2), (8, 8), (5, 4), (6, 12), (8, 64))
+# Phase 3g: the fields differentiated; phase 3h: timed repeats of each
+# sharded solve and the kernels each batch shard's em solve must launch.
+GRAD_FIELDS = ("A", "B", "f", "Qdiag", "Rdiag", "q", "r", "c", "x0")
+SHARD_REPS = 3
+SMALL_PATH = ("leaf_schur_level0_em", "schur_update_pair_em",
+              "rhs_update_level_em")
+
+
+def seq_signature(D, n, m, b):
+    """The closed-form collective signature of ``solve_seq_sharded``
+    (tests/test_collective_audit.py:71-92, with the trailing batch axis):
+    two dynamics gathers, then per top level four factor-block gathers in
+    the sweep and four vector gathers in the RHS pass."""
+    T = D.bit_length() - 1
+    sig = collections.Counter()
+    sig[("all_gather", (D, n, n, b))] += 1
+    sig[("all_gather", (D, n, m, b))] += 1
+    for U in range(T, 0, -1):
+        sig[("all_gather", (D, U, n, n, b))] += 3
+        sig[("all_gather", (D, U, m, n, b))] += 1
+    sig[("all_gather", (D, n, b))] += 3 * T
+    sig[("all_gather", (D, m, b))] += T
+    return sig
+
+
+def pscan_signature(D, n, m, b):
+    """The same for ``solve_pscan_sharded`` (tests/test_collective_audit.py
+    :95-102): one gather of the chunk elements' five parts, one of the
+    chunk maps' two, one ppermute pair."""
+    sig = collections.Counter()
+    sig[("all_gather", (D, n, n, b))] += 4
+    sig[("all_gather", (D, n, b))] += 3
+    sig[("ppermute", (n, n, b))] += 1
+    sig[("ppermute", (n, b))] += 1
+    return sig
 
 
 def leaf_ptxas(build, report: str):
@@ -342,6 +405,9 @@ class Smoke:
         self.gen = torch.Generator().manual_seed(0)
         self.dgen = torch.Generator(device=dev).manual_seed(0)
         self.kernel_stats = {}
+        self.grad_stats = {}
+        self.bwd_launches = collections.Counter()
+        self.shard_walls = {}
 
     def check(self, ok: bool, what: str) -> None:
         if not ok:
@@ -1605,6 +1671,248 @@ class Smoke:
               f"{'equal bit for bit' if same else 'DIFFERS'}; poisoned "
               f"instance 3 of 8: " + "; ".join(notes), flush=True)
 
+    # -- phase 3g --------------------------------------------------------
+    def grads(self, b, opts, wX, timed=False, solver=None):
+        """Gradients of ``Σ U² + <wX, X>`` with respect to every field of
+        ``b`` through ``solver`` (default ``solve``); with ``timed``, also
+        the forward and backward walls (ms), their hand-kernel launches
+        and the peak device memory."""
+        t, pt = self.torch, self.pt
+        solver = solver or pt.solve
+        leaves = {k: getattr(b, k).detach().clone().requires_grad_(True)
+                  for k in GRAD_FIELDS}
+        t.cuda.synchronize()
+        t.cuda.reset_peak_memory_stats()
+        self.reset_hand_launches()
+        t0 = time.perf_counter()
+        sol = solver(dataclasses.replace(b, **leaves), options=opts)
+        loss = (sol.U ** 2).sum() + (wX * sol.X).sum()
+        t.cuda.synchronize()
+        t1 = time.perf_counter()
+        fwd = self.hand_launches()
+        self.reset_hand_launches()
+        gs = t.autograd.grad(loss, [leaves[k] for k in GRAD_FIELDS])
+        t.cuda.synchronize()
+        t2 = time.perf_counter()
+        out = dict(zip(GRAD_FIELDS, gs))
+        if not timed:
+            return out
+        return out, {"fwd_ms": 1e3 * (t1 - t0), "bwd_ms": 1e3 * (t2 - t1),
+                     "fwd_launches": fwd,
+                     "bwd_launches": self.hand_launches(),
+                     "peak_gib": t.cuda.max_memory_allocated() / 2**30}
+
+    def fd_check(self, label, one, wX, g64, opts, solver):
+        """The f64 plain gradient ``g64`` of instance 0 against a
+        fourth-order central difference of its loss (``one``: that
+        instance, f64), on 3 seeded coordinates of each field, step 1e-4
+        max(1, |x|): within 1e-4 max(1, |fd|) (tests/test_rslqr.py:241-259's
+        bar). Returns the worst ratio."""
+        t, pt = self.torch, self.pt
+
+        def loss(p):
+            with t.no_grad():
+                s = solver(p, options=opts)
+                return float((s.U ** 2).sum() + (wX * s.X).sum())
+
+        rng = np.random.default_rng(13)
+        worst = 0.0
+        for k in GRAD_FIELDS:
+            x = getattr(one, k)
+            for _ in range(3):
+                idx = tuple(int(rng.integers(s)) for s in x.shape)
+                h = 1e-4 * max(1.0, abs(float(x[idx])))
+
+                def at(dx):
+                    xx = x.clone()
+                    xx[idx] += dx
+                    return loss(dataclasses.replace(one, **{k: xx}))
+
+                fd = (8 * (at(h) - at(-h)) - (at(2 * h) - at(-2 * h))) / (
+                    12 * h)
+                g = float(g64[k][idx])
+                e = abs(g - fd) / max(1.0, abs(fd))
+                worst = max(worst, e)
+                self.check(e <= 1e-4, f"{label}: d/d{k}{idx} {g:.6e} vs "
+                                      f"central difference {fd:.6e}")
+        return worst
+
+    def autodiff_checks(self):
+        """Gradients through the solve at full width on phase 3's N=256
+        batch (em kernel path), phase 3b's quadruped batch and the same
+        batch on the grid path, and the quadruped batch through
+        ``solve_pscan``: kernel-path f32 gradient error against the
+        f64 plain gradient on 16 (4) instances at most 2x the f32
+        ``kernels="off"`` error + 1e-6, field by field; the f64 gradient
+        against a central difference; forward and backward walls, their
+        hand-kernel launches, peak memory."""
+        t, pt = self.torch, self.pt
+        G = pt.SolveOptions(layout="grid")
+        off = lambda o: dataclasses.replace(o or pt.SolveOptions(),
+                                            kernels="off")
+        for label, b, sub, opts, solver in (
+                (f"small N={N_MAIN} B={BATCH}", self.main_batch, 16, None,
+                 pt.solve),
+                (f"quadruped N={QN} B={QB}", self.quad_batch, 4, None,
+                 pt.solve),
+                (f"grid quadruped N={QN} B={QB}", self.quad_batch, 4, G,
+                 pt.solve),
+                (f"pscan quadruped N={QN} B={QB}", self.quad_batch, 4, None,
+                 pt.solve_pscan)):
+            wX = t.randn(b.q.shape, generator=t.Generator().manual_seed(7),
+                         dtype=t.float64)
+            wX32 = wX.to(device=self.dev, dtype=b.q.dtype)
+            got, st = self.grads(b, opts, wX32, timed=True, solver=solver)
+            self.grad_stats[label] = st
+            self.bwd_launches.update(st["bwd_launches"])
+            bsub = b.map(lambda x: x[:sub])
+            p32 = self.grads(bsub, off(opts), wX32[:sub], solver=solver)
+            b64 = bsub.to(dtype=t.float64)
+            w64 = wX.to(self.dev)[:sub]
+            g64 = self.grads(b64, off(opts), w64, solver=solver)
+            errs = {}
+            for k in GRAD_FIELDS:
+                ok = bool(t.isfinite(got[k]).all())
+                e_k = rel_err(got[k][:sub].double(), g64[k])
+                e_p = rel_err(p32[k].double(), g64[k])
+                errs[k] = (e_k, e_p)
+                self.check(ok and e_k <= 2.0 * e_p + 1e-6,
+                           f"{label}: f32 d/d{k} err vs f64 {e_k:.3e} > "
+                           f"2 x plain {e_p:.3e} + 1e-6 (finite {ok})")
+            fd = self.fd_check(label, b64.map(lambda x: x[:1]), w64[:1],
+                               g64, off(opts), solver)
+            if solver is pt.solve_pscan:
+                self.check(all(st["bwd_launches"].get(k, 0) > 0 for k in (
+                    "pgemm_flagged", "plu_solve_multi")),
+                    f"{label}: backward launches {st['bwd_launches']}")
+            elif opts is None and b is self.main_batch:
+                self.check(st["bwd_launches"].get("rhs_update_level_em", 0)
+                           >= 8, f"{label}: backward launched B2 "
+                                 f"{st['bwd_launches']}")
+            elif opts is None:
+                self.check(all(st["bwd_launches"].get(k, 0) > 0 for k in (
+                    "pcho_solve", "schur3_update_planes")),
+                    f"{label}: backward launches {st['bwd_launches']}")
+            else:
+                self.check(not st["fwd_launches"] and not st["bwd_launches"],
+                           f"{label}: hand kernels launched on the grid "
+                           f"path {st}")
+            print(f"phase3g {label} f32: forward {st['fwd_ms']:.3f} ms, "
+                  f"backward {st['bwd_ms']:.3f} ms (first call), peak "
+                  f"device memory {st['peak_gib']:.2f} GiB; forward "
+                  f"launches {json.dumps(st['fwd_launches'])}; backward "
+                  f"launches {json.dumps(st['bwd_launches'])}", flush=True)
+            print(f"phase3g {label}: grad err vs f64 on {sub} instances "
+                  f"(kernel path / plain f32): " + ", ".join(
+                      f"{k} {e:.2e}/{p:.2e}" for k, (e, p) in errs.items())
+                  + f"; f64 vs central difference worst {fd:.2e} (bar "
+                  f"1e-4)", flush=True)
+
+    # -- phase 3h --------------------------------------------------------
+    def sharded_checks(self):
+        """The sharded solvers on 2 and 4 spawned ranks that share the card
+        (gloo on cuda:0), on phase 3's N=256 batch: parity with the
+        single-device solves, the collective signature against the
+        closed-form model, the batch shards' kernel launches, and
+        ``dryrun_multichip(4, "cuda")``."""
+        from rslqr_tpu_torch.parallel import comm
+        from rslqr_tpu_torch.parallel.dryrun import (dryrun_multichip,
+                                                     solve_cases)
+        from rslqr_tpu_torch.parallel.launch import run_ranks
+
+        t, pt = self.torch, self.pt
+        ref_seq = self.main_got.cpu().numpy()
+        ref_ps = pt.solve_pscan_kkt(self.main_batch).cpu().numpy()
+        base = {"baseline": (N_MAIN, BATCH, "float32"), "sp": "sp",
+                "reps": SHARD_REPS}
+        for D in (2, 4):
+            cases = {
+                f"seq (1, {D})": {**base, "solver": "seq", "mesh": (1, D),
+                                  "axes": ("dp", "sp"), "dp": "dp"},
+                f"pscan (1, {D})": {**base, "solver": "pscan",
+                                    "mesh": (1, D), "axes": ("dp", "sp"),
+                                    "dp": "dp"},
+                f"batch ({D},)": {**base, "solver": "batch", "mesh": (D,),
+                                  "axes": ("dp",), "dp": "dp"},
+            }
+            if D == 4:
+                cases["seq (2, 2)"] = {**base, "solver": "seq",
+                                       "mesh": (2, 2), "axes": ("dp", "sp"),
+                                       "dp": "dp"}
+            t0 = time.perf_counter()
+            res = run_ranks(solve_cases, D, "cuda",
+                            args=(list(cases.values()),))
+            spawn_s = time.perf_counter() - t0
+            for i, (name, case) in enumerate(cases.items()):
+                per = [r[i] for r in res]
+                solver, mesh = case["solver"], case["mesh"]
+                if solver == "batch":
+                    out = np.concatenate([r["kkt"] for r in per])
+                else:
+                    out = per[0]["kkt"]
+                    self.check(all(np.array_equal(r["kkt"], out)
+                                   for r in per), f"{name}: ranks differ")
+                ref = ref_ps if solver == "pscan" else ref_seq
+                d = rel_err(t.as_tensor(out), t.as_tensor(ref))
+                self.check(out.shape == ref.shape and d <= SLICE_BAR,
+                           f"phase3h {name}: rel diff {d:.3e} vs the "
+                           f"single-device solve")
+                launches = [r["launches"] for r in per]
+                if solver == "batch":
+                    self.check(all(r["calls"] == [] for r in per),
+                               f"{name}: collectives in a batch-sharded "
+                               f"solve")
+                    self.check(all(l.get(k, 0) > 0 for l in launches
+                                   for k in SMALL_PATH), f"{name}: rank "
+                               f"launches {launches}")
+                else:
+                    b_loc, sp = BATCH // mesh[0], mesh[1]
+                    model = (seq_signature if solver == "seq"
+                             else pscan_signature)(sp, n, m, b_loc)
+                    for r in per:
+                        sig = collections.Counter(
+                            (nm, tuple(s)) for nm, s in r["calls"]
+                            if nm in comm.SOLVE_COLLECTIVES)
+                        self.check(sig == model, f"{name}: signature "
+                                                 f"{dict(sig)}")
+                    if solver == "seq":
+                        self.check(not any(launches), f"{name}: seq "
+                                   f"launched hand kernels {launches}")
+                walls = [statistics.median(r["walls_ms"]) for r in per]
+                self.shard_walls[f"{name} D={D}"] = max(walls)
+                print(f"phase3h {name} on {D} ranks sharing cuda:0: rel "
+                      f"diff vs single-device {d:.3e} (bar {SLICE_BAR}); "
+                      f"collectives {len(per[0]['calls'])} by "
+                      f"{per[0]['transports']}; launches per rank "
+                      f"{json.dumps(launches)}", flush=True)
+            print(f"phase3h D={D}: spawn and run {spawn_s:.1f} s",
+                  flush=True)
+        dryrun_multichip(4, "cuda")
+
+    def time_autodiff(self, card):
+        """Phase 4f: forward against forward + backward, in turns, small
+        and quadruped (rsLQR and pscan); then each sharded solve's wall
+        (ranks sharing the card, median over the rank's repeats, slowest
+        rank)."""
+        t, pt = self.torch, self.pt
+        for label, b, solver in (
+                (f"small N={N_MAIN} B={BATCH}", self.main_batch, pt.solve),
+                (f"quadruped N={QN} B={QB}", self.quad_batch, pt.solve),
+                (f"pscan quadruped N={QN} B={QB}", self.quad_batch,
+                 pt.solve_pscan)):
+            wX = t.randn(b.q.shape, generator=t.Generator().manual_seed(7),
+                         dtype=t.float64).to(device=self.dev,
+                                             dtype=b.q.dtype)
+            self.turns(card, f"phase4f autodiff {label}", {
+                "forward": lambda b=b, solver=solver: solver(b),
+                "forward+backward": lambda b=b, wX=wX, solver=solver:
+                    self.grads(b, None, wX, solver=solver)})
+        print(f"phase4f sharded walls on {card}, ranks sharing one card "
+              f"(time-sharing, not scaling): " + ", ".join(
+                  f"{k} {v:.3f} ms" for k, v in self.shard_walls.items())
+              + f"; single-device em kernel path and pscan: phase 4, 4c",
+              flush=True)
+
     # -- phase 4e --------------------------------------------------------
     def time_grid(self, card):
         """Median host-clock ms (CUDA-synchronized) of the grid slice, each
@@ -1889,6 +2197,8 @@ def main() -> int:
         ("phase3d", smoke.flat_checks),
         ("phase3e", smoke.block_solves),
         ("phase3f", smoke.grid_checks),
+        ("phase3g", smoke.autodiff_checks),
+        ("phase3h", smoke.sharded_checks),
         ("phase4", lambda: smoke.time_solves(
             card, smoke.main_batch, REPS, f"phase4 N={N_MAIN}")),
         ("phase4b", lambda: smoke.time_solves(
@@ -1908,6 +2218,7 @@ def main() -> int:
                               f"phase4d refined flat (2 iterations, f64) "
                               f"N={N_MAIN}", smoke.refined_solve))),
         ("phase4e", lambda: smoke.time_grid(card)),
+        ("phase4f", lambda: smoke.time_autodiff(card)),
         ("phase5", lambda: (
             smoke.profile(smoke.main_batch, f"N={N_MAIN} B={BATCH}"),
             smoke.profile(smoke.quad_batch, f"quadruped N={QN} B={QB}"),
@@ -1943,6 +2254,7 @@ def main() -> int:
          "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
          "bound_by": st["bound_by"], "library_ms": st["library_ms"],
          "case": st["case"], "launches_from": LAUNCHES_FROM.get(name),
+         "backward_launches": smoke.bwd_launches.get(name, 0),
          **{k: st[k] for k in ("em_twin_ms", "chained_ms",
                                "library_chained_ms") if k in st}}
         for name, st in smoke.kernel_stats.items()

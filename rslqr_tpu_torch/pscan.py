@@ -177,18 +177,27 @@ def _interleave(a: torch.Tensor, b: torch.Tensor, em: bool = False):
     return torch.stack([a, b], dim=1).reshape((-1,) + a.shape[1:])
 
 
-def _suffix_pj(elems, nb: int, opts: SolveOptions, em: bool = False):
+def _suffix_pj(elems, nb: int, opts: SolveOptions, em: bool = False,
+               seed=None):
     """All-suffix reductions of value elements, returning only ``(eta,
     J)``: an odd-even (Brent-Kung) suffix scan whose up-sweep combines full
     pairs and whose down-sweep uses :func:`_combine_reduced` (JAX
-    pscan.py:209-260)."""
+    pscan.py:209-260).
+
+    ``seed``: an optional cost-to-go pair ``(eta [1, n, *b], J [1, n, n,
+    *b])`` appended after the last element, ``S_k = reduce(e_k .. e_{L-1},
+    seed)``: the horizon-sharded scan (:mod:`rslqr_tpu_torch.parallel.
+    pscan_seq`) seeds each chunk with the combined suffix of the chunks to
+    its right. Without it the scan is unchanged."""
     L = _slen(elems[0], em)
     if L == 1:
-        return elems[3], elems[4]
+        if seed is None:
+            return elems[3], elems[4]
+        return _combine_reduced(elems, seed, nb, opts)
     if L % 2 == 1:
         # Peel the first element: S_0 = combine(e_0, S_1).
         eta_r, J_r = _suffix_pj(_tree_slice(elems, slice(1, None), em), nb,
-                                opts, em)
+                                opts, em, seed)
         e0 = _tree_slice(elems, slice(0, 1), em)
         eta0, J0 = _combine_reduced(
             e0, (_sc(eta_r, slice(0, 1), em), _sc(J_r, slice(0, 1), em)), nb,
@@ -197,10 +206,14 @@ def _suffix_pj(elems, nb: int, opts: SolveOptions, em: bool = False):
         return _cat([eta0, eta_r], em), _cat([J0, J_r], em)
     e_even, e_odd = _tree_even_odd(elems, em)
     c = _combine(e_even, e_odd, nb, opts)  # segment [2i, 2i+1]
-    eta_p, J_p = _suffix_pj(c, nb, opts, em)  # S_{2i}
-    # S_{2i+1} = combine(e_{2i+1}, S_{2i+2}) for i < L/2-1; S_{L-1} = e_{L-1}.
+    eta_p, J_p = _suffix_pj(c, nb, opts, em, seed)  # S_{2i}
+    # S_{2i+1} = combine(e_{2i+1}, S_{2i+2}) for i < L/2-1; S_{L-1} = e_{L-1}
+    # (combined with the seed, if any).
     e_last = _tree_slice(e_odd, slice(-1, None), em)
-    eta_last, J_last = e_last[3], e_last[4]
+    if seed is None:
+        eta_last, J_last = e_last[3], e_last[4]
+    else:
+        eta_last, J_last = _combine_reduced(e_last, seed, nb, opts)
     if L > 2:
         eta_o, J_o = _combine_reduced(
             _tree_slice(e_odd, slice(0, -1), em),
@@ -212,6 +225,27 @@ def _suffix_pj(elems, nb: int, opts: SolveOptions, em: bool = False):
     else:
         eta_odd, J_odd = eta_last, J_last
     return _interleave(eta_p, eta_odd, em), _interleave(J_p, J_odd, em)
+
+
+def _reduce_full(elems, nb: int, opts: SolveOptions, em: bool = False):
+    """Reduce a whole element sequence to ONE full element ``[1, ...]`` by
+    a pairwise tree, the same pair combines as the up-sweep of
+    :func:`_suffix_pj` (JAX pscan.py:263-285)."""
+    L = _slen(elems[0], em)
+    while L > 1:
+        if L % 2 == 1:
+            head = _tree_slice(elems, slice(0, 1), em)
+            rest = _tree_slice(elems, slice(1, None), em)
+            rest_even, rest_odd = _tree_even_odd(rest, em)
+            c = _combine(rest_even, rest_odd, nb, opts)
+            e0c = _combine(head, _tree_slice(c, slice(0, 1), em), nb, opts)
+            elems = tuple(_cat([a, _sc(b, slice(1, None), em)], em)
+                          for a, b in zip(e0c, c))
+        else:
+            e_even, e_odd = _tree_even_odd(elems, em)
+            elems = _combine(e_even, e_odd, nb, opts)
+        L = _slen(elems[0], em)
+    return elems
 
 
 # ---------------------------------------------------------------------------
@@ -767,7 +801,15 @@ def solve_pscan(prob: LQRProblem,
     and blocks above 64 the batch-last path. Options read here:
     ``layout``, ``kernels``, ``mxu_block_threshold``, ``pscan_chunk``,
     ``pscan_batched_interior``. Sets TF32 off, as ``rslqr.solve`` does.
+
+    Differentiable through ``Y``, ``X``, ``U`` when grad is enabled and a
+    field requires grad (:mod:`rslqr_tpu_torch.autodiff`: the backward
+    scans the shadow problem); the gains then come back detached.
     """
+    from . import autodiff
+
+    if autodiff.wants_grad(prob):
+        return autodiff.solve_pscan(prob, options)
     flat, bshape = _one_batch_axis(prob)
     sol = _solve_pscan_impl(flat, resolve_options(options))
     return RiccatiSolution(**{

@@ -141,22 +141,31 @@ def _refine(prob: LQRProblem, iterations: int, solve_dtype,
     factor and solve in ``solve_dtype``, residuals in ``prob``'s dtype.
     Returns batch-last ``(Y, X, U)`` in ``prob``'s dtype (``U`` with the
     scratch row) and the factorization."""
-    hi = prob.A.dtype
     lo = prob.to(dtype=solve_dtype)
-    pbl = _to_batch_last(prob, 1)
     fact, zs = _refine_factor_init(lo, opts, tables)
+    resolve = lambda r: _refine_resolve(
+        lo, fact, tuple(v.to(solve_dtype) for v in r), opts)
+    return _refine_steps(prob, zs, iterations, resolve), fact
+
+
+def _refine_steps(prob: LQRProblem, zs, iterations: int, resolve):
+    """``iterations`` refinement steps of the batch-last solution ``zs``
+    of ``prob`` (one leading batch axis): the residual in ``prob``'s dtype,
+    the correction ``resolve(residual)`` (a solve with the same KKT
+    matrix). Returns batch-last ``(Y, X, U)`` in ``prob``'s dtype."""
+    hi = prob.A.dtype
+    pbl = _to_batch_last(prob, 1)
     Y, X, U = (z.to(hi) for z in zs)
     for _ in range(iterations):
         r, _ = _residual(pbl, Y, X, U)
-        dy, dx, du = _refine_resolve(
-            lo, fact, tuple(v.to(solve_dtype) for v in r), opts
-        )
+        dy, dx, du = resolve(r)
         Y = Y + dy.to(hi)
         X = X + dx.to(hi)
         U = U + du.to(hi)
-    return (Y, X, U), fact
+    return Y, X, U
 
 
+@torch.no_grad()
 def solve_refined(
     prob: LQRProblem,
     iterations: int = 2,
@@ -167,7 +176,12 @@ def solve_refined(
     """rsLQR solve with a ``solve_dtype`` factorization refined to the
     precision of ``prob``'s dtype (pass a float64 problem for full
     accuracy). ``options`` pins the kernel dispatch (for example
-    ``flat_planes``) of the factorization and of every re-solve."""
+    ``flat_planes``) of the factorization and of every re-solve.
+
+    Not differentiable, nor are the other refined entry points: they run
+    under ``torch.no_grad()`` and return tensors without a graph, as the
+    JAX package's refinement cannot be differentiated either; differentiate
+    :func:`rslqr_tpu_torch.solve` instead."""
     one, bshape = _one_batch_axis(prob)
     (Y, X, U), fact = _refine(one, iterations, solve_dtype,
                               resolve_options(options), tables)
@@ -175,6 +189,7 @@ def solve_refined(
     return RsLqrSolution(Y=lead(Y), X=lead(X), U=lead(U[:-1]), fact=fact)
 
 
+@torch.no_grad()
 def _refined_kkt(prob64: LQRProblem, iterations: int, opts: SolveOptions):
     """f32 factorization, f64 residuals on the device: the packed f64 KKT
     vectors ``[*b, nvars]`` and the final max-norm residual (device
@@ -266,6 +281,7 @@ def _np_pack_solution(Y, X, U):
     return np.concatenate([body, tail], axis=-1)
 
 
+@torch.no_grad()
 def solve_refined_host(
     prob: LQRProblem, iterations: int = 3,
     options: Optional[SolveOptions] = None,

@@ -199,11 +199,16 @@ def _lambda_mask(N: int, span: int, mid: int) -> np.ndarray:
     return mask
 
 
-def _keep(level: int, N: int, trail: int, device) -> torch.Tensor:
+def _keep(level: int, N: int, trail: int, device,
+          knot0: bool = True) -> torch.Tensor:
     """:func:`_lambda_mask` at ``span = 2^(level+1)``, ``mid = 2^level``,
     made on the device (no host copy), broadcastable against grouped
-    ``[G, span, ...]`` arrays with ``trail`` dims after the span."""
+    ``[G, span, ...]`` arrays with ``trail`` dims after the span.
+    ``knot0``: the first knot is global knot 0 (its lambda update is
+    kept); False on a horizon chunk that starts past knot 0."""
     keep = _masks(level, N, device)[0]  # [N, 1]
+    if not knot0:
+        keep[0] = False
     span = 2 << level
     return keep.view((N // span, span) + (1,) * trail)
 
@@ -241,12 +246,12 @@ def _stage_cholsolve(Lc, Ss, nb: int, opts: Optional[SolveOptions] = None):
 
 
 def _stage_schur(level: int, depth: int, Fls, Fxs, Fus, Ss, fsols, nb: int,
-                 opts: Optional[SolveOptions] = None):
+                 opts: Optional[SolveOptions] = None, knot0: bool = True):
     """Write the separator blocks back into the factor slabs and apply the
     Schur-complement updates to every knot (solve.c:119-131,
     ndlqr_UpdateShurFactor nested_dissection.c:154-171), in place:
     ``F*[u] -= F*[level] @ f_u`` with ``f_u`` broadcast over each group and
-    the lambda row masked by calc_lambda."""
+    the lambda row masked by calc_lambda (``knot0`` as in :func:`_keep`)."""
     N = Fls[0].shape[0]
     span = 1 << (level + 1)
     mid = (1 << level) - 1
@@ -255,7 +260,7 @@ def _stage_schur(level: int, depth: int, Fls, Fxs, Fus, Ss, fsols, nb: int,
                                             else fsols[ui - 1])
     if level + 1 >= depth:
         return
-    keep = _keep(level, N, nb + 2, Fls[0].device)
+    keep = _keep(level, N, nb + 2, Fls[0].device, knot0)
     FL_l, FL_x, FL_u = (_group(F[level], span) for F in (Fls, Fxs, Fus))
     for ui, u in enumerate(range(level + 1, depth)):
         f_u = fsols[ui][:, None]  # [G, 1, n, n, *b]: broadcast over span
@@ -338,10 +343,12 @@ def _factorize_bl(
 
 
 def _rhs_level_core(prob, level: int, Fl, Fx, Fu, Lc, zy, zx, zu, nb: int,
-                    opts: Optional[SolveOptions] = None):
+                    opts: Optional[SolveOptions] = None, knot0: bool = True):
     """One level of the RHS sweep (ref solve.c:137-182) with this level's
     stacked separator Cholesky ``Lc [G, n, n, *b]``; returns new ``(zy,
-    zx, zu)``."""
+    zx, zu)``. ``knot0``: the first knot is global knot 0, which keeps its
+    lambda update (JAX rslqr.py:385-417): True on one device, and under
+    horizon sharding on the first chunk only."""
     span = 1 << (level + 1)
     mid = (1 << level) - 1
     A_g = _group(prob.A, span)[:, mid]
@@ -361,7 +368,7 @@ def _rhs_level_core(prob, level: int, Fl, Fx, Fu, Lc, zy, zx, zu, nb: int,
     # Propagate into the solution (ref solve.c:176-180):
     # g_k -= F[level, k] @ zbar[group(k)]   (lambda row masked).
     fvec = zbar[:, None]  # [G, 1, n, *b]: broadcast over the group span
-    keep = _keep(level, zy.shape[0], nb + 1, zy.device)
+    keep = _keep(level, zy.shape[0], nb + 1, zy.device, knot0)
     zy = zy - _ungroup(torch.where(
         keep, la.bgemv(_group(Fl, span), fvec, nb), 0.0))
     zx = zx - _ungroup(la.bgemv(_group(Fx, span), fvec, nb))
@@ -460,8 +467,17 @@ def solve(
     ``layout="grid"`` and blocks above 64 run the knot-major grid path, the
     whole batch in one batched call per stage (JAX vmaps single solves
     there, rslqr.py:571-580). Sets TF32 off (:func:`_no_tf32`).
+
+    Differentiable: when grad is enabled and a field requires grad, the
+    solve runs as :mod:`rslqr_tpu_torch.autodiff`'s Function (the same
+    route; its backward re-solves through the cached factorization).
+    Otherwise no graph is built.
     """
     opts = resolve_options(options)
+    from . import autodiff
+
+    if autodiff.wants_grad(prob):
+        return autodiff.solve(prob, tables, opts)
     if _use_em_layout(prob, opts):
         from . import rslqr_em
 

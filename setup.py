@@ -11,7 +11,7 @@ setup(
     version="0.1.0",
     packages=[
         "rslqr_tpu", "rslqr_tpu.ops", "rslqr_tpu.parallel",
-        "rslqr_tpu_torch", "rslqr_tpu_torch.ops",
+        "rslqr_tpu_torch", "rslqr_tpu_torch.ops", "rslqr_tpu_torch.parallel",
     ],
     ext_modules=[
         Extension(
