@@ -54,9 +54,13 @@ Env knobs (bench.py's): BENCH_BATCH (1024), BENCH_HORIZON (256),
 BENCH_REPS (5), BENCH_SOLVER (comma list of pscan|rslqr|refine|flat,
 "all" = pscan+rslqr+refine+quadruped, "both" = pscan+rslqr only),
 BENCH_K1/BENCH_K2 (1/9), BENCH_CONFIG=quadruped (quadruped only),
-BENCH_QUAD_BATCH (256), BENCH_QUAD_HORIZON (512). bench.py's chunking
-knobs have no counterpart: every family runs its batch as one. The gates
-always run, and the refinement takes 3 iterations.
+BENCH_QUAD_BATCH (256), BENCH_QUAD_HORIZON (512), BENCH_FACTOR_DTYPE
+("" or "bfloat16": bf16 factor slabs, ``SolveOptions.factor_dtype``, in
+every family and in the refined gates, as bench.py:60-63 sets the JAX
+package's global config; ``refined_kkt_device`` ignores its options, C4;
+no default run sets it). bench.py's chunking knobs have no counterpart:
+every family runs its batch as one. The gates always run, and the
+refinement takes 3 iterations.
 
 Needs a card: :func:`main` exits 2 without one. The functions take an
 explicit ``device``, so that the tests run them on the CPU.
@@ -75,25 +79,34 @@ import rslqr_tpu_torch as rt
 from rslqr_tpu_torch import pscan, refine, rslqr
 from rslqr_tpu_torch.bench_kernels import device_name
 
-FLAT = rt.SolveOptions(flat_planes=True)
-
-
 def log(msg):
     print(msg, file=sys.stderr, flush=True)
 
 
+def _options(**kw) -> rt.SolveOptions:
+    """The families' options, with ``BENCH_FACTOR_DTYPE`` read at each
+    call."""
+    return rt.SolveOptions(
+        factor_dtype=os.environ.get("BENCH_FACTOR_DTYPE", ""), **kw)
+
+
+def _rslqr_kkt(p):
+    return rslqr.solve_kkt(p, options=_options())
+
+
 def _refine_kkt(p):
-    sol = refine.solve_refined(p, iterations=2, solve_dtype=torch.float32)
+    sol = refine.solve_refined(p, iterations=2, solve_dtype=torch.float32,
+                               options=_options())
     return sol.kkt_vector()
 
 
 def _flat_kkt(p):
-    return rslqr.solve_kkt(p, options=FLAT)
+    return rslqr.solve_kkt(p, options=_options(flat_planes=True))
 
 
 SOLVERS = {
     "pscan": pscan.solve_pscan_kkt,
-    "rslqr": rslqr.solve_kkt,
+    "rslqr": _rslqr_kkt,
     "refine": _refine_kkt,
     "flat": _flat_kkt,
 }
@@ -217,7 +230,7 @@ def accuracy_gate(results, batch, batch_size, nhorizon, reps, device):
     ok = True
     for key, solve in (("refined_f64", refine.solve_refined_host),
                        ("refined_f64_device", refine.solve_refined_device)):
-        kkt, res = solve(prob64, iterations=iters)
+        kkt, res = solve(prob64, iterations=iters, options=_options())
         dr = float(np.max(np.abs(kkt - ref)))
         results[f"{key}_residual"] = res
         results[f"{key}_vs_riccati"] = dr
@@ -332,6 +345,8 @@ def main(device="cuda") -> int:
     card = device_name(device)
     log(f"[bench] torch={torch.__version__} device={card}")
     results = {}
+    if _options().factor_dtype:
+        results["factor_dtype"] = _options().factor_dtype
     gate_ok = True
 
     if names:

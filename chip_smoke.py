@@ -77,6 +77,16 @@ Phases, each printing one line of numbers:
    = (4, 2), (8, 8), (5, 4) (the generic instantiations of
    ``csrc/small_blocks.cuh``), and the wide inputs (6, 12) and (8, 64) (its
    wide tag), at the small path's shapes, B3 and B11 also chained;
+2g. ROADMAP C8, the quadruped kernel path's f32 error: B5 (plain), B6, B7
+   (w=36 and w=1) and B9 at the quadruped rsLQR's level-0 and level-4
+   shapes, each in f32 as kernel and as plain version and in f64 as plain
+   version on the same inputs, with each f32 result's error relative to
+   the f64 one and the ratio kernel / plain, B6 and B7 also in the JAX
+   kernels' order of operations in plain f32 ops in place of the kernel
+   (each term subtracted in turn, as their unrolled loops do); then the
+   quadruped f32 solve
+   with each of the four wrappers alone run plain, and alone run as a
+   kernel, each against the f64 Riccati solve of 4 instances;
 3e. default-option f32 solves at those block sizes, em (N=256, and N=128
    where B1 launches) and flat schedule, with their launch counts and
    agreement with ``kernels="off"``; then a state dim past 8 under
@@ -119,6 +129,22 @@ Phases, each printing one line of numbers:
    collective signature equal to the closed-form model of
    tests/test_collective_audit.py:71-102, every batch shard's em kernels
    launched, no hand kernel in seq; then ``dryrun_multichip(4, "cuda")``;
+3i. bf16 factor slabs (``SolveOptions(factor_dtype="bfloat16")``): (a)
+   ``solve`` on phase 3's batches at N=256 and N=128 (B3, B4, B2 and B1
+   launch their bf16 instantiations; the slabs are bf16; the kernel
+   path's error against the f64 Riccati solve at most 2x the plain bf16
+   path's + 1e-6, its distance to that path likewise); (b) the same
+   batch with ``flat_planes`` (the flat kernels take f32 slabs only: the
+   em kernels, equal to (a)); (c) ``solve_refined`` with 8 iterations on
+   4 f64 instances of a seeded random problem (nx=6, nu=3, N=256: KKT
+   residual below 1e-8 and within 1e-6 (1 + max|ref|) of the f64
+   Riccati solve) and, reported, on the BASELINE batch's; (d) the
+   quadruped batch (the plain mid-block update: no B9 launch, B6 and B7
+   as in f32), its relative residual, distance to the f32-slab solve and
+   peak device memory; (e) B1-B4 with bf16 slabs against their plain
+   versions at phase 2's shapes (rounding flips in at most 0.1% of the
+   elements; bit for bit on inputs whose every sum is exact in f32),
+   single and chained ms against bounds from the bf16 byte counts;
 4. time per batched solve of both slices, kernel path and
    ``kernels="off"``; 4c the same for the parallel scan; 4d for the flat
    solve and the refined solve; 4e the grid slice in turns: the quadruped
@@ -126,7 +152,8 @@ Phases, each printing one line of numbers:
    solve, large-block rsLQR and pscan; 4f forward against forward +
    backward (small and quadruped, and quadruped pscan) in turns, and each
    sharded solve's wall at each rank count (ranks sharing one card:
-   time-sharing, not scaling);
+   time-sharing, not scaling); 4g bf16 slabs against f32 slabs in turns
+   (the em solve and the quadruped);
 5. one batched solve of each slice (and one quadruped pscan solve, one flat
    solve, one refined solve and one quadruped grid solve) traced with
    ``torch.profiler``: device time by kernel (the top kernels and every
@@ -153,6 +180,7 @@ without that last line; so does a machine without CUDA. Imports no JAX.
 """
 
 import collections
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -304,6 +332,7 @@ def leaf_ptxas(build, report: str):
                f"{', wide' if wide == '1' else ''}>")
         lay = "GroupMajor (B3)" if "GroupMajor" in name else (
             "ElementMajor (B11)")
+        lay += ", bf16 slabs" if "__nv_bfloat16" in name else ""
         lines.append(f"phase1 ptxas leaf_row_kernel {tag} {lay}: {regs} "
                      f"registers, {stack} bytes stack, {st}/{ld} bytes spill "
                      f"stores/loads")
@@ -323,6 +352,43 @@ def probe_ptxas(build, report: str):
         lines.append(f"phase1 ptxas {what}: {regs} registers, {stack} bytes "
                      f"stack, {st}/{ld} bytes spill stores/loads")
     return lines
+
+
+def jax_order_pchol(A):
+    """B6 in the JAX kernel's order (planes_pallas.py:_chol_kernel),
+    plain f32 ops: left-looking, each column's terms subtracted one at a
+    time in ascending k, the column scaled by rsqrt of its pivot (the plain
+    version, ``planes.pchol_plain``, sums each column's terms in one
+    reduction)."""
+    import torch
+
+    n = A.shape[0]
+    L = torch.zeros_like(A)
+    for j in range(n):
+        acc = A[j:, j]
+        for k in range(j):
+            acc = acc - L[j:, k] * L[j, k][None]
+        L[j:, j] = acc * torch.rsqrt(acc[0])[None]
+    return L
+
+
+def jax_order_pcho_solve(L, B):
+    """B7 in the JAX kernel's order (planes_pallas.py:_cho_solve_kernel),
+    plain f32 ops, in place on ``B``: forward then back substitution, each
+    row's terms subtracted one at a time, times the reciprocal of the
+    diagonal."""
+    n = L.shape[0]
+    for i in range(n):
+        acc = B[i]
+        for k in range(i):
+            acc = acc - L[i, k][None] * B[k]
+        B[i] = acc * (1.0 / L[i, i])[None]
+    for i in reversed(range(n)):
+        acc = B[i]
+        for k in range(i + 1, n):
+            acc = acc - L[k, i][None] * B[k]
+        B[i] = acc * (1.0 / L[i, i])[None]
+    return B
 
 
 def rel_err(got, ref) -> float:
@@ -368,24 +434,28 @@ def update_ops(nx, nu, q, N, B, level, U):
     return 2 * nx * q * B * U * ((nx + nu) * N + nx * keep)
 
 
-def update_moved(nx, nu, q, N, B, level, U):
-    """Bytes (f32) U masked slab-trio updates at one level need: the x/u
+def update_moved(nx, nu, q, N, B, level, U, msize=4, csize=4):
+    """Bytes U masked slab-trio updates at one level need: the x/u
     multipliers in full and the lambda multiplier where calc_lambda keeps
-    the row; per trio its x/u slabs read and written, its lambda slab read
-    where kept and written there and at the separator knots, and its
-    solved separators once."""
+    the row (``msize`` bytes an element: 4 for f32 slabs, 2 for bf16); per
+    trio its x/u slabs read and written, its lambda slab read where kept
+    and written there and at the separator knots (``csize`` bytes; the RHS
+    sweep's z vectors are f32 whatever the slabs), and its solved
+    separators (f32) once."""
     keep, nsep = lam_knots(N, level)
     G = N >> (level + 1)
-    return 4 * B * ((nx + nu) * nx * N + nx * nx * keep + U * (
-        2 * (nx + nu) * q * N + nx * q * (2 * keep + nsep) + nx * q * G))
+    return B * (msize * ((nx + nu) * nx * N + nx * nx * keep) + U * (
+        csize * (2 * (nx + nu) * q * N + nx * q * (2 * keep + nsep))
+        + 4 * nx * q * G))
 
 
-def emit_moved(G2, B, S):
-    """Bytes (f32) the emission of S next-level products at G2 separator
-    groups needs beyond the update: A and B at those separators, the lambda
-    rows after them (left unchanged by the update) of each slab, the
-    products, and the first slab's separator rows written back."""
-    return 4 * G2 * B * ((nn + n * m) + 2 * S * nn + nn)
+def emit_moved(G2, B, S, size=4):
+    """Bytes the emission of S next-level products at G2 separator groups
+    needs beyond the update: A and B at those separators and the products
+    (f32), the lambda rows after them (left unchanged by the update) of
+    each slab, and the first slab's separator rows written back (``size``
+    bytes an element: 4 for f32 slabs, 2 for bf16)."""
+    return G2 * B * (4 * (nn + n * m) + S * (size + 4) * nn + size * nn)
 
 
 def sweep_ops(N, B, level, U, emitted=0, G2=0, nx=n, nu=m):
@@ -408,6 +478,8 @@ class Smoke:
         self.grad_stats = {}
         self.bwd_launches = collections.Counter()
         self.shard_walls = {}
+        self.bf16_stats = {}
+        self.bf16_launches = {}
 
     def check(self, ok: bool, what: str) -> None:
         if not ok:
@@ -489,8 +561,8 @@ class Smoke:
         k = flat(fn(*clones(), **kwargs))
         t.cuda.synchronize()
         if moved is None:
-            moved = 4 * (sum(x.numel() for x in tensors(args))
-                         + sum(x.numel() for x in k))
+            moved = sum(x.numel() * x.element_size()
+                        for x in tensors(args) + k)
         bound_ms, bound_by = bound(moved, ops)
         ok = len(p) == len(k)
         err = 0.0
@@ -617,13 +689,16 @@ class Smoke:
                 chain=True,
             )
 
-    def level_args(self, N, B, level, nx=n, nu=m, R=None):
+    def level_args(self, N, B, level, nx=n, nu=m, R=None, dtype=None):
+        """B1's f32 arguments; the products as the level emits them for
+        slabs stored in ``dtype`` (f32 by default)."""
         R = R or self.rand
         xx, ux = nx * nx, nu * nx
         depth = N.bit_length() - 1
         U = depth - level - 1
         G, G2 = N >> (level + 1), N >> (level + 2)
-        emit = self.schur._level_emits(level, N) and level + 2 <= depth
+        emit = (self.schur._level_emits(level, N, dtype or self.torch.float32)
+                and level + 2 <= depth)
         return [R(xx, N, B), R(xx, N, B), R(ux, N, B),
                 [R(xx, N, B) for _ in range(U)],
                 [R(xx, N, B) for _ in range(U)],
@@ -632,13 +707,15 @@ class Smoke:
                 R(G2, xx, B) if emit else None,
                 R(G2, ux, B) if emit else None]
 
-    def pair_args(self, N, B, level, nx=n, nu=m, R=None):
+    def pair_args(self, N, B, level, nx=n, nu=m, R=None, dtype=None):
+        """B4's f32 arguments, as :meth:`level_args`."""
         R = R or self.rand
         xx, ux = nx * nx, nu * nx
         depth = N.bit_length() - 1
         U = depth - level - 1
         G1, G2, G3 = N >> (level + 1), N >> (level + 2), N >> (level + 3)
-        emit = (self.schur._pair_emits(level, N, B, U, nx, nu)
+        emit = (self.schur._pair_emits(level, N, B, U, nx, nu,
+                                       dtype or self.torch.float32)
                 and level + 2 <= depth - 1)
         return [R(xx, N, B), R(xx, N, B), R(ux, N, B),
                 [R(xx, N, B) for _ in range(U)],
@@ -748,6 +825,110 @@ class Smoke:
                 dict(blk, level=0, N=N), update_ops(nx, nu, 1, N, B, 0, 1),
                 phase="phase2f",
             )
+
+    # -- phase 2g --------------------------------------------------------
+    def quad_problem(self, dtype):
+        """BASELINE.json's quadruped config as one batch of QB perturbed
+        instances (phases 2g, 3b, 3i)."""
+        t, pt = self.torch, self.pt
+        prob = pt.random_problem(t.Generator().manual_seed(1), QN, QX, QU,
+                                 dtype=dtype, device=self.dev)
+        return pt.batch_problems(prob, QB, t.Generator().manual_seed(0))
+
+    @contextlib.contextmanager
+    def plain_planes(self, names):
+        """The plane wrappers ``names`` run their plain versions only (the
+        solver looks them up in ``ops/planes.py`` at each call)."""
+        pl = self.planes
+        saved = {k: getattr(pl, k) for k in names}
+        off = lambda fn: (lambda *a, **kw: fn(*a, **{**kw, "kernels": "off"}))
+        try:
+            for k, fn in saved.items():
+                setattr(pl, k, off(fn))
+            yield
+        finally:
+            for k, fn in saved.items():
+                setattr(pl, k, fn)
+
+    def c8_cases(self):
+        """ROADMAP C8: which mid-block kernel makes the quadruped kernel
+        path's f32 error larger than the plain path's. (a) B5 plain, B6,
+        B7 (w=36, w=1) and B9 at the quadruped rsLQR's level-0 shapes and
+        one upper level: the kernel in f32, its plain version in f32 and
+        in f64 on the same inputs; each f32 result's max error relative to
+        max|f64|, and the ratio kernel / plain. (b) The quadruped f32
+        solve with each kernel alone swapped for its plain version, and
+        with each alone left on, every error against the f64 Riccati
+        solve of 4 instances (phase 3b's measure)."""
+        t, pl, R = self.torch, self.planes, self.drand
+        Bb = QB
+
+        def errs(label, fn, args, kw=None):
+            kw = kw or {}
+            a32 = lambda: clone_args(args)
+            a64 = clone_args([[x.double() for x in a]
+                              if isinstance(a, list) else a.double()
+                              for a in args])
+            k = fn(*a32(), **kw)
+            p = fn(*a32(), kernels="off", **kw)
+            r = fn(*a64, kernels="off", **kw)
+            t.cuda.synchronize()
+            scale = float(r.abs().max())
+            e_k = float((k.double() - r).abs().max()) / scale
+            e_p = float((p.double() - r).abs().max()) / scale
+            print(f"phase2g {label}: f32 kernel err {e_k:.3e}, f32 plain "
+                  f"err {e_p:.3e} (relative to max|f64| {scale:.3e}), "
+                  f"kernel / plain {e_k / e_p:.2f}", flush=True)
+
+        def jax_order(order, wrapper):
+            """``wrapper`` with the JAX kernel's ``order`` of operations in
+            place of its kernel (:func:`errs`' first call)."""
+            return lambda *a, kernels="auto": (
+                order(*a) if kernels == "auto" else wrapper(*a,
+                                                            kernels=kernels))
+
+        for level in (0, 4):
+            G = QN >> (level + 1)
+            errs(f"B5 pgemm 36x36.36x36 level={level} G={G} B={Bb}",
+                 pl.pgemm, [R(QX, QX, G, Bb), R(QX, QX, G, Bb)])
+            S = self.spd(QX, G, Bb)
+            errs(f"B6 pchol n=36 level={level} G={G} B={Bb}", pl.pchol, [S])
+            errs(f"B6 pchol n=36 level={level} G={G} B={Bb}, the JAX "
+                 f"kernel's order (in place of the kernel)",
+                 jax_order(jax_order_pchol, pl.pchol), [S])
+            Lc = pl.pchol_plain(S.double()).float()
+            for w in (QX, 1):
+                X = R(QX, w, G, Bb)
+                errs(f"B7 pcho_solve n=36 w={w} level={level} G={G} B={Bb}",
+                     pl.pcho_solve, [Lc, X])
+                errs(f"B7 pcho_solve n=36 w={w} level={level} G={G} B={Bb}"
+                     f", the JAX kernel's order (in place of the kernel)",
+                     jax_order(jax_order_pcho_solve, pl.pcho_solve),
+                     [Lc, X])
+            args, kw, *_ = self.schur3_case(QX, QU, QX, level)
+            errs(f"B9 schur3_update_planes q=36 level={level} N={QN} "
+                 f"B={Bb} (x slab)",
+                 lambda *a, **k: pl.schur3_update_planes(*a, **k)[1],
+                 args, kw)
+
+        pt = self.pt
+        b = self.quad_problem(t.float32)
+        ric = pt.solve_riccati(
+            b.map(lambda x: x[:4]).to(dtype=t.float64)).kkt_vector()
+        err = lambda x: rel_err(x[:4].double(), ric)
+        e_on = err(pt.solve_kkt(b))
+        e_off = err(pt.solve_kkt(b, options=pt.SolveOptions(kernels="off")))
+        print(f"phase2g quadruped N={QN} B={QB} f32 err vs f64 Riccati: "
+              f"kernel path {e_on:.3e}, plain {e_off:.3e}, ratio "
+              f"{e_on / e_off:.2f}", flush=True)
+        for name in RSLQR_MID:
+            with self.plain_planes([name]):
+                e1 = err(pt.solve_kkt(b))
+            with self.plain_planes([k for k in RSLQR_MID if k != name]):
+                e2 = err(pt.solve_kkt(b))
+            print(f"phase2g quadruped {name}: only it plain {e1:.3e} "
+                  f"(ratio to plain {e1 / e_off:.2f}); only it on "
+                  f"{e2:.3e} (ratio {e2 / e_off:.2f})", flush=True)
 
     # -- phase 2b --------------------------------------------------------
     def spd(self, d, *plane):
@@ -1192,9 +1373,7 @@ class Smoke:
         """The mid-block slice on the quadruped config, one batch."""
         t, pt = self.torch, self.pt
         off = pt.SolveOptions(kernels="off")
-        prob = pt.random_problem(t.Generator().manual_seed(1), QN, QX, QU,
-                                 dtype=t.float32, device=self.dev)
-        b = pt.batch_problems(prob, QB, t.Generator().manual_seed(0))
+        b = self.quad_problem(t.float32)
         t.cuda.synchronize()
         t.cuda.reset_peak_memory_stats()
         self.schur.reset_launch_counts()
@@ -1889,6 +2068,338 @@ class Smoke:
                   flush=True)
         dryrun_multichip(4, "cuda")
 
+    # -- phase 3i --------------------------------------------------------
+    def bf16_checks(self):
+        """bf16 factor-slab storage (``SolveOptions(factor_dtype=
+        "bfloat16")``): (a) the BASELINE batch at N=256 and N=128, (b) the
+        same with ``flat_planes``, (c) refinement of 4 f64 instances, (d)
+        the quadruped batch (the plain mid-block route)."""
+        t, pt, s, pl, f = self.torch, self.pt, self.schur, self.planes, \
+            self.flat
+        bf = pt.SolveOptions(factor_dtype="bfloat16")
+        bf_off = pt.SolveOptions(factor_dtype="bfloat16", kernels="off")
+        # (a) The small-block kernel path: B3, B4, B2 at N=256, B1 at N=128.
+        path = {N_MAIN: ("leaf_schur_level0_em", "schur_update_pair_em",
+                         "rhs_update_level_em"),
+                N_ODD: ("schur_update_level_em",)}
+        self.bf16_batches = {}
+        for N in (N_MAIN, N_ODD):
+            b = self.batch(N, t.float32)
+            self.bf16_batches[N] = b
+            self.reset_hand_launches()
+            sol = pt.solve(b, options=bf)
+            t.cuda.synchronize()
+            counts = self.hand_launches()
+            got = sol.kkt_vector()
+            dts = {x.dtype for F in (sol.fact.Fls, sol.fact.Fxs, sol.fact.Fus)
+                   for x in F}
+            self.check(dts == {t.bfloat16},
+                       f"bf16 N={N}: slabs stored as {dts}")
+            for k in path[N]:
+                self.bf16_launches[k] = counts.get(k, 0)
+                self.check(counts.get(k, 0) > 0,
+                           f"bf16 N={N}: {k} not launched")
+            print(f"phase3i (a) launches bf16 N={N} B={BATCH}: "
+                  f"{json.dumps(counts)}; slab dtypes {sorted(map(str, dts))}",
+                  flush=True)
+            self.check(tuple(got.shape) == (BATCH, b.nvars)
+                       and bool(t.isfinite(got).all()),
+                       f"bf16 N={N}: output shape or non-finite")
+            ref = pt.solve_kkt(b, options=bf_off)
+            sub64 = b.map(lambda x: x[:16]).to(dtype=t.float64)
+            ric = pt.solve_riccati(sub64).kkt_vector()
+            e_k = rel_err(got[:16].double(), ric)
+            e_p = rel_err(ref[:16].double(), ric)
+            e_32 = rel_err(pt.solve_kkt(b)[:16].double(), ric)
+            d_off = rel_err(got, ref)
+            self.check(e_k <= 2.0 * e_p + 1e-6,
+                       f"bf16 N={N}: kernel err vs f64 Riccati {e_k:.3e} > "
+                       f"2 x plain {e_p:.3e} + 1e-6")
+            self.check(d_off <= 2.0 * e_p + 1e-6,
+                       f"bf16 N={N}: kernel vs plain rel diff {d_off:.3e} > "
+                       f"2 x plain err {e_p:.3e} + 1e-6")
+            res = float(pt.kkt_residual(b.map(lambda x: x[0]), got[0]))
+            print(f"phase3i (a) bf16 N={N} B={BATCH}: rel_diff_vs_off="
+                  f"{d_off:.3e} err_vs_f64_riccati={e_k:.3e} (plain bf16 "
+                  f"{e_p:.3e}, f32 slabs {e_32:.3e}) kkt_residual[0]="
+                  f"{res:.4e}", flush=True)
+            if N == N_MAIN:
+                self.bf16_got = got
+        # (b) flat_planes: flat_ok takes f32 slabs only, so the em kernels.
+        b = self.bf16_batches[N_MAIN]
+        self.reset_hand_launches()
+        got = pt.solve_kkt(b, options=pt.SolveOptions(
+            factor_dtype="bfloat16", flat_planes=True))
+        t.cuda.synchronize()
+        counts = self.hand_launches()
+        flat_k = {k: v for k, v in f.launch_counts().items() if v}
+        self.check(not flat_k and all(counts.get(k, 0) > 0
+                                      for k in path[N_MAIN])
+                   and bool(t.equal(got, self.bf16_got)),
+                   f"bf16 flat_planes: launches {counts}, equal to (a) "
+                   f"{bool(t.equal(got, self.bf16_got))}")
+        print(f"phase3i (b) bf16 flat_planes=True N={N_MAIN}: launches "
+              f"{json.dumps(counts)} (flat kernels {json.dumps(flat_k)}); "
+              f"equal to (a): {bool(t.equal(got, self.bf16_got))}",
+              flush=True)
+        # (c) Refinement (tests/test_rslqr_em.py:113-132's contract: 8
+        # steps on the bf16 factorization reach 1e-8 at N=256), on 4 f64
+        # instances of a seeded random problem (nx=6, nu=3); on the
+        # BASELINE batch's, reported: both packages contract more slowly
+        # on the double integrator at this depth (ROADMAP C9).
+        prob = pt.random_problem(t.Generator().manual_seed(0), N_MAIN, n, m,
+                                 dtype=t.float64, device=self.dev)
+        cases = (("random nx=6 nu=3", pt.batch_problems(
+            prob, 4, t.Generator().manual_seed(1)), True),
+                 ("BASELINE batch", b.map(lambda x: x[:4]).to(
+                     dtype=t.float64), False))
+        for label, b64, gated in cases:
+            ric = pt.solve_riccati(b64).kkt_vector()
+            kkt = pt.solve_refined(b64, iterations=8,
+                                   options=bf).kkt_vector()
+            raw = pt.solve_kkt(b64.to(dtype=t.float32), options=bf).double()
+            res = float(pt.kkt_residual(b64, kkt).max())
+            res0 = float(pt.kkt_residual(b64, raw).max())
+            e_r = float((kkt - ric).abs().max())
+            bar64 = F64_BAR * (1.0 + float(ric.abs().max()))
+            if gated:
+                self.check(res < 1e-8 and e_r <= bar64,
+                           f"bf16 refined {label}: residual {res:.3e} (bar "
+                           f"1e-8), vs f64 Riccati {e_r:.3e} (bar "
+                           f"{bar64:.3e})")
+            print(f"phase3i (c) solve_refined(8 iterations, bf16 slabs) "
+                  f"{label} N={N_MAIN} B=4 f64: kkt_residual={res:.3e} "
+                  f"(raw bf16 solve {res0:.3e}; "
+                  f"{'bar 1e-8' if gated else 'reported'}) "
+                  f"err_vs_f64_riccati={e_r:.3e} (bar {bar64:.3e})",
+                  flush=True)
+        # (d) The quadruped: bf16 slabs take the plain mid-block update.
+        qb = self.quad_problem(t.float32)
+        q32 = getattr(self, "quad_got", None)
+        if q32 is None:
+            q32 = pt.solve_kkt(qb)
+        t.cuda.synchronize()
+        t.cuda.reset_peak_memory_stats()
+        self.reset_hand_launches()
+        sol = pt.solve(qb, options=bf)
+        t.cuda.synchronize()
+        counts = self.hand_launches()
+        peak = t.cuda.max_memory_allocated()
+        got = sol.kkt_vector()
+        want = {"pchol": QN.bit_length() - 1,
+                "pcho_solve": self.launches.get("pcho_solve", 45)}
+        self.check(counts.get("schur3_update_planes", 0) == 0
+                   and all(counts.get(k, 0) == v for k, v in want.items())
+                   and bool(t.isfinite(got).all()),
+                   f"bf16 quadruped: launches {counts} (want no B9 and "
+                   f"{want})")
+        dts = {x.dtype for x in sol.fact.Fxs}
+        self.check(dts == {t.bfloat16}, f"bf16 quadruped: slabs {dts}")
+        res = max(float(pt.kkt_residual(qb.map(lambda x: x[i]), got[i]))
+                  for i in range(2))
+        scale = max(float(got[:2].abs().max()), 1.0)
+        print(f"phase3i (d) bf16 quadruped N={QN} B={QB}: launches "
+              f"{json.dumps(counts)}; rel KKT residual {res / scale:.3e}, "
+              f"rel diff vs f32 slabs {rel_err(got, q32):.3e}; peak device "
+              f"memory {peak / 2**30:.2f} GiB (f32 slabs: phase 3b)",
+              flush=True)
+        self.bf16_quad = (qb, got)
+
+    @staticmethod
+    def bf16_ulps(a, b):
+        """Per-element distance of two bf16 tensors in units in the last
+        place (their bit patterns on one ordered integer line)."""
+        import torch
+
+        def key(x):
+            v = x.contiguous().view(torch.int16).to(torch.int32)
+            return torch.where(v >= 0, v, -(v + 32768))
+
+        return (key(a) - key(b)).abs()
+
+    def bf16_compare(self, name, case, fn, args, kwargs, ops, moved,
+                     exact_args=None, one_rounding=True):
+        """bf16 slabs: kernel vs plain on clones of ``args``. The bf16
+        outputs: the share of elements that differ (rounding flips of f32
+        values that differ by summation order) at most 0.1%, their
+        distance in ulps reported, and where each output is rounded once
+        (``one_rounding``; B4's rounded multiplier feeds its second level)
+        each element within one ulp at its magnitude or the kernel bar,
+        and the f32 outputs within the kernel bar; on ``exact_args``,
+        inputs whose every sum is exact in f32, bit for bit. Single and
+        chained ms against the bound of ``moved`` bytes."""
+        t = self.torch
+
+        def run(a, **kw):
+            out = fn(*clone_args(a), **kw, **kwargs)
+            res = []
+            for o in out:
+                res.extend(o if isinstance(o, (list, tuple)) else
+                           ([] if o is None else [o]))
+            return res
+
+        k, p = run(args), run(args, kernels="off")
+        t.cuda.synchronize()
+        ulp, flips, total, err, scale, within = 0, 0, 0, 0.0, 1.0, True
+        ok = len(k) == len(p)
+        for a, b in zip(k, p):
+            ok = ok and a.dtype == b.dtype and bool(t.isfinite(a).all())
+            if a.dtype == t.bfloat16:
+                d = self.bf16_ulps(a, b)
+                ulp = max(ulp, int(d.max()))
+                flips += int((d > 0).sum())
+                total += d.numel()
+                # A rounding flip moves an element by one ulp at its own
+                # magnitude; where the update cancels, the f32 sums' own
+                # order noise (the kernel bar, absolute) is the larger.
+                af, bf = a.float(), b.float()
+                one = t.ldexp(t.ones_like(bf), t.frexp(bf)[1] - 8)
+                within = within and bool(((af - bf).abs() <= t.maximum(
+                    one, KERNEL_BAR * (1.0 + bf.abs().max()))).all())
+            else:
+                err = max(err, float((a - b).abs().max()))
+                scale = max(scale, 1.0 + float(b.abs().max()))
+        share = flips / max(total, 1)
+        ok = ok and share <= 1e-3 and ((within and err <= KERNEL_BAR * scale)
+                                       or not one_rounding)
+        self.check(ok, f"bf16 {name} {case}: {share:.2e} of the elements "
+                       f"differ, each within one ulp or the kernel bar: "
+                       f"{within}; f32 outputs {err:.3e}")
+        exact = None
+        if exact_args is not None:
+            ke, pe = run(exact_args), run(exact_args, kernels="off")
+            exact = all(bool(t.equal(a, b)) for a, b in zip(ke, pe))
+            self.check(exact, f"bf16 {name} {case}: exact inputs not bit "
+                              f"for bit")
+        bound_ms, bound_by = bound(moved, ops)
+        ms = self.time_call(lambda *a: fn(*a, **kwargs),
+                            lambda: clone_args(args))
+        plain_ms = self.time_call(lambda *a: fn(*a, kernels="off", **kwargs),
+                                  lambda: clone_args(args))
+        a = clone_args(args)
+        ch = self.chained(lambda: fn(*a, **kwargs))
+        print(f"phase3i (e) bf16 {name} {case}: {share:.2e} of {total} "
+              f"bf16 elements differ ({ulp} ulp max; each within one ulp at "
+              f"its magnitude or the kernel bar: {within}), f32 outputs "
+              f"max_abs_err="
+              f"{err:.3e} (bar {KERNEL_BAR} x {scale:.3e}), exact inputs "
+              f"bit for bit: {exact}; kernel_ms={ms:.4f} chained_ms="
+              f"{ch:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+              f"({bound_by}: {moved / 1e9:.3f} GB) chained_x_bound="
+              f"{ch / bound_ms:.2f}", flush=True)
+        self.bf16_stats.setdefault(name, {
+            "case": case, "ms": ms, "chained_ms": ch, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "max_ulp": ulp,
+            "ulp_share": share})
+
+    def exact(self, *shape, scale=1.0, dtype=None):
+        """Inputs on which the kernels' f32 sums are exact: small integers
+        times ``scale`` (a power of two), on the card."""
+        t = self.torch
+        x = t.randint(-4, 5, shape, generator=self.gen).to(t.float32) * scale
+        return x.to(device=self.dev, dtype=dtype or t.float32)
+
+    def bf16_kernel_cases(self):
+        """(e) B1-B4 with bf16 slabs at phase 2's shapes: against their
+        plain versions, timed single and chained, with bounds from the
+        bf16 byte counts."""
+        t, s = self.torch, self.schur
+        bf = t.bfloat16
+        N, B = N_MAIN, BATCH
+        depth = N.bit_length() - 1
+
+        def slabs(args, k):
+            """The first ``k`` argument groups (the slabs) in bf16."""
+            conv = lambda x: x.to(bf)
+            return [[conv(x) for x in a] if isinstance(a, list) else conv(a)
+                    for a in args[:k]] + list(args[k:])
+
+        def exact_like(args, k, lead=()):
+            """Exact-arithmetic inputs of the same shapes: slabs and
+            problem data integers in -4..4, separators eighths."""
+            E = self.exact
+            out = []
+            for i, a in enumerate(args):
+                sc = 1.0 if i < k or i in lead else 0.125
+                mk = lambda x: None if x is None else E(*x.shape, scale=sc)
+                out.append([mk(x) for x in a] if isinstance(a, list)
+                           else mk(a))
+            return slabs(out, k) if k else out
+
+        # B3: problem data in, bf16 slabs out.
+        args = [self.rand(nn, N, B), self.rand(n * m, N, B, scale=0.2),
+                self.pos(n, N, B), self.pos(m, N, B), self.rand(N // 2, nn, B),
+                [self.rand(N // 2, nn, B, scale=0.1)
+                 for _ in range(depth - 1)],
+                self.rand(N // 4, nn, B), self.rand(N // 4, n * m, B)]
+        ex = exact_like(args, 0, lead=(0, 1, 4, 6, 7))
+        ex[2] = t.full_like(ex[2], 0.5)
+        ex[3] = t.full_like(ex[3], 0.25)
+        U = depth - 1
+        self.bf16_compare(
+            "leaf_schur_level0_em", f"N={N} B={B}", s.leaf_schur_level0_em,
+            args, dict(depth=depth, n=n, m=m, factor_dtype="bfloat16"),
+            sweep_ops(N, B, 0, U, U, N // 4),
+            4 * (sum(x.numel() for x in tensors(args)) + U * (N // 4) * nn
+                 * B) + 2 * depth * (2 * nn + mn) * N * B,
+            exact_args=ex)
+        # B2 at level 0: bf16 slabs in, f32 z vectors updated.
+        G = N >> 1
+        args = [self.rand(nn, N, B), self.rand(nn, N, B), self.rand(mn, N, B),
+                self.rand(n, N, B), self.rand(n, N, B), self.rand(m, N, B),
+                self.rand(G, n, B, scale=0.1)]
+        self.bf16_compare(
+            "rhs_update_level_em", f"N={N} B={B} level=0",
+            s.rhs_update_level_em, slabs(args, 3), dict(level=0, n=n, m=m),
+            update_ops(n, m, 1, N, B, 0, 1),
+            update_moved(n, m, 1, N, B, 0, 1, msize=2),
+            exact_args=exact_like(args, 3))
+        # B4 at level 1 (the main path's first pair, emitting).
+        level = 1
+        U = depth - level - 1
+        args = self.pair_args(N, B, level, dtype=bf)
+        emitted = 0 if args[-1] is None else U - 1
+        G2, G3 = N >> (level + 2), N >> (level + 3)
+        self.bf16_compare(
+            "schur_update_pair_em", f"N={N} B={B} level={level}",
+            s.schur_update_pair_em, slabs(args, 6), dict(level=level, n=n,
+                                                         m=m),
+            sweep_ops(N, B, level, U, emitted, G3)
+            + update_ops(n, m, n, N, B, level + 1, U - 1),
+            update_moved(n, m, n, N, B, level, U, msize=2, csize=2)
+            + 2 * B * 2 * U * nn * G2
+            + (emit_moved(G3, B, emitted, size=2) if emitted else 0),
+            exact_args=exact_like(args, 6), one_rounding=False)
+        # B1 at N=128 level 1 (emitting) and level 3 (bf16's last emitting
+        # level).
+        for level in (1, 3):
+            NN = N_ODD
+            U = NN.bit_length() - 1 - level - 1
+            args = self.level_args(NN, B, level, dtype=bf)
+            emitted = 0 if args[-1] is None else U
+            G2 = NN >> (level + 2)
+            self.bf16_compare(
+                "schur_update_level_em", f"N={NN} B={B} level={level}",
+                s.schur_update_level_em, slabs(args, 6),
+                dict(level=level, n=n, m=m),
+                sweep_ops(NN, B, level, U, emitted, G2),
+                update_moved(n, m, n, NN, B, level, U, msize=2, csize=2)
+                + (emit_moved(G2, B, emitted, size=2) if emitted else 0),
+                exact_args=exact_like(args, 6))
+
+    def time_bf16(self, card):
+        """Phase 4g: bf16 slabs against f32 slabs, in turns: the em solve
+        (N=256, B=1024) and the quadruped (the plain mid-block update)."""
+        t, pt = self.torch, self.pt
+        bf = pt.SolveOptions(factor_dtype="bfloat16")
+        for label, b, reps in (
+                (f"em N={N_MAIN} B={BATCH}", self.bf16_batches[N_MAIN], REPS),
+                (f"quadruped N={QN} B={QB}", self.bf16_quad[0], 3)):
+            self.turns(card, f"phase4g bf16 slabs {label}", {
+                "f32 slabs": lambda b=b: pt.solve_kkt(b),
+                "bf16 slabs": lambda b=b: pt.solve_kkt(b, options=bf)},
+                reps=reps)
+
     def time_autodiff(self, card):
         """Phase 4f: forward against forward + backward, in turns, small
         and quadruped (rsLQR and pscan); then each sharded solve's wall
@@ -2191,6 +2702,7 @@ def main() -> int:
         ("phase2d", smoke.flat_cases),
         ("phase2e", smoke.probe_cases),
         ("phase2f", smoke.block_cases),
+        ("phase2g", smoke.c8_cases),
         ("phase3", smoke.slice_checks),
         ("phase3b", smoke.quad_checks),
         ("phase3c", smoke.pscan_checks),
@@ -2199,6 +2711,8 @@ def main() -> int:
         ("phase3f", smoke.grid_checks),
         ("phase3g", smoke.autodiff_checks),
         ("phase3h", smoke.sharded_checks),
+        ("phase3i", lambda: (smoke.bf16_checks(),
+                             smoke.bf16_kernel_cases())),
         ("phase4", lambda: smoke.time_solves(
             card, smoke.main_batch, REPS, f"phase4 N={N_MAIN}")),
         ("phase4b", lambda: smoke.time_solves(
@@ -2219,6 +2733,7 @@ def main() -> int:
                               f"N={N_MAIN}", smoke.refined_solve))),
         ("phase4e", lambda: smoke.time_grid(card)),
         ("phase4f", lambda: smoke.time_autodiff(card)),
+        ("phase4g", lambda: smoke.time_bf16(card)),
         ("phase5", lambda: (
             smoke.profile(smoke.main_batch, f"N={N_MAIN} B={BATCH}"),
             smoke.profile(smoke.quad_batch, f"quadruped N={QN} B={QB}"),
@@ -2256,7 +2771,10 @@ def main() -> int:
          "case": st["case"], "launches_from": LAUNCHES_FROM.get(name),
          "backward_launches": smoke.bwd_launches.get(name, 0),
          **{k: st[k] for k in ("em_twin_ms", "chained_ms",
-                               "library_chained_ms") if k in st}}
+                               "library_chained_ms") if k in st},
+         **({"bf16": {**smoke.bf16_stats[name],
+                      "launches": smoke.bf16_launches.get(name)}}
+            if name in smoke.bf16_stats else {})}
         for name, st in smoke.kernel_stats.items()
     ]
     print(card)

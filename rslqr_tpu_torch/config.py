@@ -13,6 +13,7 @@ from typing import Optional
 
 _LAYOUTS = ("auto", "em", "grid")
 _KERNEL_MODES = ("auto", "off")
+_FACTOR_DTYPES = ("", "bfloat16")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,7 +43,17 @@ class SolveOptions:
     * ``"grid"``: the knot-major grid path (``rslqr.factorize``), which
       launches no hand kernel, as in the JAX package; for ``solve_pscan``
       the batch-last scan.
-    ``factor_dtype`` accepts only ``""`` (slabs in the problem dtype).
+
+    ``factor_dtype`` (JAX config.py:73-79, 137): ``""`` stores the factor
+    slabs in the problem dtype; ``"bfloat16"`` stores the element-major
+    path's factor slabs ``Fls``/``Fxs``/``Fus`` in bf16, to halve the
+    sweep's slab traffic. The Cholesky factors, separator products and
+    solves and the right-hand sides stay in the problem dtype; the kernels
+    load bf16, compute in f32 and round once at each store. Accuracy
+    contract (as the JAX package's): the raw bf16-slab solve loses digits
+    with tree depth; pair it with ``refine.solve_refined``. The grid path
+    and the parallel scan ignore it. Any other value raises: a departure
+    from the JAX package, which takes whatever ``jnp.dtype(...)`` names.
     """
 
     layout: str = "auto"
@@ -80,10 +91,10 @@ class SolveOptions:
                 f"unknown kernel mode {self.kernels!r} "
                 f"(want one of {_KERNEL_MODES})"
             )
-        if self.factor_dtype != "":
+        if self.factor_dtype not in _FACTOR_DTYPES:
             raise ValueError(
-                "factor_dtype storage other than the problem dtype is not "
-                f"ported yet (got {self.factor_dtype!r})"
+                f"unknown factor_dtype {self.factor_dtype!r} "
+                f"(want one of {_FACTOR_DTYPES})"
             )
 
 

@@ -82,12 +82,12 @@ __device__ __forceinline__ LeafMask leaf_mask(int L, int k, int N) {
 // level-0 multiplier where the knot owns level 0; the level-L value of a
 // knot that owns level L > 0 reads its column c of src again (one level a
 // knot), so that the column loop runs at run time and holds no more.
-template <int NP, class Lay>
+template <int NP, class Lay, class T>
 __device__ __forceinline__ void leaf_value_rows(
     const float* __restrict__ src, const float* __restrict__ scale,
-    bool xrows, const Ptrs& out, const CPtrs& fsol, int depth, int i0,
-    const bool (&row_ok)[RPT], int cols, int n, int k, int N, int g, int G,
-    int B, const RowSite& s) {
+    bool xrows, const PtrsT<T>& out, const CPtrs& fsol, const Ptrs& H,
+    int depth, int i0, const bool (&row_ok)[RPT], int cols, int n, int m,
+    int k, int N, int g, int G, int B, const RowSite& s) {
   float w[RPT][NP], sc[RPT];
 #pragma unroll
   for (int q = 0; q < RPT; ++q)
@@ -104,10 +104,14 @@ __device__ __forceinline__ void leaf_value_rows(
   // diagonal after a level-0 separator (odd knots, x rows), else zero.
   const LeafMask l0 = leaf_mask(0, k, N);
   const bool own0 = xrows ? l0.own : l0.ownu, prev0 = xrows && l0.prev;
+  // bf16: where the upper slabs' f32 values of these rows go for the
+  // level-1 products (row_groups.cuh: shadow_part; groups of 4 knots).
+  const int part = kBf16<T> ? shadow_part(xrows ? 1 : 2, k, 2, n * n, n * m)
+                            : -1;
   for (int u = 0; u < depth; ++u) {
     const LeafMask lu = leaf_mask(u, k, N);
     const bool own = xrows ? lu.own : lu.ownu, prev = xrows && lu.prev;
-    float* o = out.p[u];
+    T* o = out.p[u];
 #pragma unroll 1
     for (int c = 0; c < n; ++c) {
       // (M_0 @ f)[i, c], summed in order (a diagonal M_0 adds exact zeros
@@ -133,7 +137,10 @@ __device__ __forceinline__ void leaf_value_rows(
         // Q^-1 on the diagonal where prev.
         float v = own ? src[(c * cols + i) * s.plane + s.idx] * sc[q] : 0.0f;
         if (c == i) v -= prev ? sc[q] : 0.0f;
-        o[(i * n + c) * s.plane + s.idx] = u > 0 ? v - acc[q] : v;
+        if (u > 0) v -= acc[q];
+        o[(i * n + c) * s.plane + s.idx] = stf<T>(v);
+        if (u > 0 && part >= 0)
+          shadow_put(H.p[u - 1], part, i * n + c, k >> 2, N >> 2, B, s.b, v);
       }
     }
   }
@@ -143,14 +150,14 @@ __device__ __forceinline__ void leaf_value_rows(
 // f's (upper slabs) at odd knots; -A' and -(-A' @ f) at knot 0; zero at
 // the other even knots, except slab 1 at r + 1 (k = 4g + 2), which the
 // product emission writes.
-template <int NP, class Lay>
+template <int NP, class Lay, class T>
 __device__ __forceinline__ void leaf_lambda_rows(
     const float* __restrict__ A, const float* __restrict__ S0,
-    const Ptrs& Fls, const CPtrs& fsol, int depth, int i0,
+    const PtrsT<T>& Fls, const CPtrs& fsol, int depth, int i0,
     const bool (&row_ok)[RPT], int n, int k, int g, int G, int B,
     const RowSite& s) {
   for (int u = 0; u < depth; ++u) {
-    float* o = Fls.p[u];
+    T* o = Fls.p[u];
     if (k & 1) {
       put_rows<NP, Lay>(o, u == 0 ? S0 : fsol.p[u - 1], i0, row_ok, n, g, G,
                         B, s);
@@ -163,7 +170,7 @@ __device__ __forceinline__ void leaf_lambda_rows(
 #pragma unroll
         for (int c = 0; c < NP; ++c)
           if (row_ok[q] && c < n)
-            o[((i0 + q) * n + c) * s.plane + s.idx] = 0.0f;
+            o[((i0 + q) * n + c) * s.plane + s.idx] = stf<T>(0.0f);
       continue;
     }
     // Knot 0: fl_0 = -A' (slab 0), -(fl_0 @ f) (upper slabs).
@@ -184,7 +191,7 @@ __device__ __forceinline__ void leaf_lambda_rows(
         if (!row_ok[q]) continue;
         const float v = u > 0 ? 0.0f - row_dot<NP>(w, q, fc)
                               : -A[(c * n + i0 + q) * s.plane + s.idx];
-        o[((i0 + q) * n + c) * s.plane + s.idx] = v;
+        o[((i0 + q) * n + c) * s.plane + s.idx] = stf<T>(v);
       }
     }
   }
@@ -193,19 +200,19 @@ __device__ __forceinline__ void leaf_lambda_rows(
 // Rows i0 .. of the products of upper slab u at the emitting knot r + 1
 // (site e): S = A_sep @ x[r] + B_sep @ u[r] - x[r+1] (l[r+1] is zero),
 // into Sout and, on slab 1, into the lambda rows. The rows of A_sep (and
-// of B_sep below the wide tag) are held as values, not addresses.
-template <class K, class Lay, bool WHOLE>
+// of B_sep below the wide tag) are held as values, not addresses. x and u
+// are read from ``src`` (row_groups.cuh: the slab, or the bf16 launch's
+// f32 shadow).
+template <class K, class Lay, bool WHOLE, class T>
 __device__ __forceinline__ void leaf_emit(
-    int i0, const float* xs, const float* us, float* ls, float* so,
-    bool fold, const float* __restrict__ Asep,
-    const float* __restrict__ Bsep, int g2, int G2, int B, int n, int m,
-    const RowSite& e) {
+    int i0, const EmitRows& src, T* ls, float* so, bool fold,
+    const float* __restrict__ Asep, const float* __restrict__ Bsep, int g2,
+    int G2, int B, int n, int m, const RowSite& e) {
   // B_sep's rows are held as values where they are few (NP <= 6); at the
   // (8, 8) capacity and the wide tag they are read per use.
   constexpr bool HOLD_B = !K::WIDE && K::NP <= 6;
   constexpr int NP = K::NP, MP = HOLD_B ? K::MP : 1;
   const int nn = n * n;
-  const size_t ir = e.idx - B;  // knot r
   bool row_ok[RPT];
   float a[RPT][NP], bm[RPT][MP];
 #pragma unroll
@@ -226,7 +233,7 @@ __device__ __forceinline__ void leaf_emit(
     float xr[NP], acc[RPT];
 #pragma unroll
     for (int j = 0; j < NP; ++j)
-      xr[j] = j < n ? xs[(j * n + c) * e.plane + ir] : 0.0f;
+      xr[j] = j < n ? src.xr[(j * n + c) * src.es] : 0.0f;
 #pragma unroll
     for (int q = 0; q < RPT; ++q) {
       acc[q] = a[q][0] * xr[0];
@@ -237,7 +244,7 @@ __device__ __forceinline__ void leaf_emit(
     if constexpr (!HOLD_B) {
 #pragma unroll 4
       for (int j = 0; j < m; ++j) {
-        const float uj = us[(j * n + c) * e.plane + ir];
+        const float uj = src.ur[(j * n + c) * src.es];
 #pragma unroll
         for (int q = 0; q < RPT; ++q) {
           const int i = row_ok[q] ? i0 + q : 0;
@@ -249,7 +256,7 @@ __device__ __forceinline__ void leaf_emit(
 #pragma unroll
       for (int j = 0; j < MP; ++j) {
         if (j >= m) continue;
-        const float uj = us[(j * n + c) * e.plane + ir];
+        const float uj = src.ur[(j * n + c) * src.es];
 #pragma unroll
         for (int q = 0; q < RPT; ++q) acc[q] = fmaf(bm[q][j], uj, acc[q]);
       }
@@ -258,14 +265,14 @@ __device__ __forceinline__ void leaf_emit(
     for (int q = 0; q < RPT; ++q) {
       if (!row_ok[q]) continue;
       const int el = (i0 + q) * n + c;
-      const float v = acc[q] - xs[el * e.plane + e.idx];
+      const float v = acc[q] - src.x1[el * src.es];
       so[Lay::at(el, g2, nn, G2, B, e.b)] = v;
-      if (fold) ls[el * e.plane + e.idx] = v;
+      if (fold) ls[el * e.plane + e.idx] = stf<T>(v);
     }
   }
 }
 
-template <class K, class Lay>
+template <class K, class Lay, class T>
 __global__ void __launch_bounds__(row_pair_threads<K>(),
                                   row_level_min_blocks<K>())
     leaf_row_kernel(const float* __restrict__ A,
@@ -274,9 +281,9 @@ __global__ void __launch_bounds__(row_pair_threads<K>(),
                     const float* __restrict__ rinv,
                     const float* __restrict__ S0, CPtrs fsol,
                     const float* __restrict__ Asep,
-                    const float* __restrict__ Bsep, Ptrs Fls, Ptrs Fxs,
-                    Ptrs Fus, Ptrs Sout, int depth, int N, int B, int n_,
-                    int m_) {
+                    const float* __restrict__ Bsep, PtrsT<T> Fls,
+                    PtrsT<T> Fxs, PtrsT<T> Fus, Ptrs Sout, Ptrs H, int depth,
+                    int N, int B, int n_, int m_) {
   constexpr int NP = K::NP;
   const int n = K::EX ? NP : n_, m = K::EX ? K::MP : m_;
   constexpr bool WHOLE = K::EX && NP % RPT == 0 && K::MP % RPT == 0;
@@ -295,11 +302,11 @@ __global__ void __launch_bounds__(row_pair_threads<K>(),
       leaf_lambda_rows<NP, Lay>(A, S0, Fls, fsol, depth, i0, row_ok, n, k, g,
                                 G, B, s);
     else if (slab == 1)
-      leaf_value_rows<NP, Lay>(A, qinv, true, Fxs, fsol, depth, i0, row_ok,
-                               n, n, k, N, g, G, B, s);
+      leaf_value_rows<NP, Lay>(A, qinv, true, Fxs, fsol, H, depth, i0,
+                               row_ok, n, n, m, k, N, g, G, B, s);
     else
-      leaf_value_rows<NP, Lay>(Bm, rinv, false, Fus, fsol, depth, i0,
-                               row_ok, m, n, k, N, g, G, B, s);
+      leaf_value_rows<NP, Lay>(Bm, rinv, false, Fus, fsol, H, depth, i0,
+                               row_ok, m, n, m, k, N, g, G, B, s);
   }
   // The block's second knot is r + 1 of a level-1 group: its products.
   const int k1 = (int)blockIdx.y * LKB;
@@ -315,9 +322,10 @@ __global__ void __launch_bounds__(row_pair_threads<K>(),
   for (int it = threadIdx.z * blockDim.y + threadIdx.y; it < items;
        it += step) {
     const int rg = it % NL, u = 1 + it / NL;
-    leaf_emit<K, Lay, WHOLE>(rg * RPT, Fxs.p[u], Fus.p[u], Fls.p[u],
-                             Sout.p[u - 1], u == 1, Asep, Bsep, k1 >> 2,
-                             N >> 2, B, n, m, e);
+    const EmitRows src = emit_src<T>(Fxs.p[u], Fus.p[u], H.p[u - 1], n * n,
+                                     n * m, k1 >> 2, N >> 2, B, e);
+    leaf_emit<K, Lay, WHOLE>(rg * RPT, src, Fls.p[u], Sout.p[u - 1], u == 1,
+                             Asep, Bsep, k1 >> 2, N >> 2, B, n, m, e);
   }
 }
 
@@ -331,18 +339,19 @@ inline bool leaf_plan_ok(int depth, int N, int n, int m, int shift, int gy,
 
 // Launch leaf_row_kernel on the plan (gy rows of LKB knots from knot -1;
 // the pair kernel's slots).
-template <class K, class Lay>
+// Slabs stored in T; ``H`` the f32 shadows of a bf16 launch.
+template <class K, class Lay, class T = float>
 int launch_leaf_rows(const float* A, const float* Bm, const float* qinv,
                      const float* rinv, const float* S0, void* const* fsol,
                      const float* Asep, const float* Bsep, void* const* Fls,
                      void* const* Fxs, void* const* Fus, void* const* S,
                      int depth, int N, int B, int n, int m, int gy,
-                     cudaStream_t st) {
+                     cudaStream_t st, void* const* H = nullptr) {
   const dim3 grid((B + TB - 1) / TB, gy),
       block(TB, pair_slots_of(n, m, K::WIDE), LKB);
-  leaf_row_kernel<K, Lay><<<grid, block, 0, st>>>(
-      A, Bm, qinv, rinv, S0, cptrs(fsol), Asep, Bsep, ptrs(Fls), ptrs(Fxs),
-      ptrs(Fus), ptrs(S), depth, N, B, n, m);
+  leaf_row_kernel<K, Lay, T><<<grid, block, 0, st>>>(
+      A, Bm, qinv, rinv, S0, cptrs(fsol), Asep, Bsep, ptrs<T>(Fls),
+      ptrs<T>(Fxs), ptrs<T>(Fus), ptrs(S), ptrs(H), depth, N, B, n, m);
   return 0;
 }
 

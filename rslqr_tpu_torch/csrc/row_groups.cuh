@@ -81,10 +81,18 @@ __host__ __device__ constexpr int row_level_threads() {
   return TB * LKB * slots_of(K::NP, K::WIDE ? MAX_INPUT_DIM : K::MP);
 }
 
-// Blocks per SM the register cap aims at: 30 warps at (6, 3).
+// Blocks per SM the register cap aims at: 30 warps at (6, 3). B1 at an
+// emitting level with bf16 slabs (``shadow``: it also writes its products'
+// f32 rows) aims at one block fewer where the cap allows three: under the
+// f32 cap its (6, 3) instantiation spilled 112 bytes and ran 1.16x slower
+// at level 3 (20 warps and 88 registers, no spill; the same cap made the
+// pair and leaf kernels slower, so they keep theirs: PERF.md §6).
 template <class K>
-__host__ __device__ constexpr int row_level_min_blocks() {
-  return 960 / row_level_threads<K>() > 1 ? 960 / row_level_threads<K>() : 1;
+__host__ __device__ constexpr int row_level_min_blocks(bool shadow = false) {
+  return 960 / row_level_threads<K>() > 1
+             ? 960 / row_level_threads<K>() -
+                   (shadow && 960 / row_level_threads<K>() >= 3)
+             : 1;
 }
 
 // The pair kernel's slots: as the level kernel's, but 8 at the wide tag, so
@@ -141,16 +149,69 @@ __device__ __forceinline__ RowSite row_site(int N, int B, int shift) {
 
 // Rows i0 .. i0 + RPT - 1 of a slab M (n columns) at this knot, zero past
 // the slab's rows (row_ok) and past n.
-template <int NP>
-__device__ __forceinline__ void load_rows(float (&r)[RPT][NP], const float* M,
+template <int NP, class T>
+__device__ __forceinline__ void load_rows(float (&r)[RPT][NP], const T* M,
                                           int i0, const bool (&row_ok)[RPT],
                                           int n, const RowSite& s) {
 #pragma unroll
   for (int q = 0; q < RPT; ++q)
 #pragma unroll
     for (int j = 0; j < NP; ++j)
-      r[q][j] = row_ok[q] && j < n ? M[((i0 + q) * n + j) * s.plane + s.idx]
-                                   : 0.0f;
+      r[q][j] = row_ok[q] && j < n
+                    ? ldf(M[((i0 + q) * n + j) * s.plane + s.idx])
+                    : 0.0f;
+}
+
+// bf16 slabs at an emitting launch. The products read the f32 values of
+// the rows they use, as the JAX kernels form them before the rounded store
+// (schur_pallas.py:247-257), so the launch writes those values beside the
+// store into a shadow per emitted slab, [2nn + mn, G2, B] f32
+// (ops/schur.py:_shadow): the x rows of the next-level separator knot r
+// (elements 0 ..), its u rows (nn ..) and the x rows of r + 1 (nn + mn ..).
+// The lambda rows of r + 1 are left unchanged by the update, so the slab
+// holds them exactly. f32 slabs need no shadow: the products read the slab.
+// The part of the shadow a thread's rows of ``slab`` (0 lambda, 1 x, 2 u)
+// at knot k fill, with next-level groups of 2 span knots; -1 for none.
+__device__ __forceinline__ int shadow_part(int slab, int k, int span, int nn,
+                                           int mn) {
+  const int kr = k & (2 * span - 1);
+  if (kr == span - 1) return slab == 1 ? 0 : (slab == 2 ? nn : -1);
+  if (kr == span) return slab == 1 ? nn + mn : -1;
+  return -1;
+}
+
+__device__ __forceinline__ void shadow_put(float* h, int part, int e, int g2,
+                                           int G2, int B, int b, float v) {
+  h[((size_t)(part + e) * G2 + g2) * B + b] = v;
+}
+
+// Where the products of one slab read the f32 rows of knots r and r + 1:
+// element 0 of x and u at r and of x at r + 1, ``es`` apart.
+struct EmitRows {
+  const float *xr, *ur, *x1;
+  size_t es;
+};
+
+// ``e`` is the site of knot r + 1; ``h`` the slab's shadow (bf16 slabs).
+template <class T>
+__device__ __forceinline__ EmitRows emit_src(const T* xs, const T* us,
+                                             const float* h, int nn, int mn,
+                                             int g2, int G2, int B,
+                                             const RowSite& e) {
+  EmitRows r;
+  if constexpr (kBf16<T>) {
+    r.es = (size_t)G2 * B;
+    const float* base = h + (size_t)g2 * B + e.b;
+    r.xr = base;
+    r.ur = base + nn * r.es;
+    r.x1 = base + (nn + mn) * r.es;
+  } else {
+    r.es = e.plane;
+    r.xr = xs + e.idx - B;
+    r.ur = us + e.idx - B;
+    r.x1 = xs + e.idx;
+  }
+  return r;
 }
 
 // Column c of the solved separator f (n x n) of group g, zero past n.
@@ -174,8 +235,8 @@ __device__ __forceinline__ float row_dot(const float (&r)[RPT][NP], int q,
 }
 
 // Rows i0 .. of the solved separator f (group g) written to ``out``.
-template <int NP, class Lay>
-__device__ __forceinline__ void put_rows(float* out, const float* f, int i0,
+template <int NP, class Lay, class T>
+__device__ __forceinline__ void put_rows(T* out, const float* f, int i0,
                                          const bool (&row_ok)[RPT], int n,
                                          int g, int G, int B,
                                          const RowSite& s) {
@@ -185,38 +246,38 @@ __device__ __forceinline__ void put_rows(float* out, const float* f, int i0,
     for (int c = 0; c < NP; ++c) {
       if (!row_ok[q] || c >= n) continue;
       const int e = (i0 + q) * n + c;
-      out[e * s.plane + s.idx] = f[Lay::at(e, g, n * n, G, B, s.b)];
+      out[e * s.plane + s.idx] = stf<T>(f[Lay::at(e, g, n * n, G, B, s.b)]);
     }
 }
 
 // The products of one emitting knot r + 1 (this thread's site), for the
 // lambda row groups (rows i0 ..) of slabs u0 .. U - 1: S_u -> Sout[u - u0]
 // at group g2 of G2, folded into slab u0's lambda rows. Called after a
-// barrier that made every row of knots r and r + 1 visible.
-template <int NP, class Lay, bool WHOLE>
+// barrier that made every row of knots r and r + 1 (and, for bf16 slabs,
+// the shadows H[u - u0]) visible.
+template <int NP, class Lay, bool WHOLE, class T>
 __device__ __forceinline__ void emit_rows(
-    int rg0, int rgstep, int NL, const Ptrs& Fls, const Ptrs& Fxs,
-    const Ptrs& Fus, const Ptrs& Sout, int u0, int U,
+    int rg0, int rgstep, int NL, const PtrsT<T>& Fls, const PtrsT<T>& Fxs,
+    const PtrsT<T>& Fus, const Ptrs& Sout, const Ptrs& H, int u0, int U,
     const float* __restrict__ Asep, const float* __restrict__ Bsep, int g2,
     int G2, int B, int n, int m, const RowSite& s) {
   const int nn = n * n;
-  const size_t ir = s.idx - B;  // knot r = k - 1
   for (int rg = rg0; rg < NL; rg += rgstep) {
     const int i0 = rg * RPT;
     bool row_ok[RPT];
 #pragma unroll
     for (int r = 0; r < RPT; ++r) row_ok[r] = WHOLE || i0 + r < n;
     for (int u = u0; u < U; ++u) {
-      const float* xs = Fxs.p[u];
-      const float* us = Fus.p[u];
-      float* ls = Fls.p[u];
+      const EmitRows src = emit_src<T>(Fxs.p[u], Fus.p[u], H.p[u - u0], nn,
+                                       n * m, g2, G2, B, s);
+      T* ls = Fls.p[u];
       float* so = Sout.p[u - u0];
 #pragma unroll 1
       for (int c = 0; c < n; ++c) {
         float xr[NP], acc[RPT];
 #pragma unroll
         for (int j = 0; j < NP; ++j)
-          xr[j] = j < n ? xs[(j * n + c) * s.plane + ir] : 0.0f;
+          xr[j] = j < n ? src.xr[(j * n + c) * src.es] : 0.0f;
 #pragma unroll
         for (int r = 0; r < RPT; ++r) {
           const int i = row_ok[r] ? i0 + r : 0;
@@ -229,7 +290,7 @@ __device__ __forceinline__ void emit_rows(
         }
 #pragma unroll 4
         for (int j = 0; j < m; ++j) {
-          const float uj = us[(j * n + c) * s.plane + ir];
+          const float uj = src.ur[(j * n + c) * src.es];
 #pragma unroll
           for (int r = 0; r < RPT; ++r) {
             const int i = row_ok[r] ? i0 + r : 0;
@@ -242,24 +303,23 @@ __device__ __forceinline__ void emit_rows(
           if (!row_ok[r]) continue;
           const int e = (i0 + r) * n + c;
           const float v =
-              acc[r] - xs[e * s.plane + s.idx] - ls[e * s.plane + s.idx];
+              acc[r] - src.x1[e * src.es] - ldf(ls[e * s.plane + s.idx]);
           so[Lay::at(e, g2, nn, G2, B, s.b)] = v;
-          if (u == u0) ls[e * s.plane + s.idx] = v;
+          if (u == u0) ls[e * s.plane + s.idx] = stf<T>(v);
         }
       }
     }
   }
 }
 
-template <class K, bool EMIT, class Lay>
+template <class K, bool EMIT, class Lay, class T>
 __global__ void __launch_bounds__(row_level_threads<K>(),
-                                  row_level_min_blocks<K>())
-    row_level_kernel(const float* __restrict__ FLl,
-                     const float* __restrict__ FLx,
-                     const float* __restrict__ FLu, Ptrs Fls, Ptrs Fxs,
-                     Ptrs Fus, CPtrs fsol, const float* __restrict__ Asep,
-                     const float* __restrict__ Bsep, Ptrs Sout, int U, int N,
-                     int B, int level, int shift, int n_, int m_) {
+                                  row_level_min_blocks<K>(kBf16<T> && EMIT))
+    row_level_kernel(const T* __restrict__ FLl, const T* __restrict__ FLx,
+                     const T* __restrict__ FLu, PtrsT<T> Fls, PtrsT<T> Fxs,
+                     PtrsT<T> Fus, CPtrs fsol, const float* __restrict__ Asep,
+                     const float* __restrict__ Bsep, Ptrs Sout, Ptrs H, int U,
+                     int N, int B, int level, int shift, int n_, int m_) {
   constexpr int NP = K::NP;
   const int n = K::EX ? NP : n_, m = K::EX ? K::MP : m_;
   // Every row group whole: nothing to mask.
@@ -272,6 +332,8 @@ __global__ void __launch_bounds__(row_level_threads<K>(),
   const bool keep = (k & (half - 1)) != 0 || k == 0;
   const bool sep = (k & (2 * half - 1)) == half;
   const int g = k >> (level + 1), G = N >> (level + 1);
+  const int span = 2 << level;  // next-level groups are 2 span knots
+  const int g2 = k >> (level + 2), G2 = N >> (level + 2);
   for (int rg = threadIdx.y; rg < rgs; rg += blockDim.y) {
     // This thread's slab (0 lambda, 1 x, 2 u), its first row there, and
     // which of its RPT rows the slab has.
@@ -284,13 +346,17 @@ __global__ void __launch_bounds__(row_level_threads<K>(),
     const bool lam = slab == 0;
     const bool upd = s.live && !(lam && (sep || !keep));  // reads M's rows
     const bool put = s.live && lam && sep;                // writes f's rows
+    // bf16 at an emitting level: where these rows' f32 values go.
+    const int part = kBf16<T> && EMIT && s.live
+                         ? shadow_part(slab, k, span, n * n, n * m)
+                         : -1;
     float mrow[RPT][NP];
     if (upd)
       load_rows<NP>(mrow, slab == 0 ? FLl : (slab == 1 ? FLx : FLu), i0,
                     row_ok, n, s);
     for (int u = 0; u < U; ++u) {
       const float* fu = fsol.p[u];
-      float* out = slab == 0 ? Fls.p[u] : (slab == 1 ? Fxs.p[u] : Fus.p[u]);
+      T* out = slab == 0 ? Fls.p[u] : (slab == 1 ? Fxs.p[u] : Fus.p[u]);
       if (upd) {
 #pragma unroll
         for (int c = 0; c < NP; ++c) {
@@ -299,13 +365,16 @@ __global__ void __launch_bounds__(row_level_threads<K>(),
           load_fcol<NP, Lay>(fc, fu, c, n, g, G, B, s.b);
 #pragma unroll
           for (int r = 0; r < RPT; ++r)
-            v[r] = row_ok[r] ? out[((i0 + r) * n + c) * s.plane + s.idx]
+            v[r] = row_ok[r] ? ldf(out[((i0 + r) * n + c) * s.plane + s.idx])
                              : 0.0f;
 #pragma unroll
           for (int r = 0; r < RPT; ++r) {
             const float acc = row_dot<NP>(mrow, r, fc);
-            if (row_ok[r])
-              out[((i0 + r) * n + c) * s.plane + s.idx] = v[r] - acc;
+            if (!row_ok[r]) continue;
+            const int e = (i0 + r) * n + c;
+            out[e * s.plane + s.idx] = stf<T>(v[r] - acc);
+            if (part >= 0)
+              shadow_put(H.p[u], part, e, g2, G2, B, s.b, v[r] - acc);
           }
         }
       } else if (put) {
@@ -315,11 +384,10 @@ __global__ void __launch_bounds__(row_level_threads<K>(),
   }
   if constexpr (EMIT) {
     __syncthreads();
-    const int span = 2 << level;
     if (!s.live || (k & (2 * span - 1)) != span) return;  // knot r + 1 only
-    emit_rows<NP, Lay, WHOLE>(threadIdx.y, blockDim.y, NL, Fls, Fxs, Fus,
-                              Sout, 0, U, Asep, Bsep, k >> (level + 2),
-                              N >> (level + 2), B, n, m, s);
+    emit_rows<NP, Lay, WHOLE, T>(threadIdx.y, blockDim.y, NL, Fls, Fxs, Fus,
+                                 Sout, H, 0, U, Asep, Bsep, g2, G2, B, n, m,
+                                 s);
   }
 }
 
@@ -328,16 +396,15 @@ __global__ void __launch_bounds__(row_level_threads<K>(),
 // slabs 1 .. U-1 take both levels, the second with slab 0's new rows (held
 // in m2) as multiplier; at an emitting level the level-(L+2) products of
 // slabs 1 .. U-1 go to Sout[u - 1], folded into slab 1.
-template <class K, bool EMIT, class Lay>
+template <class K, bool EMIT, class Lay, class T>
 __global__ void __launch_bounds__(row_pair_threads<K>(),
                                   row_pair_min_blocks<K>())
-    row_pair_kernel(const float* __restrict__ FLl,
-                    const float* __restrict__ FLx,
-                    const float* __restrict__ FLu, Ptrs Fls, Ptrs Fxs,
-                    Ptrs Fus, CPtrs fsol1, const float* __restrict__ Sbar2,
+    row_pair_kernel(const T* __restrict__ FLl, const T* __restrict__ FLx,
+                    const T* __restrict__ FLu, PtrsT<T> Fls, PtrsT<T> Fxs,
+                    PtrsT<T> Fus, CPtrs fsol1, const float* __restrict__ Sbar2,
                     CPtrs fsol2, const float* __restrict__ Asep3,
-                    const float* __restrict__ Bsep3, Ptrs Sout, int U, int N,
-                    int B, int level, int shift, int n_, int m_) {
+                    const float* __restrict__ Bsep3, Ptrs Sout, Ptrs H, int U,
+                    int N, int B, int level, int shift, int n_, int m_) {
   constexpr int NP = K::NP;
   const int n = K::EX ? NP : n_, m = K::EX ? K::MP : m_;
   constexpr bool WHOLE = K::EX && NP % RPT == 0 && K::MP % RPT == 0;
@@ -352,6 +419,7 @@ __global__ void __launch_bounds__(row_pair_threads<K>(),
   const bool sep2 = (k & (span2 - 1)) == span;  // excludes sep1 and keep1
   const int g1 = k >> (level + 1), G1 = N >> (level + 1);
   const int g2 = k >> (level + 2), G2 = N >> (level + 2);
+  const int g3 = k >> (level + 3), G3 = N >> (level + 3);
   for (int rg = threadIdx.y; rg < rgs; rg += blockDim.y) {
     if (!s.live) break;
     const int slab = rg < NL ? 0 : (rg < 2 * NL ? 1 : 2);
@@ -361,6 +429,11 @@ __global__ void __launch_bounds__(row_pair_threads<K>(),
 #pragma unroll
     for (int r = 0; r < RPT; ++r) row_ok[r] = WHOLE || i0 + r < rows;
     const bool lam = slab == 0;
+    // bf16 at an emitting pair: where these rows' f32 values go (the
+    // level-(L+2) groups are 2 span2 knots).
+    const int part = kBf16<T> && EMIT
+                         ? shadow_part(slab, k, span2, n * n, n * m)
+                         : -1;
     // Level L moves the rows (reads the multiplier's) except lambda rows
     // that calc_lambda skips or the separator overwrites.
     const bool upd1 = !lam || (keep1 && !sep1);
@@ -370,8 +443,10 @@ __global__ void __launch_bounds__(row_pair_threads<K>(),
     if (upd1)
       load_rows<NP>(mrow, slab == 0 ? FLl : (slab == 1 ? FLx : FLu), i0,
                     row_ok, n, s);
-    // Slab 0 (u = L+1): level L, then Sbar2 at sep2.
-    float* o0 = slab == 0 ? Fls.p[0] : (slab == 1 ? Fxs.p[0] : Fus.p[0]);
+    // Slab 0 (u = L+1): level L, then Sbar2 at sep2. Its new rows are the
+    // level-(L+1) multiplier's as stored (rounded, for bf16 slabs: the JAX
+    // kernel reads them back from its output block).
+    T* o0 = slab == 0 ? Fls.p[0] : (slab == 1 ? Fxs.p[0] : Fus.p[0]);
     if (lam && sep2) {
       put_rows<NP, Lay>(o0, Sbar2, i0, row_ok, n, g2, G2, B, s);
     } else if (lam && sep1) {
@@ -389,11 +464,12 @@ __global__ void __launch_bounds__(row_pair_threads<K>(),
         load_fcol<NP, Lay>(fc, fsol1.p[0], c, n, g1, G1, B, s.b);
 #pragma unroll
         for (int r = 0; r < RPT; ++r)
-          v[r] = row_ok[r] ? o0[((i0 + r) * n + c) * s.plane + s.idx] : 0.0f;
+          v[r] = row_ok[r] ? ldf(o0[((i0 + r) * n + c) * s.plane + s.idx])
+                           : 0.0f;
 #pragma unroll
         for (int r = 0; r < RPT; ++r) {
-          const float nv = v[r] - row_dot<NP>(mrow, r, fc);
-          m2[r][c] = row_ok[r] ? nv : 0.0f;
+          const T nv = stf<T>(v[r] - row_dot<NP>(mrow, r, fc));
+          m2[r][c] = row_ok[r] ? ldf(nv) : 0.0f;
           if (row_ok[r]) o0[((i0 + r) * n + c) * s.plane + s.idx] = nv;
         }
       }
@@ -405,7 +481,7 @@ __global__ void __launch_bounds__(row_pair_threads<K>(),
     for (int u = 1; u < U; ++u) {
       const float* f1 = fsol1.p[u];
       const float* f2 = fsol2.p[u - 1];
-      float* out = slab == 0 ? Fls.p[u] : (slab == 1 ? Fxs.p[u] : Fus.p[u]);
+      T* out = slab == 0 ? Fls.p[u] : (slab == 1 ? Fxs.p[u] : Fus.p[u]);
       if (lam && sep2) {
         put_rows<NP, Lay>(out, f2, i0, row_ok, n, g2, G2, B, s);
       } else if (!lam || keep2) {
@@ -424,16 +500,20 @@ __global__ void __launch_bounds__(row_pair_threads<K>(),
             load_fcol<NP, Lay>(fc1, f1, c, n, g1, G1, B, s.b);
 #pragma unroll
             for (int r = 0; r < RPT; ++r)
-              v[r] = row_ok[r] ? out[((i0 + r) * n + c) * s.plane + s.idx]
-                               : 0.0f;
+              v[r] = row_ok[r]
+                         ? ldf(out[((i0 + r) * n + c) * s.plane + s.idx])
+                         : 0.0f;
 #pragma unroll
             for (int r = 0; r < RPT; ++r) v[r] -= row_dot<NP>(mrow, r, fc1);
           }
 #pragma unroll
           for (int r = 0; r < RPT; ++r) {
             const float acc2 = row_dot<NP>(m2, r, fc2);
-            if (row_ok[r])
-              out[((i0 + r) * n + c) * s.plane + s.idx] = v[r] - acc2;
+            if (!row_ok[r]) continue;
+            const int e = (i0 + r) * n + c;
+            out[e * s.plane + s.idx] = stf<T>(v[r] - acc2);
+            if (part >= 0)
+              shadow_put(H.p[u - 1], part, e, g3, G3, B, s.b, v[r] - acc2);
           }
         }
       }
@@ -444,9 +524,9 @@ __global__ void __launch_bounds__(row_pair_threads<K>(),
   if constexpr (EMIT) {
     __syncthreads();
     if (!s.live || (k & (2 * span2 - 1)) != span2) return;  // knot r + 1
-    emit_rows<NP, Lay, WHOLE>(threadIdx.y, blockDim.y, NL, Fls, Fxs, Fus,
-                              Sout, 1, U, Asep3, Bsep3, k >> (level + 3),
-                              N >> (level + 3), B, n, m, s);
+    emit_rows<NP, Lay, WHOLE, T>(threadIdx.y, blockDim.y, NL, Fls, Fxs, Fus,
+                                 Sout, H, 1, U, Asep3, Bsep3, g3, G3, B, n,
+                                 m, s);
   }
 }
 
@@ -454,44 +534,55 @@ __global__ void __launch_bounds__(row_pair_threads<K>(),
 // gy rows of LKB knots starting at knot -shift cover every knot; emission
 // needs each (odd r, r + 1) pair in one block, so a shift of one; rgs row
 // groups cover the 2n + m rows, in slots_of(n, m) slots.
-template <class K, class Lay>
-int launch_row_level(const float* FLl, const float* FLx, const float* FLu,
+// Slabs in storage T (float or __nv_bfloat16); ``H`` the f32 shadows of an
+// emitting bf16 launch (none otherwise).
+template <class K, class Lay, class T = float>
+int launch_row_level(const void* FLl, const void* FLx, const void* FLu,
                      void* const* Fls, void* const* Fxs, void* const* Fus,
                      void* const* fsol, const float* Asep, const float* Bsep,
                      void* const* S, int U, int N, int B, int level, int emit,
-                     int n, int m, int shift, int gy, cudaStream_t st) {
+                     int n, int m, int shift, int gy, cudaStream_t st,
+                     void* const* H = nullptr) {
   const dim3 grid((B + TB - 1) / TB, gy), block(TB, slots_of(n, m), LKB);
+  const auto ml = static_cast<const T*>(FLl);
+  const auto mx = static_cast<const T*>(FLx);
+  const auto mu = static_cast<const T*>(FLu);
   if (emit)
-    row_level_kernel<K, true, Lay><<<grid, block, 0, st>>>(
-        FLl, FLx, FLu, ptrs(Fls), ptrs(Fxs), ptrs(Fus), cptrs(fsol), Asep,
-        Bsep, ptrs(S), U, N, B, level, shift, n, m);
+    row_level_kernel<K, true, Lay, T><<<grid, block, 0, st>>>(
+        ml, mx, mu, ptrs<T>(Fls), ptrs<T>(Fxs), ptrs<T>(Fus), cptrs(fsol),
+        Asep, Bsep, ptrs(S), ptrs(H), U, N, B, level, shift, n, m);
   else
-    row_level_kernel<K, false, Lay><<<grid, block, 0, st>>>(
-        FLl, FLx, FLu, ptrs(Fls), ptrs(Fxs), ptrs(Fus), cptrs(fsol), Asep,
-        Bsep, ptrs(S), U, N, B, level, shift, n, m);
+    row_level_kernel<K, false, Lay, T><<<grid, block, 0, st>>>(
+        ml, mx, mu, ptrs<T>(Fls), ptrs<T>(Fxs), ptrs<T>(Fus), cptrs(fsol),
+        Asep, Bsep, ptrs(S), ptrs(H), U, N, B, level, shift, n, m);
   return 0;
 }
 
 // Launch row_pair_kernel on the same plan (the pair's slots:
 // pair_slots_of).
-template <class K, class Lay>
-int launch_row_pair(const float* FLl, const float* FLx, const float* FLu,
+template <class K, class Lay, class T = float>
+int launch_row_pair(const void* FLl, const void* FLx, const void* FLu,
                     void* const* Fls, void* const* Fxs, void* const* Fus,
                     void* const* fsol1, const float* Sbar2,
                     void* const* fsol2, const float* Asep3,
                     const float* Bsep3, void* const* S, int U, int N, int B,
                     int level, int emit, int n, int m, int shift, int gy,
-                    cudaStream_t st) {
+                    cudaStream_t st, void* const* H = nullptr) {
   const dim3 grid((B + TB - 1) / TB, gy),
       block(TB, pair_slots_of(n, m, K::WIDE), LKB);
+  const auto ml = static_cast<const T*>(FLl);
+  const auto mx = static_cast<const T*>(FLx);
+  const auto mu = static_cast<const T*>(FLu);
   if (emit)
-    row_pair_kernel<K, true, Lay><<<grid, block, 0, st>>>(
-        FLl, FLx, FLu, ptrs(Fls), ptrs(Fxs), ptrs(Fus), cptrs(fsol1), Sbar2,
-        cptrs(fsol2), Asep3, Bsep3, ptrs(S), U, N, B, level, shift, n, m);
+    row_pair_kernel<K, true, Lay, T><<<grid, block, 0, st>>>(
+        ml, mx, mu, ptrs<T>(Fls), ptrs<T>(Fxs), ptrs<T>(Fus), cptrs(fsol1),
+        Sbar2, cptrs(fsol2), Asep3, Bsep3, ptrs(S), ptrs(H), U, N, B, level,
+        shift, n, m);
   else
-    row_pair_kernel<K, false, Lay><<<grid, block, 0, st>>>(
-        FLl, FLx, FLu, ptrs(Fls), ptrs(Fxs), ptrs(Fus), cptrs(fsol1), Sbar2,
-        cptrs(fsol2), Asep3, Bsep3, ptrs(S), U, N, B, level, shift, n, m);
+    row_pair_kernel<K, false, Lay, T><<<grid, block, 0, st>>>(
+        ml, mx, mu, ptrs<T>(Fls), ptrs<T>(Fxs), ptrs<T>(Fus), cptrs(fsol1),
+        Sbar2, cptrs(fsol2), Asep3, Bsep3, ptrs(S), ptrs(H), U, N, B, level,
+        shift, n, m);
   return 0;
 }
 

@@ -12,10 +12,16 @@
 // Layout (as in the JAX package): factor slabs are element-major planes
 // [e, N, B] (element e of knot k, batch column b at e*N*B + k*B + b);
 // solved separator blocks and emitted products are group-major [G, e, B].
-// float32 only. Block sizes: every 1 <= n <= 8, 1 <= m <= 64, through the
-// instantiations of small_blocks.cuh (the exact (6, 3), the (4, 4) and
+// Slabs stored in float32 or bfloat16 (SolveOptions.factor_dtype; each C
+// entry takes a ``bf16`` flag): every kernel loads a slab element into f32,
+// does all its math in f32 and rounds once at the store, as the JAX kernels
+// do (schur_pallas.py:214-216, 255-257, 563-565); everything else is
+// float32. At an emitting bf16 launch the products read the f32 values of
+// their rows from a shadow the launch writes beside the slabs
+// (row_groups.cuh). Block sizes: every 1 <= n <= 8, 1 <= m <= 64, through
+// the instantiations of small_blocks.cuh (the exact (6, 3), the (4, 4) and
 // (8, 8) capacities with n, m at run time, and the wide tag whose u rows
-// come in chunks of 8).
+// come in chunks of 8), each for both storages.
 //
 // Mapping of rhs_kernel (the others: see row_groups.cuh and leaf_rows.cuh):
 // one thread per (knot, batch column). A block is TB=32 batch columns (one
@@ -39,9 +45,19 @@ namespace {
 
 using small_blocks::chunk_rows;
 using small_blocks::chunks;
+using small_blocks::ldf;
 using small_blocks::load_blk;
 using small_blocks::TB;
 using small_blocks::with_block;
+
+// Call launch(T{}) with the slab storage the flag names.
+template <class F>
+void with_storage(int bf16, F&& launch) {
+  if (bf16)
+    launch(__nv_bfloat16{});
+  else
+    launch(float{});
+}
 
 // Knots per block.
 template <class K>
@@ -86,20 +102,19 @@ __device__ __forceinline__ void load_group(float (&r)[R * C],
 // ---------------------------------------------------------------------------
 
 // (F @ zb)[i] for rows i of a slab F with n columns, zb zero past n.
-template <int NP>
-__device__ __forceinline__ float dot_plane(const float* F, int i, int n,
+template <int NP, class T>
+__device__ __forceinline__ float dot_plane(const T* F, int i, int n,
                                            const float* zb, const Site& s) {
-  float acc = F[(i * n) * s.plane + s.idx] * zb[0];
+  float acc = ldf(F[(i * n) * s.plane + s.idx]) * zb[0];
 #pragma unroll
   for (int j = 1; j < NP; ++j)
-    if (j < n) acc += F[(i * n + j) * s.plane + s.idx] * zb[j];
+    if (j < n) acc += ldf(F[(i * n + j) * s.plane + s.idx]) * zb[j];
   return acc;
 }
 
-template <class K>
-__global__ void rhs_kernel(const float* __restrict__ Fl,
-                           const float* __restrict__ Fx,
-                           const float* __restrict__ Fu, float* zy, float* zx,
+template <class K, class T>
+__global__ void rhs_kernel(const T* __restrict__ Fl, const T* __restrict__ Fx,
+                           const T* __restrict__ Fu, float* zy, float* zx,
                            float* zu, const float* __restrict__ zbar, int N,
                            int B, int level, int n_, int m_) {
   constexpr int NP = K::NP, MP = K::MP;
@@ -151,48 +166,60 @@ const char* rslqr_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-int rslqr_rhs_update_level(const float* Fl, const float* Fx, const float* Fu,
+// Slab pointers are f32 or bf16 as ``bf16`` says; ``H`` (B1, B3, B4) the
+// f32 shadows of an emitting bf16 launch (ops/schur.py:_shadow), else a
+// list of null pointers.
+int rslqr_rhs_update_level(const void* Fl, const void* Fx, const void* Fu,
                            float* zy, float* zx, float* zu, const float* zbar,
-                           int N, int B, int level, int n, int m,
+                           int N, int B, int level, int n, int m, int bf16,
                            void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
   return with_block(n, m, [&](auto k) {
     using K = decltype(k);
-    rhs_kernel<K><<<grid_for<K>(N, B), block_for<K>(), 0, st>>>(
-        Fl, Fx, Fu, zy, zx, zu, zbar, N, B, level, n, m);
+    with_storage(bf16, [&](auto t) {
+      using T = decltype(t);
+      rhs_kernel<K, T><<<grid_for<K>(N, B), block_for<K>(), 0, st>>>(
+          static_cast<const T*>(Fl), static_cast<const T*>(Fx),
+          static_cast<const T*>(Fu), zy, zx, zu, zbar, N, B, level, n, m);
+    });
   });
 }
 
 // B1 on the plan of ops/schur.py:_level_plan (``shift``, ``gy`` grid rows,
 // ``rgs`` row groups); a plan that does not cover the level is refused.
-int rslqr_schur_update_level(const float* FLl, const float* FLx,
-                             const float* FLu, void* const* Fls,
+int rslqr_schur_update_level(const void* FLl, const void* FLx,
+                             const void* FLu, void* const* Fls,
                              void* const* Fxs, void* const* Fus,
                              void* const* fsol, const float* Asep,
-                             const float* Bsep, void* const* S, int U, int N,
-                             int B, int level, int emit, int n, int m,
-                             int shift, int gy, int rgs, void* stream) {
+                             const float* Bsep, void* const* S,
+                             void* const* H, int U, int N, int B, int level,
+                             int emit, int n, int m, int shift, int gy,
+                             int rgs, int bf16, void* stream) {
   if (!small_blocks::row_plan_ok(U, N, level, emit, n, m, shift, gy, rgs))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
   return with_block(n, m, [&](auto k) {
     using K = decltype(k);
-    small_blocks::launch_row_level<K, small_blocks::GroupMajor>(
-        FLl, FLx, FLu, Fls, Fxs, Fus, fsol, Asep, Bsep, S, U, N, B, level,
-        emit, n, m, shift, gy, st);
+    with_storage(bf16, [&](auto t) {
+      small_blocks::launch_row_level<K, small_blocks::GroupMajor,
+                                     decltype(t)>(
+          FLl, FLx, FLu, Fls, Fxs, Fus, fsol, Asep, Bsep, S, U, N, B, level,
+          emit, n, m, shift, gy, st, H);
+    });
   });
 }
 
 // B4 on the same plan as B1 (ops/schur.py:_level_plan); the pair needs
 // whole level-(L+1) groups and at most MAXU upper slabs.
-int rslqr_schur_update_pair(const float* FLl, const float* FLx,
-                            const float* FLu, void* const* Fls,
+int rslqr_schur_update_pair(const void* FLl, const void* FLx,
+                            const void* FLu, void* const* Fls,
                             void* const* Fxs, void* const* Fus,
                             void* const* fsol1, const float* Sbar2,
                             void* const* fsol2, const float* Asep3,
-                            const float* Bsep3, void* const* S, int U, int N,
-                            int B, int level, int emit, int n, int m,
-                            int shift, int gy, int rgs, void* stream) {
+                            const float* Bsep3, void* const* S,
+                            void* const* H, int U, int N, int B, int level,
+                            int emit, int n, int m, int shift, int gy,
+                            int rgs, int bf16, void* stream) {
   if (U < 1 || !small_blocks::row_plan_ok(U, N, level, emit, n, m, shift, gy,
                                           rgs) ||
       (N >> (level + 2)) < 1 || (emit && (N >> (level + 3)) < 1))
@@ -200,29 +227,36 @@ int rslqr_schur_update_pair(const float* FLl, const float* FLx,
   const auto st = static_cast<cudaStream_t>(stream);
   return with_block(n, m, [&](auto k) {
     using K = decltype(k);
-    small_blocks::launch_row_pair<K, small_blocks::GroupMajor>(
-        FLl, FLx, FLu, Fls, Fxs, Fus, fsol1, Sbar2, fsol2, Asep3, Bsep3, S,
-        U, N, B, level, emit, n, m, shift, gy, st);
+    with_storage(bf16, [&](auto t) {
+      small_blocks::launch_row_pair<K, small_blocks::GroupMajor,
+                                    decltype(t)>(
+          FLl, FLx, FLu, Fls, Fxs, Fus, fsol1, Sbar2, fsol2, Asep3, Bsep3, S,
+          U, N, B, level, emit, n, m, shift, gy, st, H);
+    });
   });
 }
 
-// B3 on the pair kernel's emitting plan (ops/schur.py:_level_plan).
+// B3 on the pair kernel's emitting plan (ops/schur.py:_level_plan); the
+// slabs it writes are stored as ``bf16`` says.
 int rslqr_leaf_schur_level0(const float* A, const float* Bm,
                             const float* qinv, const float* rinv,
                             const float* S0, void* const* fsol,
                             const float* Asep, const float* Bsep,
                             void* const* Fls, void* const* Fxs,
-                            void* const* Fus, void* const* S, int depth, int N,
-                            int B, int n, int m, int shift, int gy, int rgs,
-                            void* stream) {
+                            void* const* Fus, void* const* S, void* const* H,
+                            int depth, int N, int B, int n, int m, int shift,
+                            int gy, int rgs, int bf16, void* stream) {
   if (!small_blocks::leaf_plan_ok(depth, N, n, m, shift, gy, rgs))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
   return with_block(n, m, [&](auto k) {
     using K = decltype(k);
-    small_blocks::launch_leaf_rows<K, small_blocks::GroupMajor>(
-        A, Bm, qinv, rinv, S0, fsol, Asep, Bsep, Fls, Fxs, Fus, S, depth, N,
-        B, n, m, gy, st);
+    with_storage(bf16, [&](auto t) {
+      small_blocks::launch_leaf_rows<K, small_blocks::GroupMajor,
+                                     decltype(t)>(
+          A, Bm, qinv, rinv, S0, fsol, Asep, Bsep, Fls, Fxs, Fus, S, depth, N,
+          B, n, m, gy, st, H);
+    });
   });
 }
 

@@ -24,7 +24,10 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace small_blocks {
 
@@ -71,24 +74,53 @@ __host__ __device__ __forceinline__ int chunk_rows(int m, int i0) {
 constexpr int MAXU = 24;  // upper slabs per launch (matches ops/schur.py)
 constexpr int TB = 32;    // batch columns per block
 
-// Slab pointer lists, passed by value (MAXU entries).
-struct Ptrs {
-  float* p[MAXU];
-};
-struct CPtrs {
-  const float* p[MAXU];
-};
+// Factor-slab storage (SolveOptions.factor_dtype): T = float, or
+// __nv_bfloat16 for the em kernels (schur_kernels.cu), which load a slab
+// element into f32, do all their math in f32 and round once at the store
+// (to nearest even, as the JAX kernels' astype). Separators, problem data,
+// products and right-hand sides stay f32.
+template <class T>
+constexpr bool kBf16 = std::is_same_v<T, __nv_bfloat16>;
 
-// Pointer lists arrive from the host as MAXU-entry arrays.
-inline Ptrs ptrs(void* const* src) {
-  Ptrs out;
-  for (int i = 0; i < MAXU; ++i) out.p[i] = static_cast<float*>(src[i]);
+__device__ __forceinline__ float ldf(float v) { return v; }
+__device__ __forceinline__ float ldf(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <class T>
+__device__ __forceinline__ T stf(float v) {
+  if constexpr (kBf16<T>)
+    return __float2bfloat16_rn(v);
+  else
+    return v;
+}
+
+// Slab pointer lists, passed by value (MAXU entries).
+template <class T>
+struct PtrsT {
+  T* p[MAXU];
+};
+template <class T>
+struct CPtrsT {
+  const T* p[MAXU];
+};
+using Ptrs = PtrsT<float>;
+using CPtrs = CPtrsT<float>;
+
+// Pointer lists arrive from the host as MAXU-entry arrays (none: zeros).
+template <class T = float>
+inline PtrsT<T> ptrs(void* const* src) {
+  PtrsT<T> out;
+  for (int i = 0; i < MAXU; ++i)
+    out.p[i] = src ? static_cast<T*>(src[i]) : nullptr;
   return out;
 }
 
-inline CPtrs cptrs(void* const* src) {
-  CPtrs out;
-  for (int i = 0; i < MAXU; ++i) out.p[i] = static_cast<const float*>(src[i]);
+template <class T = float>
+inline CPtrsT<T> cptrs(void* const* src) {
+  CPtrsT<T> out;
+  for (int i = 0; i < MAXU; ++i)
+    out.p[i] = src ? static_cast<const T*>(src[i]) : nullptr;
   return out;
 }
 

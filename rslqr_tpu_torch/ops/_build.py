@@ -171,13 +171,13 @@ def load() -> ctypes.CDLL:
     PI, FL = ctypes.POINTER(ctypes.c_int), ctypes.c_float
     sigs = {
         # csrc/schur_kernels.cu
-        "rslqr_rhs_update_level": [P] * 7 + [I] * 5 + [P],
-        "rslqr_schur_update_level": [P] * 3 + [PP] * 4 + [P] * 2 + [PP]
-        + [I] * 10 + [P],
-        "rslqr_schur_update_pair": [P] * 3 + [PP] * 4 + [P, PP, P, P, PP]
-        + [I] * 10 + [P],
-        "rslqr_leaf_schur_level0": [P] * 5 + [PP] + [P] * 2 + [PP] * 4
-        + [I] * 8 + [P],
+        "rslqr_rhs_update_level": [P] * 7 + [I] * 6 + [P],
+        "rslqr_schur_update_level": [P] * 3 + [PP] * 4 + [P] * 2 + [PP] * 2
+        + [I] * 11 + [P],
+        "rslqr_schur_update_pair": [P] * 3 + [PP] * 4 + [P, PP, P, P, PP, PP]
+        + [I] * 11 + [P],
+        "rslqr_leaf_schur_level0": [P] * 5 + [PP] + [P] * 2 + [PP] * 5
+        + [I] * 9 + [P],
         # csrc/planes_kernels.cu
         "rslqr_pgemm": [P] * 3 + [I] * 4 + [P],
         "rslqr_schur_update_planes": [P] * 3 + [I] * 7 + [P],

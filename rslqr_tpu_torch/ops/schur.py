@@ -17,8 +17,17 @@ Dispatch (:func:`kernel_applies`, the one rule of every kernel family of
 the port): a wrapper launches its CUDA kernel (``csrc/schur_kernels.cu``)
 for float32 CUDA tensors under ``kernels="auto"``, and runs its plain
 PyTorch version (``*_plain``) otherwise: CPU tensors, ``kernels="off"`` and
-other dtypes (the reference sends them to XLA stages). The rule is static
-and decided before any launch: a kernel that applies launches or raises
+other dtypes (the reference sends them to XLA stages). The dtype that
+routes is the compute dtype (separators, z vectors, problem data): the
+factor slabs may be stored in bfloat16 (``SolveOptions.factor_dtype``),
+and then both routes load them into f32, compute in f32 and round each
+slab element once at its store, at the JAX kernels' points
+(schur_pallas.py:214-216, 255-257, 563-565): the products emitted from the
+unrounded values, the separator fold before the rounding, one rounding
+per level in B1 and per pair of levels in B4, whose level-(L+1)
+multiplier is slab L+1 as stored. Emission follows the storage dtype's
+tiles (:func:`_level_emits`: levels 0-3 for bf16, 0-2 for f32). The rule
+is static and decided before any launch: a kernel that applies launches or raises
 (a state dim outside 1..``MAX_STATE`` or an input dim outside
 1..``MAX_INPUT``, shapes, contiguity, a CUDA error); there is no fallback.
 The kernels are instantiated for every block size the small-block path
@@ -74,23 +83,33 @@ MAX_INPUT = 64
 # ---------------------------------------------------------------------------
 
 
-def _level_emits(level: int, N: int) -> bool:
+def _min_tk(dtype) -> int:
+    """The JAX kernels' least knot tile for slabs stored in ``dtype``: 16
+    rows for bf16 (a packed (16, 128) tile), else 8."""
+    return 16 if dtype == torch.bfloat16 else 8
+
+
+def _level_emits(level: int, N: int, dtype=torch.float32) -> bool:
     """Whether ``schur_update_level_em`` emits the next level's products:
-    the JAX kernel does when its f32 knot tile (``_tiles``) covers whole
-    next-level groups, i.e. at levels 0-2."""
+    the JAX kernel does when its knot tile (``_tiles``) covers whole
+    next-level groups, i.e. at levels 0-2 for f32 slabs and 0-3 for bf16
+    (``dtype``: the slabs' storage dtype)."""
     span = 1 << (level + 1)
-    tk = min(max(2 * span, 8), 16, N)
+    tk = min(max(2 * span, _min_tk(dtype)), 2 * _min_tk(dtype), N)
     return 2 * span <= tk and N >= 2 * span
 
 
-def _pair_emits(level: int, N: int, B: int, U: int, n: int, m: int) -> bool:
+def _pair_emits(level: int, N: int, B: int, U: int, n: int, m: int,
+                dtype=torch.float32) -> bool:
     """Whether ``schur_update_pair_em`` emits the level-(L+2) products:
     the JAX kernel does when a knot tile covering whole L+2 groups fits its
-    VMEM budget (``_tiles_pair``, f32, 128-lane batch tiles)."""
+    VMEM budget (``_tiles_pair``, 128-lane batch tiles, the slabs' storage
+    ``dtype``)."""
     span2 = 2 << (level + 1)
-    tk = max(2 * span2, 8)
+    tk = max(2 * span2, _min_tk(dtype))
     tb = min(128, B)
-    est = (1 + U) * (2 * n * n + m * n) * tk * tb * 4 * 2
+    size = 2 if dtype == torch.bfloat16 else 4
+    est = (1 + U) * (2 * n * n + m * n) * tk * tb * size * 2
     return U >= 2 and tk <= N and est <= 60 * 1024 * 1024
 
 
@@ -204,20 +223,30 @@ def _fold_rows(v: torch.Tensor, S: torch.Tensor, span: int) -> torch.Tensor:
     return out
 
 
+def _up(x: torch.Tensor, dtype) -> torch.Tensor:
+    """``x`` in the compute dtype: bf16 slabs are upcast on load, as the
+    kernels load them (f32 math, one rounding at each store)."""
+    return x if x.dtype == dtype else x.to(dtype)
+
+
 def _update_trio(vl, vx, vu, ML, MX, MU, f, keep, sep, n, m):
     """One level's update of one slab trio (ndlqr_UpdateShurFactor,
     nested_dissection.c:154-171): lambda rows masked by calc_lambda and
-    overwritten by the solved separator at sep+1 rows."""
+    overwritten by the solved separator at sep+1 rows. Every operand is
+    taken in ``f``'s dtype (bf16 slabs upcast)."""
+    dt = f.dtype
+    vl, vx, vu, ML, MX, MU = (_up(x, dt) for x in (vl, vx, vu, ML, MX, MU))
     vl = torch.where(sep, f, vl - torch.where(keep, _mm(ML, f, n, n), 0.0))
     return vl, vx - _mm(MX, f, n, n), vu - _mm(MU, f, m, n)
 
 
 def rhs_update_level_em_plain(Fl, Fx, Fu, zy, zx, zu, zbar, *, level, n, m):
-    """Plain version of :func:`rhs_update_level_em`."""
+    """Plain version of :func:`rhs_update_level_em` (bf16 slabs upcast)."""
     N = Fl.shape[1]
     keep, sep = _masks(level, N, Fl.device)
     zb = _bcast(zbar, 2 << level)  # [n, N, B]
-    mv = lambda F, p: (F.reshape(p, n, N, -1) * zb[None]).sum(1)
+    mv = lambda F, p: (_up(F, zb.dtype).reshape(p, n, N, -1)
+                       * zb[None]).sum(1)
     vy = torch.where(sep, zb, zy - torch.where(keep, mv(Fl, n), 0.0))
     vx = zx - mv(Fx, n)
     vu = zu - mv(Fu, m)
@@ -230,11 +259,14 @@ def rhs_update_level_em_plain(Fl, Fx, Fu, zy, zx, zu, zbar, *, level, n, m):
 def schur_update_level_em_plain(
     FLl, FLx, FLu, Fls, Fxs, Fus, fsol, Asep=None, Bsep=None, *, level, n, m
 ):
-    """Plain version of :func:`schur_update_level_em`."""
+    """Plain version of :func:`schur_update_level_em`. bf16 slabs are
+    upcast on load and each updated slab rounded once at its store; the
+    products come from the unrounded values, with the fold before the
+    rounding (schur_pallas.py:214-257)."""
     N = FLl.shape[1]
     span = 2 << level
     keep, sep = _masks(level, N, FLl.device)
-    emit = Asep is not None and _level_emits(level, N)
+    emit = Asep is not None and _level_emits(level, N, FLl.dtype)
     S_next = [] if emit else None
     for u in range(len(Fls)):
         f = _bcast(fsol[u], span)
@@ -256,14 +288,18 @@ def schur_update_pair_em_plain(
     FLl, FLx, FLu, Fls, Fxs, Fus, fsol1, Sbar2, fsol2, Asep3=None,
     Bsep3=None, *, level, n, m,
 ):
-    """Plain version of :func:`schur_update_pair_em`."""
+    """Plain version of :func:`schur_update_pair_em`. bf16 slabs: as
+    :func:`schur_update_level_em_plain`, one rounding per slab for both
+    levels; the level-(L+1) multiplier is slab L+1 as stored (rounded), as
+    the JAX kernel reads it back from its output block
+    (schur_pallas.py:535-537)."""
     nn, N, B = FLl.shape
     U = len(Fls)
     span = 2 << level
     span2 = 2 * span
     keep1, sep1 = _masks(level, N, FLl.device)
     keep2, sep2 = _masks(level + 1, N, FLl.device)
-    emit = Asep3 is not None and _pair_emits(level, N, B, U, n, m)
+    emit = Asep3 is not None and _pair_emits(level, N, B, U, n, m, FLl.dtype)
     S_next = [] if emit else None
     for uu in range(U):
         vl, vx, vu = _update_trio(
@@ -311,9 +347,11 @@ def _leaf_values(A, Bm, qinv, rinv, L: int, n: int, m: int):
 
 
 def leaf_schur_level0_em_plain(
-    A, B, qinv, rinv, S0, fsol, Asep, Bsep, *, depth, n, m
+    A, B, qinv, rinv, S0, fsol, Asep, Bsep, *, depth, n, m, factor_dtype=""
 ):
-    """Plain version of :func:`leaf_schur_level0_em`."""
+    """Plain version of :func:`leaf_schur_level0_em`: every value in the
+    problem dtype (the level-0 multipliers unrounded), each slab rounded to
+    ``factor_dtype`` once at the end, after the products and the fold."""
     nn, N, Bb = A.shape
     k = torch.arange(N, device=A.device)[:, None]
     keep, sep = _masks(0, N, A.device)
@@ -338,12 +376,20 @@ def leaf_schur_level0_em_plain(
         Fls.append(vl)
         Fxs.append(vx)
         Fus.append(vu)
+    fdt = _storage_dtype(factor_dtype, A.dtype)
+    Fls, Fxs, Fus = ([x.to(fdt) for x in F] for F in (Fls, Fxs, Fus))
     return tuple(Fls), tuple(Fxs), tuple(Fus), S_next
 
 
 # ---------------------------------------------------------------------------
 # Kernel launches.
 # ---------------------------------------------------------------------------
+
+
+def _storage_dtype(factor_dtype: str, dtype) -> torch.dtype:
+    """The slabs' storage dtype: ``SolveOptions.factor_dtype`` ("" = the
+    problem dtype ``dtype``, or "bfloat16")."""
+    return torch.bfloat16 if factor_dtype == "bfloat16" else dtype
 
 
 def kernel_applies(kernels: str, device: torch.device,
@@ -367,16 +413,24 @@ def kernel_applies(kernels: str, device: torch.device,
 
 
 def _check(name: str, tensors: Sequence[torch.Tensor], shapes, n: int,
-           m: int, device):
+           m: int, device, slabs: int = 0):
+    """The kernels' limits: block dims, devices, dtypes, shapes and
+    contiguity. The first ``slabs`` tensors are factor slabs, stored in
+    float32 or bfloat16 (one dtype for all of them); the others float32."""
     if not (1 <= n <= MAX_STATE and 1 <= m <= MAX_INPUT):
         raise ValueError(
             f"{name}: CUDA kernels take state dims n in 1..{MAX_STATE} and "
             f"input dims m in 1..{MAX_INPUT}, got (n, m) = {(n, m)}"
         )
-    for t, shape in zip(tensors, shapes):
-        if t.device != device or t.dtype != torch.float32:
+    sdt = tensors[0].dtype if slabs else torch.float32
+    if sdt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: kernel takes float32 or bfloat16 slabs, "
+                         f"got {sdt}")
+    for i, (t, shape) in enumerate(zip(tensors, shapes)):
+        want = sdt if i < slabs else torch.float32
+        if t.device != device or t.dtype != want:
             raise ValueError(
-                f"{name}: kernel takes float32 tensors on {device}, got "
+                f"{name}: kernel takes {want} tensors on {device}, got "
                 f"{t.dtype} on {t.device}"
             )
         if tuple(t.shape) != tuple(shape):
@@ -399,11 +453,25 @@ def _ptrs(ts: Sequence[torch.Tensor]):
     return (ctypes.c_void_p * MAXU)(*(t.data_ptr() for t in ts))
 
 
-def _stacked(device, *shapes):
-    """One f32 allocation per shape ``(count, *slab)``, each returned as the
+def _stacked(device, *shapes, dtype=torch.float32):
+    """One allocation per shape ``(count, *slab)``, each returned as the
     tuple of its ``count`` contiguous slabs: the fused leaf's outputs, in
     four allocations instead of one per slab."""
-    return tuple(torch.empty(s, device=device).unbind(0) for s in shapes)
+    return tuple(torch.empty(s, device=device, dtype=dtype).unbind(0)
+                 for s in shapes)
+
+
+def _shadow(bf16: bool, count: int, nn: int, mn: int, G2: int, B: int,
+            device):
+    """The f32 rows an emitting bf16 launch writes beside its rounded slab
+    stores, so that its products read unrounded values as the JAX kernels
+    form them (from the f32 values before the store): per emitted slab the
+    x and u rows of each next-level separator knot r and the x rows of
+    r + 1, ``[2nn + mn, G2, B]`` (``csrc/row_groups.cuh``: ``Shadow``).
+    None for f32 slabs, which the products read back themselves."""
+    if not (bf16 and count):
+        return []
+    return torch.empty((count, 2 * nn + mn, G2, B), device=device).unbind(0)
 
 
 def _launch(fn_name: str, device, *args):
@@ -447,7 +515,7 @@ def rhs_update_level_em(
     ``rhs_kernel`` (one thread per knot and batch column; reads 90 floats of
     slab and 15 of z, writes 15).
     """
-    if not kernel_applies(kernels, Fl.device, Fl.dtype):
+    if not kernel_applies(kernels, zy.device, zy.dtype):
         return rhs_update_level_em_plain(
             Fl, Fx, Fu, zy, zx, zu, zbar, level=level, n=n, m=m
         )
@@ -456,12 +524,12 @@ def rhs_update_level_em(
     _check(
         "rhs_update_level_em", (Fl, Fx, Fu, zy, zx, zu, zbar),
         ((nn, N, B), (nn, N, B), (m * n, N, B), (n, N, B), (n, N, B),
-         (m, N, B), (G, n, B)), n, m, Fl.device,
+         (m, N, B), (G, n, B)), n, m, zy.device, slabs=3,
     )
     _launch(
-        "rslqr_rhs_update_level", Fl.device,
+        "rslqr_rhs_update_level", zy.device,
         _ptr(Fl), _ptr(Fx), _ptr(Fu), _ptr(zy), _ptr(zx), _ptr(zu),
-        _ptr(zbar), N, B, level, n, m,
+        _ptr(zbar), N, B, level, n, m, int(Fl.dtype == torch.bfloat16),
     )
     rhs_update_level_em.launches += 1
     return zy, zx, zu
@@ -496,7 +564,8 @@ def schur_update_level_em(
     Kernel: ``row_level_kernel`` (``csrc/row_groups.cuh``: up to three slab
     rows per thread, on the geometry of :func:`_level_plan`).
     """
-    if not kernel_applies(kernels, FLl.device, FLl.dtype):
+    cdt = fsol[0].dtype if len(fsol) else FLl.dtype
+    if not kernel_applies(kernels, FLl.device, cdt):
         return schur_update_level_em_plain(
             FLl, FLx, FLu, list(Fls), list(Fxs), list(Fus), fsol, Asep, Bsep,
             level=level, n=n, m=m,
@@ -505,7 +574,8 @@ def schur_update_level_em(
     mn = m * n
     U = len(Fls)
     G = N >> (level + 1)
-    emit = Asep is not None and _level_emits(level, N)
+    bf16 = FLl.dtype == torch.bfloat16
+    emit = Asep is not None and _level_emits(level, N, FLl.dtype)
     G2 = N >> (level + 2)
     ts = [FLl, FLx, FLu, *Fls, *Fxs, *Fus, *fsol]
     shapes = ([(nn, N, B)] * 2 + [(mn, N, B)] + [(nn, N, B)] * (2 * U)
@@ -513,16 +583,19 @@ def schur_update_level_em(
     if emit:
         ts += [Asep, Bsep]
         shapes += [(G2, nn, B), (G2, n * m, B)]
-    _check("schur_update_level_em", ts, shapes, n, m, FLl.device)
+    _check("schur_update_level_em", ts, shapes, n, m, FLl.device,
+           slabs=3 + 3 * U)
     S = [torch.empty((G2, nn, B), device=FLl.device) for _ in range(U)] \
         if emit else []
+    H = _shadow(bf16 and emit, U, nn, mn, G2, B, FLl.device)
     plan = _level_plan(N, B, emit, n, m)
     _launch(
         "rslqr_schur_update_level", FLl.device,
         _ptr(FLl), _ptr(FLx), _ptr(FLu), _ptrs(Fls), _ptrs(Fxs), _ptrs(Fus),
         _ptrs(fsol), _ptr(Asep if emit else None),
-        _ptr(Bsep if emit else None), _ptrs(S), U, N, B, level, int(emit),
-        n, m, plan.shift, plan.grid[1], sum(plan.groups),
+        _ptr(Bsep if emit else None), _ptrs(S), _ptrs(H), U, N, B, level,
+        int(emit), n, m, plan.shift, plan.grid[1], sum(plan.groups),
+        int(bf16),
     )
     schur_update_level_em.launches += 1
     return tuple(Fls), tuple(Fxs), tuple(Fus), (S if emit else None)
@@ -562,7 +635,7 @@ def schur_update_pair_em(
     slab rows need, so no value crosses threads except the product
     emission's separator rows.
     """
-    if not kernel_applies(kernels, FLl.device, FLl.dtype):
+    if not kernel_applies(kernels, FLl.device, Sbar2.dtype):
         return schur_update_pair_em_plain(
             FLl, FLx, FLu, list(Fls), list(Fxs), list(Fus), fsol1, Sbar2,
             fsol2, Asep3, Bsep3, level=level, n=n, m=m,
@@ -573,24 +646,27 @@ def schur_update_pair_em(
     G1 = N >> (level + 1)
     G2 = N >> (level + 2)
     G3 = N >> (level + 3)
-    emit = Asep3 is not None and _pair_emits(level, N, B, U, n, m)
+    bf16 = FLl.dtype == torch.bfloat16
+    emit = Asep3 is not None and _pair_emits(level, N, B, U, n, m, FLl.dtype)
     ts = [FLl, FLx, FLu, *Fls, *Fxs, *Fus, *fsol1, Sbar2, *fsol2]
     shapes = ([(nn, N, B)] * 2 + [(mn, N, B)] + [(nn, N, B)] * (2 * U)
               + [(mn, N, B)] * U + [(G1, nn, B)] * U + [(G2, nn, B)] * U)
     if emit:
         ts += [Asep3, Bsep3]
         shapes += [(G3, nn, B), (G3, n * m, B)]
-    _check("schur_update_pair_em", ts, shapes, n, m, FLl.device)
+    _check("schur_update_pair_em", ts, shapes, n, m, FLl.device,
+           slabs=3 + 3 * U)
     S = [torch.empty((G3, nn, B), device=FLl.device)
          for _ in range(U - 1)] if emit else []
+    H = _shadow(bf16 and emit, U - 1, nn, mn, G3, B, FLl.device)
     plan = _level_plan(N, B, emit, n, m, pair=True)
     _launch(
         "rslqr_schur_update_pair", FLl.device,
         _ptr(FLl), _ptr(FLx), _ptr(FLu), _ptrs(Fls), _ptrs(Fxs), _ptrs(Fus),
         _ptrs(fsol1), _ptr(Sbar2), _ptrs(fsol2),
         _ptr(Asep3 if emit else None), _ptr(Bsep3 if emit else None),
-        _ptrs(S), U, N, B, level, int(emit), n, m, plan.shift, plan.grid[1],
-        sum(plan.groups),
+        _ptrs(S), _ptrs(H), U, N, B, level, int(emit), n, m, plan.shift,
+        plan.grid[1], sum(plan.groups), int(bf16),
     )
     schur_update_pair_em.launches += 1
     return tuple(Fls), tuple(Fxs), tuple(Fus), (S if emit else None)
@@ -610,6 +686,7 @@ def leaf_schur_level0_em(
     n: int,
     m: int,
     kernels: str = "auto",
+    factor_dtype: str = "",
 ):
     """Fused leaf construction + level-0 Schur update: builds every level's
     leaf factor values from the problem data, applies level 0, writes each
@@ -618,7 +695,10 @@ def leaf_schur_level0_em(
 
     Returns ``(Fls, Fxs, Fus, S_next)``: per-level tuples of length
     ``depth`` (new tensors; on the kernel route, views of one allocation
-    per kind) and the list of ``depth-1`` level-1 products.
+    per kind), stored in ``factor_dtype`` ("" = the problem dtype, or
+    "bfloat16": every value formed in f32, each element rounded once at its
+    store, the products from the unrounded values), and the list of
+    ``depth-1`` level-1 products in the problem dtype.
 
     Replaces ``rslqr_tpu/ops/schur_pallas.py:leaf_schur_level0_em``.
     Kernel: ``leaf_row_kernel`` (``csrc/leaf_rows.cuh``, on the pair
@@ -630,7 +710,8 @@ def leaf_schur_level0_em(
         raise ValueError("the fused leaf needs a tree of depth >= 2")
     if not kernel_applies(kernels, A.device, A.dtype):
         return leaf_schur_level0_em_plain(
-            A, B, qinv, rinv, S0, fsol, Asep, Bsep, depth=depth, n=n, m=m
+            A, B, qinv, rinv, S0, fsol, Asep, Bsep, depth=depth, n=n, m=m,
+            factor_dtype=factor_dtype,
         )
     nn, N, Bb = A.shape
     mn = m * n
@@ -642,15 +723,20 @@ def leaf_schur_level0_em(
         + [(G0, nn, Bb)] * U + [(G1, nn, Bb), (G1, mn, Bb)],
         n, m, A.device,
     )
-    Fls, Fxs, Fus, S = _stacked(A.device, (depth, nn, N, Bb),
-                                (depth, nn, N, Bb), (depth, mn, N, Bb),
-                                (U, G1, nn, Bb))
+    fdt = _storage_dtype(factor_dtype, A.dtype)
+    bf16 = fdt == torch.bfloat16
+    Fls, Fxs, Fus = _stacked(A.device, (depth, nn, N, Bb),
+                             (depth, nn, N, Bb), (depth, mn, N, Bb),
+                             dtype=fdt)
+    S, = _stacked(A.device, (U, G1, nn, Bb))
+    H = _shadow(bf16, U, nn, mn, G1, Bb, A.device)
     plan = _level_plan(N, Bb, True, n, m, pair=True)
     _launch(
         "rslqr_leaf_schur_level0", A.device,
         _ptr(A), _ptr(B), _ptr(qinv), _ptr(rinv), _ptr(S0), _ptrs(fsol),
         _ptr(Asep), _ptr(Bsep), _ptrs(Fls), _ptrs(Fxs), _ptrs(Fus), _ptrs(S),
-        depth, N, Bb, n, m, plan.shift, plan.grid[1], sum(plan.groups),
+        _ptrs(H), depth, N, Bb, n, m, plan.shift, plan.grid[1],
+        sum(plan.groups), int(bf16),
     )
     leaf_schur_level0_em.launches += 1
     return Fls, Fxs, Fus, list(S)

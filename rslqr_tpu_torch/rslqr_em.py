@@ -47,6 +47,15 @@ plain PyTorch on compact ``[.., G, B]`` data.
 
 The slabs are updated in place by the kernels, as the TPU kernels alias
 them.
+
+``SolveOptions(factor_dtype="bfloat16")`` stores the slabs in bf16
+(rslqr_em.py:162-167 of the JAX package); the Cholesky factors, separator
+products and solves and the right-hand sides stay in the problem dtype.
+The schedule is decided on the storage dtype (:func:`_kernel_schedule`),
+slab rows are upcast before any product, and the plain stages round each
+updated slab once (``copy_``, round to nearest even, as ``astype``). The
+flat schedule takes f32 slabs only, and mid blocks take the plain update
+(no plane kernel takes a bf16 slab, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -127,17 +136,20 @@ def _leaf_masks(levels: np.ndarray, N: int, depth: int):
     return own, prev
 
 
-def _leaf_em(pbl: LQRProblem, levels: np.ndarray, depth: int):
+def _leaf_em(pbl: LQRProblem, levels: np.ndarray, depth: int, fdt=None):
     """Leaf solves (ref nested_dissection.c:10-105): each level's factor
-    slabs, contiguous ``[p, n, N, B]``, zero except at the knots the level
+    slabs, contiguous ``[p, n, N, B]`` in the storage dtype ``fdt`` (None:
+    the problem dtype; bf16 slabs take the values rounded once, as JAX's
+    ``astype``, rslqr_em.py:162-167), zero except at the knots the level
     owns (``Q^-1 A'``, ``R^-1 B'``; ``-Q^-1`` after its separators; ``-A'``
     and ``R^-1 B'`` at knot 0 for level 0). The values are those of the JAX
     module's static-mask ``where``s (a knot is never both owned and after a
     separator), written only at those knots. Used for mid-size blocks and
-    when the tree is too shallow for the fused leaf kernel (N = 2)."""
+    where the fused leaf kernel does not run (:func:`_kernel_schedule`)."""
     N, n = pbl.A.shape[0], pbl.A.shape[1]
     m, Bb = pbl.B.shape[2], pbl.A.shape[3]
     dev, dtype = pbl.A.device, pbl.A.dtype
+    fdt = fdt or dtype
     A, B = _em(pbl.A), _em(pbl.B)
     At, Bt = A.transpose(0, 1), B.transpose(0, 1)
     qinv, rinv = 1.0 / _emv(pbl.Qdiag), 1.0 / _emv(pbl.Rdiag)
@@ -148,11 +160,11 @@ def _leaf_em(pbl: LQRProblem, levels: np.ndarray, depth: int):
     def slab(p, parts):
         """Zeros ``[p, n, N, B]`` with ``(knot mask, values)`` parts set;
         ``values(idx)`` gives the blocks at knots ``idx``."""
-        out = torch.zeros((p, n, N, Bb), dtype=dtype, device=dev)
+        out = torch.zeros((p, n, N, Bb), dtype=fdt, device=dev)
         for mask, values in parts:
             idx = torch.as_tensor(np.nonzero(mask)[0], device=dev)
             if len(idx):
-                out[:, :, idx] = values(idx)
+                out[:, :, idx] = values(idx).to(fdt)
         return out
 
     qiat = lambda idx: At[:, :, idx] * qinv[:, idx][:, None]
@@ -253,25 +265,26 @@ def _level_products_em(A, B, level, depth, Fls, Fxs, Fus, ex, n, opts):
     span = 1 << (level + 1)
     mid = (1 << level) - 1
     # Compact copies, made once per level (the products' kernels take
-    # contiguous planes).
+    # contiguous planes); rows of bf16 slabs upcast to the problem dtype.
     A_sep = _sel(_gk(A, span), mid).contiguous()
     B_sep = _sel(_gk(B, span), mid).contiguous()
+    row = lambda F, pos: schur._up(_sel(_gk(F, span), pos), A.dtype)
     Ss = []
     for u in range(level, depth):
-        gl, gx, gu = _gk(Fls[u], span), _gk(Fxs[u], span), _gk(Fus[u], span)
         Ss.append(
-            la.bgemm(A_sep, _sel(gx, mid), NB + 1, opts)
-            + la.bgemm(B_sep, _sel(gu, mid), NB + 1, opts)
-            - _sel(gx, mid + 1)
-            - _sel(gl, mid + 1)
+            la.bgemm(A_sep, row(Fxs[u], mid), NB + 1, opts)
+            + la.bgemm(B_sep, row(Fus[u], mid), NB + 1, opts)
+            - row(Fxs[u], mid + 1)
+            - row(Fls[u], mid + 1)
         )
     return Ss
 
 
 def _level_writeback_em(Fls, level, S):
     """Separator write-back of this level's Sbar into its lambda slab
-    (ref solve.c:92-97 placement), in place. The kernels fold this into
-    the upstream store when they emitted the products."""
+    (ref solve.c:92-97 placement), in place (a bf16 slab takes S rounded,
+    as JAX's ``astype``). The kernels fold this into the upstream store
+    when they emitted the products."""
     span = 1 << (level + 1)
     mid = (1 << level) - 1
     _gk(Fls[level], span)[..., mid + 1, :] = S
@@ -282,6 +295,21 @@ def _level_cholsolve_em(Lc, Ss, level, opts):
     (ndlqr_SolveCholeskyFactor, nested_dissection.c:136-152)."""
     sols = _cholsolve_stacked(Lc, Ss[1:], opts)
     return {level + 1 + i: s for i, s in enumerate(sols)}
+
+
+def _kernel_schedule(fdt, N: int, n: int, opts: SolveOptions) -> bool:
+    """Whether small-block slabs stored in ``fdt`` take the schedule of the
+    JAX package's kernel path (fused leaf, level pairs, products emitted
+    by the sweep kernels), decided as its ``_pallas_schur_mode`` decides
+    it on the storage dtype (rslqr_em.py:440-446, 876): on every device
+    for f32 and f64 slabs (the port runs that schedule everywhere), and
+    for bf16 slabs where the knot axis tiles by 16 (N >= 16, N % 16 ==
+    0). Elsewhere bf16 slabs take the plain leaf and single levels without
+    emission, each level's updated slabs rounded once (JAX's XLA stages,
+    rslqr_em.py:317-361)."""
+    if _mid_block(n, opts):
+        return False
+    return fdt != torch.bfloat16 or (N >= 16 and N % 16 == 0)
 
 
 def _mid_block(n: int, opts: SolveOptions) -> bool:
@@ -317,14 +345,17 @@ def _cholsolve_stacked(Lc, Ss, opts):
     return [sol[:, i * n:(i + 1) * n] for i in range(len(Ss))]
 
 
-def _schur_kernel(A, B_dyn, level, depth, Fls, Fxs, Fus, fsols, n, m, opts):
+def _schur_kernel(A, B_dyn, level, depth, Fls, Fxs, Fus, fsols, n, m, opts,
+                  emit=True):
     """The single-level Schur stage through ``schur_update_level_em``
     (counterpart of ``rslqr_em._schur_pallas``); updates the slabs in
-    place and returns the next level's products list (or None)."""
+    place and returns the next level's products list (or None; always
+    None without ``emit``)."""
     N, B = Fls[level].shape[2], Fls[level].shape[3]
     us = list(range(level + 1, depth))
     Asep = Bsep = None
-    if schur._level_emits(level, N) and level + 2 <= depth:
+    if (emit and schur._level_emits(level, N, Fls[level].dtype)
+            and level + 2 <= depth):
         Asep = _sep_gm(A, level + 1)
         Bsep = _sep_gm(B_dyn, level + 1)
     *_, S_next = schur.schur_update_level_em(
@@ -384,12 +415,32 @@ def _level_update_planes_em(level, depth, Fls, Fxs, Fus, fsols, opts):
     """Mid-block Schur update stage (ndlqr_UpdateShurFactor,
     nested_dissection.c:154-171): one fused ``schur3_update_planes`` pass
     per upper level, which reads the compact solved separators at each
-    knot's group; updates the slabs in place."""
+    knot's group; updates the slabs in place. bf16 slabs take the plain
+    update (:func:`_level_update_plain_em`), as JAX sends non-f32 slabs
+    past its plane kernels (rslqr_em.py:383)."""
+    if Fls[level].dtype == torch.bfloat16:
+        _level_update_plain_em(level, depth, Fls, Fxs, Fus, fsols)
+        return
     for u in range(level + 1, depth):
         planes.schur3_update_planes(
             Fls[level], Fxs[level], Fus[level], fsols[u],
             Fls[u], Fxs[u], Fus[u], level=level, kernels=opts.kernels,
         )
+
+
+def _level_update_plain_em(level, depth, Fls, Fxs, Fus, fsols):
+    """The plain Schur update of bf16 mid-block slabs (JAX's
+    ``_level_update_xla_em``, rslqr_em.py:317-361): each upper slab trio
+    updated in the problem dtype on upcast copies, then rounded back once
+    by ``copy_`` (round to nearest even, as ``astype``)."""
+    cdt = fsols[level + 1].dtype
+    FL = [schur._up(x, cdt) for x in (Fls[level], Fxs[level], Fus[level])]
+    for u in range(level + 1, depth):
+        dst = (Fls[u], Fxs[u], Fus[u])
+        C = [schur._up(x, cdt) for x in dst]
+        planes.schur3_update_planes_plain(*FL, fsols[u], *C, level=level)
+        for d, c in zip(dst, C):
+            d.copy_(c)
 
 
 def _sweep_level_em(A, B, level, depth, Fls, Fxs, Fus, n, m, ex, opts,
@@ -415,11 +466,13 @@ def _sweep_level_em(A, B, level, depth, Fls, Fxs, Fus, n, m, ex, opts,
             _level_update_planes_em(level, depth, Fls, Fxs, Fus, fsols,
                                     opts)
             return Lc, None
-        stage = (_schur_flat if _flat_path_ok(A.dtype, NB, A.shape[2],
-                                              A.shape[3:], n, opts)
-                 else _schur_kernel)
-        return Lc, stage(A, B, level, depth, Fls, Fxs, Fus, fsols, n, m,
-                         opts)
+        fdt = Fls[level].dtype
+        if _flat_path_ok(fdt, NB, A.shape[2], A.shape[3:], n, opts):
+            return Lc, _schur_flat(A, B, level, depth, Fls, Fxs, Fus, fsols,
+                                   n, m, opts)
+        return Lc, _schur_kernel(
+            A, B, level, depth, Fls, Fxs, Fus, fsols, n, m, opts,
+            emit=_kernel_schedule(fdt, A.shape[2], n, opts))
 
 
 def _pair_prepass(A, B, level, depth, Fls, Fxs, Fus, fsols1, opts):
@@ -430,7 +483,8 @@ def _pair_prepass(A, B, level, depth, Fls, Fxs, Fus, fsols1, opts):
     span1 = 1 << (level + 1)
     span2 = 2 * span1
     nk = NB + 1
-    sel2 = lambda x, pos: _sel(_gk(x, span2), pos)
+    # Rows of bf16 slabs upcast to the problem dtype.
+    sel2 = lambda x, pos: schur._up(_sel(_gk(x, span2), pos), A.dtype)
     A_sep2 = sel2(A, span1 - 1)
     B_sep2 = sel2(B, span1 - 1)
     FxL_r2 = sel2(Fxs[level], span1 - 1)
@@ -464,7 +518,7 @@ def _schur_kernel_pair(
     us = list(range(level + 1, depth))
     Asep = Bsep = None
     if (
-        schur._pair_emits(level, N, B, len(us), n, m)
+        schur._pair_emits(level, N, B, len(us), n, m, Fls[level].dtype)
         and level + 2 <= depth - 1
     ):
         Asep = _sep_gm(A, level + 2)
@@ -538,11 +592,16 @@ def _rhs_level_em(A, B, level, Fl, Fx, Fu, Lc, zy, zx, zu, opts):
     n, m = zy.shape[0], zu.shape[0]
     if _mid_block(n, opts):
         zbar = _pcho_solve(Lc, znew.unsqueeze(1), opts)  # [n, 1, G, B]
-        planes.schur3_update_planes(
-            Fl, Fx, Fu, zbar, zy.unsqueeze(1),
-            zx.unsqueeze(1), zu.unsqueeze(1), level=level,
-            kernels=opts.kernels,
-        )
+        zs = (zy.unsqueeze(1), zx.unsqueeze(1), zu.unsqueeze(1))
+        if Fl.dtype == torch.bfloat16:
+            # No plane kernel takes a bf16 slab (JAX's XLA stage,
+            # rslqr_em.py:750-790): the plain update on upcast copies.
+            planes.schur3_update_planes_plain(
+                *(schur._up(F, zy.dtype) for F in (Fl, Fx, Fu)), zbar, *zs,
+                level=level)
+        else:
+            planes.schur3_update_planes(Fl, Fx, Fu, zbar, *zs, level=level,
+                                        kernels=opts.kernels)
         return zy, zx, zu
     zbar = la.bcho_solve_vec(Lc, znew, nk, opts)  # [n, G, B]
     N, B_ = zy.shape[1], zy.shape[2]
@@ -620,8 +679,10 @@ def factorize_em(
     N, Bb = pbl.A.shape[0], pbl.A.shape[3]
 
     mid = _mid_block(n, opts)
-    use_flat = _flat_path_ok(pbl.A.dtype, NB, N, (Bb,), n, opts)
-    if t.depth >= 2 and not mid:
+    fdt = schur._storage_dtype(opts.factor_dtype, pbl.A.dtype)
+    sched = _kernel_schedule(fdt, N, n, opts)
+    use_flat = _flat_path_ok(fdt, NB, N, (Bb,), n, opts)
+    if t.depth >= 2 and sched:
         # Fused leaf + level 0: level-0 products from compact gathers, then
         # ONE kernel writes every slab in its post-level-0 state and emits
         # the level-1 products.
@@ -650,6 +711,7 @@ def factorize_em(
                     _gm(Ss[0]), [_gm(f) for f in fsols0],
                     _sep_gm(A, 1), _sep_gm(B, 1),
                     depth=t.depth, n=n, m=m, kernels=opts.kernels,
+                    factor_dtype=opts.factor_dtype,
                 )
             Fls = [x.view(n, n, N, Bb) for x in Fls]
             Fxs = [x.view(n, n, N, Bb) for x in Fxs]
@@ -659,10 +721,11 @@ def factorize_em(
         level = 1
     else:
         # Plain leaf slabs: the tree is too shallow for the fused leaf
-        # kernel, or the blocks are mid-size (no fused leaf there in JAX).
+        # kernel, the blocks are mid-size (no fused leaf there in JAX), or
+        # bf16 slabs on a knot axis that does not tile by 16.
         with clock("leaves"):
             Fls, Fxs, Fus, A, B, zy, zx, zu = _leaf_em(pbl, t.levels,
-                                                       t.depth)
+                                                       t.depth, fdt)
         chols = []
         ex = None
         level = 0
@@ -671,7 +734,7 @@ def factorize_em(
         # still has upper levels to update (small blocks only: the pair
         # kernel is a small-block kernel; the flat path never pairs, as in
         # JAX, rslqr_em.py:943-952).
-        if (level <= t.depth - 3 and opts.level_pairing and not mid
+        if (level <= t.depth - 3 and opts.level_pairing and sched
                 and not use_flat):
             Lc1, Lc2, ex = _sweep_pair_em(
                 A, B, level, t.depth, Fls, Fxs, Fus, n, m, ex, opts, clock

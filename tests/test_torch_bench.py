@@ -165,3 +165,18 @@ def test_import_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, check=True)
     assert out.stdout.strip() == "[]", out.stdout + out.stderr
+
+
+def test_factor_dtype_knob(monkeypatch):
+    """``BENCH_FACTOR_DTYPE`` (bench.py:60-63) reaches the families: bf16
+    factor slabs in the rsLQR family, read at each call; unset, the
+    problem dtype."""
+    assert bench_torch._options().factor_dtype == ""
+    monkeypatch.setenv("BENCH_FACTOR_DTYPE", "bfloat16")
+    assert bench_torch._options(flat_planes=True) == pt.SolveOptions(
+        factor_dtype="bfloat16", flat_planes=True)
+    prob = pt.double_integrator_problem(16, dtype=torch.float32,
+                                        device="cpu")
+    b = pt.batch_problems(prob, 2, torch.Generator().manual_seed(0))
+    assert torch.equal(bench_torch.SOLVERS["rslqr"](b), pt.solve_kkt(
+        b, options=pt.SolveOptions(factor_dtype="bfloat16")))

@@ -905,3 +905,141 @@ def test_fma_peak_kernel(dev, F, reps):
                        dict(reps=reps))
     assert probe.fma_peak.launches == before + 1
     _assert_match(ks, ps)
+
+
+# -- bf16 factor slabs (SolveOptions(factor_dtype="bfloat16")) -------------
+# The bf16 instantiations of B1-B4 against their plain versions on inputs
+# whose every f32 sum is exact (slabs and problem data small integers,
+# separators and products' A/B in eighths, Q^-1 and R^-1 powers of two):
+# kernel and plain version then round the same f32 values, so every output
+# is equal bit for bit, whatever the order of their sums.
+
+BF16_BLOCKS = ((6, 3), (4, 2), (8, 8), (6, 12))
+
+
+def _exact(g, dev, *shape, scale=1.0):
+    return (torch.randint(-4, 5, shape, generator=g).float()
+            * scale).to(dev)
+
+
+def _assert_equal_bf16(fn, args, kwargs, slabs):
+    """Kernel vs plain, bit for bit; ``slabs`` outputs in bf16; one
+    launch."""
+    before = fn.launches
+    ks, ps, *_ = _both(fn, args, kwargs)
+    assert fn.launches == before + 1
+    assert len(ks) == len(ps)
+    assert sum(x.dtype == torch.bfloat16 for x in ks) == slabs
+    for a, b in zip(ks, ps):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("bn,bm", BF16_BLOCKS)
+@pytest.mark.parametrize("N,B,level", [(16, 40, 0), (64, 33, 3),
+                                       (256, 1, 0)])
+def test_rhs_kernel_bf16(dev, bn, bm, N, B, level):
+    g = torch.Generator().manual_seed(2000 + N + level + bn)
+    G = N >> (level + 1)
+    E = lambda *s, sc=1.0: _exact(g, dev, *s, scale=sc)
+    args = [E(bn * bn, N, B).bfloat16(), E(bn * bn, N, B).bfloat16(),
+            E(bm * bn, N, B).bfloat16(), E(bn, N, B, sc=0.125),
+            E(bn, N, B, sc=0.125), E(bm, N, B, sc=0.125),
+            E(G, bn, B, sc=0.125)]
+    _assert_equal_bf16(schur.rhs_update_level_em, args,
+                       dict(level=level, n=bn, m=bm), 0)
+
+
+@pytest.mark.parametrize("bn,bm", BF16_BLOCKS)
+@pytest.mark.parametrize("N,B,level,with_sep",
+                         [(16, 40, 0, True), (32, 40, 3, True),
+                          (64, 33, 1, False), (128, 40, 1, True)])
+def test_level_kernel_bf16(dev, bn, bm, N, B, level, with_sep):
+    """B1, emitting at levels 0-3 (bf16's tiles), folded, and not."""
+    g = torch.Generator().manual_seed(2100 + N + level + bn)
+    depth = N.bit_length() - 1
+    U = depth - level - 1
+    G, G2 = N >> (level + 1), N >> (level + 2)
+    xx, ux = bn * bn, bm * bn
+    S = lambda *s: _exact(g, dev, *s).bfloat16()
+    E = lambda *s: _exact(g, dev, *s, scale=0.125)
+    emits = with_sep and schur._level_emits(level, N, torch.bfloat16)
+    args = [S(xx, N, B), S(xx, N, B), S(ux, N, B),
+            [S(xx, N, B) for _ in range(U)], [S(xx, N, B) for _ in range(U)],
+            [S(ux, N, B) for _ in range(U)], [E(G, xx, B) for _ in range(U)],
+            E(G2, xx, B) if with_sep else None,
+            E(G2, bn * bm, B) if with_sep else None]
+    assert emits == (with_sep and level <= 3)
+    _assert_equal_bf16(schur.schur_update_level_em, args,
+                       dict(level=level, n=bn, m=bm), 3 * U)
+
+
+@pytest.mark.parametrize("bn,bm", BF16_BLOCKS)
+@pytest.mark.parametrize("N,B,level", [(16, 40, 0), (64, 33, 1),
+                                       (256, 40, 1), (256, 40, 5)])
+def test_pair_kernel_bf16(dev, bn, bm, N, B, level):
+    """B4: slab L+1 rounded once and read back as the level-(L+1)
+    multiplier, the upper slabs rounded once for both levels."""
+    g = torch.Generator().manual_seed(2200 + N + level + bn)
+    depth = N.bit_length() - 1
+    U = depth - level - 1
+    G1, G2, G3 = N >> (level + 1), N >> (level + 2), N >> (level + 3)
+    xx, ux = bn * bn, bm * bn
+    S = lambda *s: _exact(g, dev, *s).bfloat16()
+    E = lambda *s: _exact(g, dev, *s, scale=0.125)
+    emit = schur._pair_emits(level, N, B, U, bn, bm, torch.bfloat16)
+    args = [S(xx, N, B), S(xx, N, B), S(ux, N, B),
+            [S(xx, N, B) for _ in range(U)], [S(xx, N, B) for _ in range(U)],
+            [S(ux, N, B) for _ in range(U)], [E(G1, xx, B) for _ in range(U)],
+            E(G2, xx, B), [E(G2, xx, B) for _ in range(U - 1)],
+            E(G3, xx, B) if emit else None,
+            E(G3, bn * bm, B) if emit else None]
+    _assert_equal_bf16(schur.schur_update_pair_em, args,
+                       dict(level=level, n=bn, m=bm), 3 * U)
+
+
+@pytest.mark.parametrize("bn,bm", BF16_BLOCKS)
+@pytest.mark.parametrize("N,B", [(4, 1), (16, 40), (256, 33)])
+def test_leaf_kernel_bf16(dev, bn, bm, N, B):
+    """B3 writing bf16 slabs, the level-1 products from the f32 values."""
+    g = torch.Generator().manual_seed(2300 + N + bn)
+    depth = N.bit_length() - 1
+    xx, ux = bn * bn, bm * bn
+    E = lambda *s, sc=1.0: _exact(g, dev, *s, scale=sc)
+    args = [E(xx, N, B), E(ux, N, B), torch.full((bn, N, B), 0.5, device=dev),
+            torch.full((bm, N, B), 0.25, device=dev), E(N // 2, xx, B),
+            [E(N // 2, xx, B, sc=0.125) for _ in range(depth - 1)],
+            E(N // 4, xx, B), E(N // 4, ux, B)]
+    _assert_equal_bf16(schur.leaf_schur_level0_em, args,
+                       dict(depth=depth, n=bn, m=bm,
+                            factor_dtype="bfloat16"), 3 * depth)
+
+
+@pytest.mark.parametrize("N,flat_planes", [(32, False), (64, False),
+                                           (64, True)])
+def test_bf16_solve_kernel_path(dev, N, flat_planes):
+    """bf16 slabs through ``solve_kkt`` on the card: the bf16 kernels
+    launch (with ``flat_planes`` too: the flat kernels take f32 slabs
+    only), the slabs are bf16, and the error against the f64 Riccati
+    solve is at most 2x the plain bf16 path's + 1e-6."""
+    import rslqr_tpu_torch as pt
+
+    g = torch.Generator().manual_seed(N)
+    prob = pt.double_integrator_problem(N, dtype=torch.float32, device=dev)
+    b = pt.batch_problems(prob, 1024 if flat_planes else 40, g)
+    opts = pt.SolveOptions(factor_dtype="bfloat16", flat_planes=flat_planes)
+    schur.reset_launch_counts()
+    flat.reset_launch_counts()
+    sol = pt.solve(b, options=opts)
+    torch.cuda.synchronize()
+    assert schur.launch_counts()["leaf_schur_level0_em"] == 1
+    assert schur.launch_counts()["rhs_update_level_em"] > 0
+    assert not any(flat.launch_counts().values())
+    assert {x.dtype for x in sol.fact.Fls} == {torch.bfloat16}
+    got = sol.kkt_vector()
+    ref = pt.solve_kkt(b, options=pt.SolveOptions(factor_dtype="bfloat16",
+                                                  kernels="off"))
+    sub = b.map(lambda x: x[:8]).to(dtype=torch.float64)
+    ric = pt.solve_riccati(sub).kkt_vector()
+    err = lambda x: ((x[:8].double() - ric).abs().max()
+                     / (1 + ric.abs().max())).item()
+    assert err(got) <= 2 * err(ref) + 1e-6
