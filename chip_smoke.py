@@ -7,10 +7,12 @@ Phases, each printing one line of numbers:
 
 1. device: the card's name and power limit (nvidia-smi), then the kernel
    build from ``rslqr_tpu_torch/csrc/*.cu`` (one nvcc per source, in
-   parallel, timed), and beside it a ``-Xptxas -v`` compile of the two
+   parallel, timed), and beside it a ``-Xptxas -v`` compile of the three
    small-block sources and of ``csrc/probe_kernels.cu``: the registers,
    stack and spills of every instantiation of the fused leaf kernel (B3 and
-   B11, ``csrc/leaf_rows.cuh``) and of the probe kernels (P1 at every ib,
+   B11, ``csrc/leaf_rows.cuh``), of every bf16-slab instantiation of B1-B4
+   (``schur_kernels.cu``; B3's and B4's own kernels in
+   ``csrc/bf16_rows.cuh``) and of the probe kernels (P1 at every ib,
    column tile and t1; P2);
 2. each of the four small-block sweep kernels (B1-B4) against its plain
    PyTorch version on clones of the same random f32 inputs, at the small
@@ -40,8 +42,9 @@ Phases, each printing one line of numbers:
    shapes, each also chained (CUDA-graph replays, kernel and library call),
    B5's ``schur_update_planes`` (lambda masked and not; ``rows_kernel``,
    also chained) and B8
-   ``plu_solve_multi`` with each right-hand-side pattern of the path, also
-   chained (its library call single only);
+   ``plu_solve_multi`` with each right-hand-side pattern of the path, and
+   at n=48 (``plu_scratch_kernel``, n > 36), also chained (its library
+   call single only);
 3b. the mid-block slice: ``solve_kkt`` on BASELINE.json's quadruped config
    (``random_problem`` nx=36, nu=12, N=512, perturbed into B=256 instances,
    f32, one batch), with launch counts, agreement with ``kernels="off"``,
@@ -103,7 +106,10 @@ Phases, each printing one line of numbers:
    solve (bit for bit, or within 1e-6 relative); (c) the large-block route
    (``random_problem`` N=64, nx=72, nu=24, B=32): rsLQR and pscan in f64
    against the f64 Riccati oracle and in f32 against the f64 answer, and
-   ``solve_refined`` (2 iterations, grid branch) against the oracle; (d)
+   ``solve_refined`` (2 iterations, grid branch) against the oracle, and
+   ``layout="em"`` in f32 (the element-major path on the plain plane
+   versions) within 3e-3 relative of the f32 grid solve with no
+   hand-kernel launch; (d)
    phase 3's first instance through the JSON writer and reader, bit for
    bit, and ``check_solution`` / ``factorization_ok`` on a batch with one
    poisoned instance on both layouts;
@@ -144,7 +150,9 @@ Phases, each printing one line of numbers:
    peak device memory; (e) B1-B4 with bf16 slabs against their plain
    versions at phase 2's shapes (rounding flips in at most 0.1% of the
    elements; bit for bit on inputs whose every sum is exact in f32),
-   single and chained ms against bounds from the bf16 byte counts;
+   single and chained ms against bounds from the bf16 byte counts, B1 and
+   B2 beside one unmasked ``baddbmm`` on bf16 operands, and B3 and B4
+   chained in turns with their f32 instantiations on the same inputs;
 4. time per batched solve of both slices, kernel path and
    ``kernels="off"``; 4c the same for the parallel scan; 4d for the flat
    solve and the refined solve; 4e the grid slice in turns: the quadruped
@@ -155,7 +163,8 @@ Phases, each printing one line of numbers:
    time-sharing, not scaling); 4g bf16 slabs against f32 slabs in turns
    (the em solve and the quadruped);
 5. one batched solve of each slice (and one quadruped pscan solve, one flat
-   solve, one refined solve and one quadruped grid solve) traced with
+   solve, one refined solve, one bf16-slab solve and one quadruped grid
+   solve) traced with
    ``torch.profiler``: device time by kernel (the top kernels and every
    hand kernel), device kernel launches, and the device's busy share of
    the solve's wall time (and the grid re-solve and large-block rsLQR
@@ -252,6 +261,9 @@ SOURCES["schur_update_level_em"] = "rslqr_tpu_torch/csrc/row_groups.cuh"
 SOURCES["schur_update_pair_em"] = "rslqr_tpu_torch/csrc/row_groups.cuh"
 SOURCES["leaf_schur_level0_em"] = "rslqr_tpu_torch/csrc/leaf_rows.cuh"
 SOURCES["leaf_schur_level0_flat"] = "rslqr_tpu_torch/csrc/leaf_rows.cuh"
+# B3's and B4's bf16-slab kernels (instantiated by bf16_kernels.cu).
+BF16_SOURCES = {k: "rslqr_tpu_torch/csrc/bf16_rows.cuh" for k in (
+    "schur_update_pair_em", "leaf_schur_level0_em")}
 # The kernels of each mid-block path (the others launch no time there).
 RSLQR_MID = ("pgemm", "pchol", "pcho_solve", "schur3_update_planes")
 PSCAN_MID = ("pgemm", "pgemm_flagged", "plu_solve_multi")
@@ -318,22 +330,43 @@ def pscan_signature(D, n, m, b):
     return sig
 
 
-def leaf_ptxas(build, report: str):
-    """One line per instantiation of the fused leaf kernel in a
-    ``-Xptxas -v`` report: block tag, layout, registers, stack and spills."""
+def _blk_tag(name: str) -> str:
+    """The block tag of a small-block kernel's mangled name."""
+    np_, mp, ex, wide = re.search(
+        r"BlkILi(\d+)ELi(\d+)ELb([01])ELb([01])E", name).groups()
+    return (f"Blk<{np_}, {mp}{', exact' if ex == '1' else ''}"
+            f"{', wide' if wide == '1' else ''}>")
+
+
+def small_ptxas(build, report: str):
+    """One line per instantiation of the fused leaf kernels (B3, B11, and
+    B3's bf16 kernel) and per bf16-slab instantiation of every small-block
+    kernel (B1-B4) in a ``-Xptxas -v`` report: kernel, block tag, layout
+    or emission, registers, stack and spills."""
     lines = []
     for name, (regs, stack, st, ld) in sorted(
             build.ptxas_kernels(report).items()):
-        if "leaf_row_kernel" not in name:
+        kern = re.search(r"(row_level_kernel|row_pair2?_kernel|"
+                         r"leaf_row2?_kernel|rhs_kernel)", name)
+        bf16 = "__nv_bfloat16" in name or "2_kernel" in name
+        if kern is None or not (bf16 or "leaf_row_kernel" in name):
             continue
-        np_, mp, ex, wide = re.search(
-            r"BlkILi(\d+)ELi(\d+)ELb([01])ELb([01])E", name).groups()
-        tag = (f"Blk<{np_}, {mp}{', exact' if ex == '1' else ''}"
-               f"{', wide' if wide == '1' else ''}>")
-        lay = "GroupMajor (B3)" if "GroupMajor" in name else (
-            "ElementMajor (B11)")
-        lay += ", bf16 slabs" if "__nv_bfloat16" in name else ""
-        lines.append(f"phase1 ptxas leaf_row_kernel {tag} {lay}: {regs} "
+        kern = kern.group(1)
+        # The template flags after the block tag: EMIT (B1, B4), then VEC
+        # (bf16_rows.cuh: column pairs as one access, or two).
+        flags = re.search(r"ELb[01]ELb[01]EEE((?:Lb[01]E)*)", name)
+        flags = re.findall(r"Lb([01])E", flags.group(1)) if flags else []
+        what = ""
+        if kern.startswith("leaf_row"):
+            what = " ElementMajor (B11)" if "ElementMajor" in name else (
+                " GroupMajor (B3)")
+        elif kern != "rhs_kernel" and flags:
+            what = " emitting" if flags.pop(0) == "1" else " not emitting"
+        if kern.endswith("2_kernel") and flags:
+            what += (", column pairs" if flags[0] == "1"
+                     else ", scalar pairs (odd B)")
+        what += ", bf16 slabs" if bf16 else ""
+        lines.append(f"phase1 ptxas {kern} {_blk_tag(name)}{what}: {regs} "
                      f"registers, {stack} bytes stack, {st}/{ld} bytes spill "
                      f"stores/loads")
     return lines
@@ -1107,9 +1140,11 @@ class Smoke:
                 *self.schur1_case(lam), phase="phase2c", chain=True,
             )
         # B8: the Woodbury solve (m=12, identity right-hand side) of every
-        # fold / down-sweep step, and the suffix tree's I + C J solves.
+        # fold / down-sweep step, and the suffix tree's I + C J solves; and
+        # n=48, past 36, where plu_scratch_kernel keeps the LU in a global
+        # scratch (no solver path here reaches it).
         for n, ws, plane in ((U, (U,), fold), (X, (X, 1, X, 1), tree),
-                             (X, (X, 1), tree2)):
+                             (X, (X, 1), tree2), (48, (48, 1), tree)):
             F = plane[0] * plane[1]
             M = self.drand(*plane, n, n, scale=n ** -0.5)
             P = self.drand(*plane, n, n, scale=n ** -0.5)
@@ -1798,6 +1833,20 @@ class Smoke:
                        f"f32_vs_f64={d32:.3e} launches "
                        f"{json.dumps(launched)} f32 peak device memory "
                        f"{peak / 2**30:.2f} GiB")
+        # layout="em" at nx=72: the element-major path on the plain plane
+        # versions (no hand kernel), against the grid solve in f32.
+        self.reset_hand_launches()
+        em32 = pt.solve_kkt(b32, options=pt.SolveOptions(layout="em"))
+        t.cuda.synchronize()
+        launched = self.hand_launches()
+        grid32 = pt.solve_kkt(b32)
+        d_em = rel_err(em32.double(), grid32.double())
+        self.check(d_em <= QUAD_SLICE_BAR and not launched
+                   and bool(t.isfinite(em32).all()),
+                   f"large layout='em': vs grid {d_em:.3e}, launches "
+                   f"{launched}")
+        out.append(f"layout='em' f32 vs grid f32 {d_em:.3e} launches "
+                   f"{json.dumps(launched)}")
         ref = pt.solve_refined(b64, iterations=2)
         e_rf = float((ref.kkt_vector() - ric).abs().max())
         self.check(e_rf <= bar64 and isinstance(ref.fact,
@@ -2218,7 +2267,8 @@ class Smoke:
         return (key(a) - key(b)).abs()
 
     def bf16_compare(self, name, case, fn, args, kwargs, ops, moved,
-                     exact_args=None, one_rounding=True):
+                     exact_args=None, one_rounding=True, library=None,
+                     f32=None):
         """bf16 slabs: kernel vs plain on clones of ``args``. The bf16
         outputs: the share of elements that differ (rounding flips of f32
         values that differ by summation order) at most 0.1%, their
@@ -2227,7 +2277,11 @@ class Smoke:
         each element within one ulp at its magnitude or the kernel bar,
         and the f32 outputs within the kernel bar; on ``exact_args``,
         inputs whose every sum is exact in f32, bit for bit. Single and
-        chained ms against the bound of ``moved`` bytes."""
+        chained ms against the bound of ``moved`` bytes; ``library``:
+        ``(fn, args)`` of one PyTorch call on bf16 operands, timed single
+        and chained beside it; ``f32``: ``(args, kwargs)`` of the same
+        kernel on f32 slabs, whose chained time is taken in turns with the
+        bf16 one (f32, bf16, bf16, f32)."""
         t = self.torch
 
         def run(a, **kw):
@@ -2278,19 +2332,42 @@ class Smoke:
                                   lambda: clone_args(args))
         a = clone_args(args)
         ch = self.chained(lambda: fn(*a, **kwargs))
+        lib_ms = lib_ch = None
+        if library is not None:
+            lib_fn, lib_args = library
+            lib_ms = self.time_call(lib_fn, lambda: lib_args)
+            lib_ch = self.chained(lambda: lib_fn(*lib_args))
+        turns = ""
+        f32_ch = None
+        if f32 is not None:
+            a32 = clone_args(f32[0])
+            call32 = lambda: fn(*a32, **f32[1])
+            t32 = [self.chained(call32)]
+            t16 = [self.chained(lambda: fn(*a, **kwargs)) for _ in range(2)]
+            t32.append(self.chained(call32))
+            f32_ch = min(t32)
+            ch = min([ch] + t16)
+            turns = (f" in turns: f32 chained_ms {t32[0]:.4f}, "
+                     f"{t32[1]:.4f}; bf16 {t16[0]:.4f}, {t16[1]:.4f}"
+                     f" (f32/bf16 {f32_ch / ch:.2f}x)")
+        fmt = lambda x: x if x is None else f"{x:.4f}"
         print(f"phase3i (e) bf16 {name} {case}: {share:.2e} of {total} "
               f"bf16 elements differ ({ulp} ulp max; each within one ulp at "
               f"its magnitude or the kernel bar: {within}), f32 outputs "
               f"max_abs_err="
               f"{err:.3e} (bar {KERNEL_BAR} x {scale:.3e}), exact inputs "
               f"bit for bit: {exact}; kernel_ms={ms:.4f} chained_ms="
-              f"{ch:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+              f"{ch:.4f} plain_ms={plain_ms:.4f} library_ms={fmt(lib_ms)} "
+              f"library_chained_ms={fmt(lib_ch)} bound_ms={bound_ms:.4f} "
               f"({bound_by}: {moved / 1e9:.3f} GB) chained_x_bound="
-              f"{ch / bound_ms:.2f}", flush=True)
+              f"{ch / bound_ms:.2f}{turns}", flush=True)
         self.bf16_stats.setdefault(name, {
             "case": case, "ms": ms, "chained_ms": ch, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "max_ulp": ulp,
-            "ulp_share": share})
+            "ulp_share": share, "library_ms": lib_ms,
+            "library_chained_ms": lib_ch, "f32_chained_ms": f32_ch,
+            **({"source": BF16_SOURCES[name]} if name in BF16_SOURCES
+               else {})})
 
     def exact(self, *shape, scale=1.0, dtype=None):
         """Inputs on which the kernels' f32 sums are exact: small integers
@@ -2342,18 +2419,21 @@ class Smoke:
             sweep_ops(N, B, 0, U, U, N // 4),
             4 * (sum(x.numel() for x in tensors(args)) + U * (N // 4) * nn
                  * B) + 2 * depth * (2 * nn + mn) * N * B,
-            exact_args=ex)
+            exact_args=ex, f32=(args, dict(depth=depth, n=n, m=m)))
         # B2 at level 0: bf16 slabs in, f32 z vectors updated.
         G = N >> 1
         args = [self.rand(nn, N, B), self.rand(nn, N, B), self.rand(mn, N, B),
                 self.rand(n, N, B), self.rand(n, N, B), self.rand(m, N, B),
                 self.rand(G, n, B, scale=0.1)]
+        lib = self.trio_library(
+            [x.to(bf) for x in args[:3]], [[z.to(bf)] for z in args[3:6]],
+            [args[6].transpose(0, 1).contiguous().to(bf)], 0, N, B)
         self.bf16_compare(
             "rhs_update_level_em", f"N={N} B={B} level=0",
             s.rhs_update_level_em, slabs(args, 3), dict(level=0, n=n, m=m),
             update_ops(n, m, 1, N, B, 0, 1),
             update_moved(n, m, 1, N, B, 0, 1, msize=2),
-            exact_args=exact_like(args, 3))
+            exact_args=exact_like(args, 3), library=lib)
         # B4 at level 1 (the main path's first pair, emitting).
         level = 1
         U = depth - level - 1
@@ -2369,7 +2449,8 @@ class Smoke:
             update_moved(n, m, n, N, B, level, U, msize=2, csize=2)
             + 2 * B * 2 * U * nn * G2
             + (emit_moved(G3, B, emitted, size=2) if emitted else 0),
-            exact_args=exact_like(args, 6), one_rounding=False)
+            exact_args=exact_like(args, 6), one_rounding=False,
+            f32=(args, dict(level=level, n=n, m=m)))
         # B1 at N=128 level 1 (emitting) and level 3 (bf16's last emitting
         # level).
         for level in (1, 3):
@@ -2378,6 +2459,11 @@ class Smoke:
             args = self.level_args(NN, B, level, dtype=bf)
             emitted = 0 if args[-1] is None else U
             G2 = NN >> (level + 2)
+            lib = self.trio_library(
+                [x.to(bf) for x in args[:3]],
+                [[x.to(bf) for x in a] for a in args[3:6]],
+                [f.transpose(0, 1).contiguous().to(bf) for f in args[6]],
+                level, NN, B)
             self.bf16_compare(
                 "schur_update_level_em", f"N={NN} B={B} level={level}",
                 s.schur_update_level_em, slabs(args, 6),
@@ -2385,7 +2471,7 @@ class Smoke:
                 sweep_ops(NN, B, level, U, emitted, G2),
                 update_moved(n, m, n, NN, B, level, U, msize=2, csize=2)
                 + (emit_moved(G2, B, emitted, size=2) if emitted else 0),
-                exact_args=exact_like(args, 6))
+                exact_args=exact_like(args, 6), library=lib)
 
     def time_bf16(self, card):
         """Phase 4g: bf16 slabs against f32 slabs, in turns: the em solve
@@ -2675,7 +2761,8 @@ def main() -> int:
     card = device_name(dev)
     print(card, flush=True)
     small = [src for src in _build.SOURCES
-             if src.name in ("schur_kernels.cu", "flat_kernels.cu")]
+             if src.name in ("schur_kernels.cu", "flat_kernels.cu",
+                             "bf16_kernels.cu")]
     probe_src = next(src for src in _build.SOURCES
                      if src.name == "probe_kernels.cu")
     with ThreadPoolExecutor(len(small) + 1) as pool:
@@ -2685,7 +2772,7 @@ def main() -> int:
         lib = _build.build()
         build_s = time.perf_counter() - t0
         ptxas = [line for r in reports
-                 for line in leaf_ptxas(_build, r.result())]
+                 for line in small_ptxas(_build, r.result())]
         ptxas += probe_ptxas(_build, probe_report.result())
     _build.load()
     print(f"phase1 device={torch.cuda.get_device_name(0)} "
@@ -2741,6 +2828,10 @@ def main() -> int:
                           pt.solve_pscan_kkt),
             smoke.profile(smoke.main_batch, f"flat N={N_MAIN} B={BATCH}",
                           smoke.flat_solve),
+            smoke.profile(smoke.bf16_batches[N_MAIN],
+                          f"bf16 slabs N={N_MAIN} B={BATCH}",
+                          lambda b: pt.solve_kkt(b, options=pt.SolveOptions(
+                              factor_dtype="bfloat16"))),
             smoke.profile(smoke.main_batch64,
                           f"refined flat (2 iterations, f64) N={N_MAIN} "
                           f"B={BATCH}", smoke.refined_solve),

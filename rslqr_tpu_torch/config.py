@@ -38,8 +38,10 @@ class SolveOptions:
       mid blocks to its grid path where no Pallas kernel engages: the
       port's plain element-major path is exact on the CPU, so one rule
       serves every device.
-    * ``"em"``: the element-major path (blocks up to 64; larger ones raise
-      ``ValueError``).
+    * ``"em"``: the element-major path at every block size, as in the JAX
+      package; blocks above 64 take its mid-block route through the plain
+      versions of the plane kernels (``rslqr_em._plane_options``: the
+      kernels take block dims up to 64, and JAX's stand aside there too).
     * ``"grid"``: the knot-major grid path (``rslqr.factorize``), which
       launches no hand kernel, as in the JAX package; for ``solve_pscan``
       the batch-last scan.

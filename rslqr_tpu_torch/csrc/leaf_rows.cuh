@@ -85,8 +85,7 @@ __device__ __forceinline__ LeafMask leaf_mask(int L, int k, int N) {
 template <int NP, class Lay, class T>
 __device__ __forceinline__ void leaf_value_rows(
     const float* __restrict__ src, const float* __restrict__ scale,
-    bool xrows, const PtrsT<T>& out, const CPtrs& fsol, const Ptrs& H,
-    int depth, int i0, const bool (&row_ok)[RPT], int cols, int n, int m,
+    bool xrows, const PtrsT<T>& out, const CPtrs& fsol, int depth, int i0, const bool (&row_ok)[RPT], int cols, int n, int m,
     int k, int N, int g, int G, int B, const RowSite& s) {
   float w[RPT][NP], sc[RPT];
 #pragma unroll
@@ -104,10 +103,6 @@ __device__ __forceinline__ void leaf_value_rows(
   // diagonal after a level-0 separator (odd knots, x rows), else zero.
   const LeafMask l0 = leaf_mask(0, k, N);
   const bool own0 = xrows ? l0.own : l0.ownu, prev0 = xrows && l0.prev;
-  // bf16: where the upper slabs' f32 values of these rows go for the
-  // level-1 products (row_groups.cuh: shadow_part; groups of 4 knots).
-  const int part = kBf16<T> ? shadow_part(xrows ? 1 : 2, k, 2, n * n, n * m)
-                            : -1;
   for (int u = 0; u < depth; ++u) {
     const LeafMask lu = leaf_mask(u, k, N);
     const bool own = xrows ? lu.own : lu.ownu, prev = xrows && lu.prev;
@@ -139,8 +134,6 @@ __device__ __forceinline__ void leaf_value_rows(
         if (c == i) v -= prev ? sc[q] : 0.0f;
         if (u > 0) v -= acc[q];
         o[(i * n + c) * s.plane + s.idx] = stf<T>(v);
-        if (u > 0 && part >= 0)
-          shadow_put(H.p[u - 1], part, i * n + c, k >> 2, N >> 2, B, s.b, v);
       }
     }
   }
@@ -201,8 +194,7 @@ __device__ __forceinline__ void leaf_lambda_rows(
 // (site e): S = A_sep @ x[r] + B_sep @ u[r] - x[r+1] (l[r+1] is zero),
 // into Sout and, on slab 1, into the lambda rows. The rows of A_sep (and
 // of B_sep below the wide tag) are held as values, not addresses. x and u
-// are read from ``src`` (row_groups.cuh: the slab, or the bf16 launch's
-// f32 shadow).
+// are read back from the slab (``src``, row_groups.cuh: emit_src).
 template <class K, class Lay, bool WHOLE, class T>
 __device__ __forceinline__ void leaf_emit(
     int i0, const EmitRows& src, T* ls, float* so, bool fold,
@@ -282,8 +274,8 @@ __global__ void __launch_bounds__(row_pair_threads<K>(),
                     const float* __restrict__ S0, CPtrs fsol,
                     const float* __restrict__ Asep,
                     const float* __restrict__ Bsep, PtrsT<T> Fls,
-                    PtrsT<T> Fxs, PtrsT<T> Fus, Ptrs Sout, Ptrs H, int depth,
-                    int N, int B, int n_, int m_) {
+                    PtrsT<T> Fxs, PtrsT<T> Fus, Ptrs Sout, int depth, int N,
+                    int B, int n_, int m_) {
   constexpr int NP = K::NP;
   const int n = K::EX ? NP : n_, m = K::EX ? K::MP : m_;
   constexpr bool WHOLE = K::EX && NP % RPT == 0 && K::MP % RPT == 0;
@@ -302,10 +294,10 @@ __global__ void __launch_bounds__(row_pair_threads<K>(),
       leaf_lambda_rows<NP, Lay>(A, S0, Fls, fsol, depth, i0, row_ok, n, k, g,
                                 G, B, s);
     else if (slab == 1)
-      leaf_value_rows<NP, Lay>(A, qinv, true, Fxs, fsol, H, depth, i0,
+      leaf_value_rows<NP, Lay>(A, qinv, true, Fxs, fsol, depth, i0,
                                row_ok, n, n, m, k, N, g, G, B, s);
     else
-      leaf_value_rows<NP, Lay>(Bm, rinv, false, Fus, fsol, H, depth, i0,
+      leaf_value_rows<NP, Lay>(Bm, rinv, false, Fus, fsol, depth, i0,
                                row_ok, m, n, m, k, N, g, G, B, s);
   }
   // The block's second knot is r + 1 of a level-1 group: its products.
@@ -322,7 +314,7 @@ __global__ void __launch_bounds__(row_pair_threads<K>(),
   for (int it = threadIdx.z * blockDim.y + threadIdx.y; it < items;
        it += step) {
     const int rg = it % NL, u = 1 + it / NL;
-    const EmitRows src = emit_src<T>(Fxs.p[u], Fus.p[u], H.p[u - 1], n * n,
+    const EmitRows src = emit_src<T>(Fxs.p[u], Fus.p[u], nullptr, n * n,
                                      n * m, k1 >> 2, N >> 2, B, e);
     leaf_emit<K, Lay, WHOLE>(rg * RPT, src, Fls.p[u], Sout.p[u - 1], u == 1,
                              Asep, Bsep, k1 >> 2, N >> 2, B, n, m, e);
@@ -338,20 +330,20 @@ inline bool leaf_plan_ok(int depth, int N, int n, int m, int shift, int gy,
 }
 
 // Launch leaf_row_kernel on the plan (gy rows of LKB knots from knot -1;
-// the pair kernel's slots).
-// Slabs stored in T; ``H`` the f32 shadows of a bf16 launch.
+// the pair kernel's slots). f32 slabs; bf16 slabs run leaf_row2_kernel
+// (bf16_rows.cuh).
 template <class K, class Lay, class T = float>
 int launch_leaf_rows(const float* A, const float* Bm, const float* qinv,
                      const float* rinv, const float* S0, void* const* fsol,
                      const float* Asep, const float* Bsep, void* const* Fls,
                      void* const* Fxs, void* const* Fus, void* const* S,
                      int depth, int N, int B, int n, int m, int gy,
-                     cudaStream_t st, void* const* H = nullptr) {
+                     cudaStream_t st) {
   const dim3 grid((B + TB - 1) / TB, gy),
       block(TB, pair_slots_of(n, m, K::WIDE), LKB);
   leaf_row_kernel<K, Lay, T><<<grid, block, 0, st>>>(
       A, Bm, qinv, rinv, S0, cptrs(fsol), Asep, Bsep, ptrs<T>(Fls),
-      ptrs<T>(Fxs), ptrs<T>(Fus), ptrs(S), ptrs(H), depth, N, B, n, m);
+      ptrs<T>(Fxs), ptrs<T>(Fus), ptrs(S), depth, N, B, n, m);
   return 0;
 }
 

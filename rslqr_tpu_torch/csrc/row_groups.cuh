@@ -162,11 +162,12 @@ __device__ __forceinline__ void load_rows(float (&r)[RPT][NP], const T* M,
                     : 0.0f;
 }
 
-// bf16 slabs at an emitting launch. The products read the f32 values of
+// bf16 slabs at an emitting B1 launch. The products read the f32 values of
 // the rows they use, as the JAX kernels form them before the rounded store
 // (schur_pallas.py:247-257), so the launch writes those values beside the
 // store into a shadow per emitted slab, [2nn + mn, G2, B] f32
-// (ops/schur.py:_shadow): the x rows of the next-level separator knot r
+// (ops/schur.py:_shadow; B3 and B4 stage them in shared memory instead,
+// bf16_rows.cuh): the x rows of the next-level separator knot r
 // (elements 0 ..), its u rows (nn ..) and the x rows of r + 1 (nn + mn ..).
 // The lambda rows of r + 1 are left unchanged by the update, so the slab
 // holds them exactly. f32 slabs need no shadow: the products read the slab.
@@ -403,8 +404,8 @@ __global__ void __launch_bounds__(row_pair_threads<K>(),
                     const T* __restrict__ FLu, PtrsT<T> Fls, PtrsT<T> Fxs,
                     PtrsT<T> Fus, CPtrs fsol1, const float* __restrict__ Sbar2,
                     CPtrs fsol2, const float* __restrict__ Asep3,
-                    const float* __restrict__ Bsep3, Ptrs Sout, Ptrs H, int U,
-                    int N, int B, int level, int shift, int n_, int m_) {
+                    const float* __restrict__ Bsep3, Ptrs Sout, int U, int N,
+                    int B, int level, int shift, int n_, int m_) {
   constexpr int NP = K::NP;
   const int n = K::EX ? NP : n_, m = K::EX ? K::MP : m_;
   constexpr bool WHOLE = K::EX && NP % RPT == 0 && K::MP % RPT == 0;
@@ -429,11 +430,6 @@ __global__ void __launch_bounds__(row_pair_threads<K>(),
 #pragma unroll
     for (int r = 0; r < RPT; ++r) row_ok[r] = WHOLE || i0 + r < rows;
     const bool lam = slab == 0;
-    // bf16 at an emitting pair: where these rows' f32 values go (the
-    // level-(L+2) groups are 2 span2 knots).
-    const int part = kBf16<T> && EMIT
-                         ? shadow_part(slab, k, span2, n * n, n * m)
-                         : -1;
     // Level L moves the rows (reads the multiplier's) except lambda rows
     // that calc_lambda skips or the separator overwrites.
     const bool upd1 = !lam || (keep1 && !sep1);
@@ -512,8 +508,6 @@ __global__ void __launch_bounds__(row_pair_threads<K>(),
             if (!row_ok[r]) continue;
             const int e = (i0 + r) * n + c;
             out[e * s.plane + s.idx] = stf<T>(v[r] - acc2);
-            if (part >= 0)
-              shadow_put(H.p[u - 1], part, e, g3, G3, B, s.b, v[r] - acc2);
           }
         }
       }
@@ -525,8 +519,8 @@ __global__ void __launch_bounds__(row_pair_threads<K>(),
     __syncthreads();
     if (!s.live || (k & (2 * span2 - 1)) != span2) return;  // knot r + 1
     emit_rows<NP, Lay, WHOLE, T>(threadIdx.y, blockDim.y, NL, Fls, Fxs, Fus,
-                                 Sout, H, 1, U, Asep3, Bsep3, g3, G3, B, n,
-                                 m, s);
+                                 Sout, Ptrs{}, 1, U, Asep3, Bsep3, g3, G3, B,
+                                 n, m, s);
   }
 }
 
@@ -559,7 +553,8 @@ int launch_row_level(const void* FLl, const void* FLx, const void* FLu,
 }
 
 // Launch row_pair_kernel on the same plan (the pair's slots:
-// pair_slots_of).
+// pair_slots_of). f32 slabs; bf16 slabs run row_pair2_kernel
+// (bf16_rows.cuh).
 template <class K, class Lay, class T = float>
 int launch_row_pair(const void* FLl, const void* FLx, const void* FLu,
                     void* const* Fls, void* const* Fxs, void* const* Fus,
@@ -567,7 +562,7 @@ int launch_row_pair(const void* FLl, const void* FLx, const void* FLu,
                     void* const* fsol2, const float* Asep3,
                     const float* Bsep3, void* const* S, int U, int N, int B,
                     int level, int emit, int n, int m, int shift, int gy,
-                    cudaStream_t st, void* const* H = nullptr) {
+                    cudaStream_t st) {
   const dim3 grid((B + TB - 1) / TB, gy),
       block(TB, pair_slots_of(n, m, K::WIDE), LKB);
   const auto ml = static_cast<const T*>(FLl);
@@ -576,13 +571,13 @@ int launch_row_pair(const void* FLl, const void* FLx, const void* FLu,
   if (emit)
     row_pair_kernel<K, true, Lay, T><<<grid, block, 0, st>>>(
         ml, mx, mu, ptrs<T>(Fls), ptrs<T>(Fxs), ptrs<T>(Fus), cptrs(fsol1),
-        Sbar2, cptrs(fsol2), Asep3, Bsep3, ptrs(S), ptrs(H), U, N, B, level,
-        shift, n, m);
+        Sbar2, cptrs(fsol2), Asep3, Bsep3, ptrs(S), U, N, B, level, shift, n,
+        m);
   else
     row_pair_kernel<K, false, Lay, T><<<grid, block, 0, st>>>(
         ml, mx, mu, ptrs<T>(Fls), ptrs<T>(Fxs), ptrs<T>(Fus), cptrs(fsol1),
-        Sbar2, cptrs(fsol2), Asep3, Bsep3, ptrs(S), ptrs(H), U, N, B, level,
-        shift, n, m);
+        Sbar2, cptrs(fsol2), Asep3, Bsep3, ptrs(S), U, N, B, level, shift, n,
+        m);
   return 0;
 }
 
@@ -592,6 +587,14 @@ inline bool row_plan_ok(int U, int N, int level, int emit, int n, int m,
   return U >= 0 && U <= MAXU && level >= 0 && (N >> (level + 1)) >= 1 &&
          shift >= 0 && shift < LKB && (long long)gy * LKB - shift >= N &&
          (!emit || shift == 1) && rgs == 2 * groups_of(n) + groups_of(m);
+}
+
+// The pair's checks: whole level-(L+1) groups, at least one upper slab,
+// whole level-(L+2) groups where it emits.
+inline bool pair_plan_ok(int U, int N, int level, int emit, int n, int m,
+                         int shift, int gy, int rgs) {
+  return U >= 1 && row_plan_ok(U, N, level, emit, n, m, shift, gy, rgs) &&
+         (N >> (level + 2)) >= 1 && (!emit || (N >> (level + 3)) >= 1);
 }
 
 }  // namespace small_blocks

@@ -29,11 +29,14 @@ SOURCES = (
     _PKG / "csrc" / "plu_kernels.cu",
     _PKG / "csrc" / "flat_kernels.cu",
     _PKG / "csrc" / "probe_kernels.cu",
+    _PKG / "csrc" / "bf16_kernels.cu",
 )
-# Included by the small-block sources (schur_kernels.cu, flat_kernels.cu).
+# Included by the small-block sources (schur_kernels.cu, flat_kernels.cu,
+# bf16_kernels.cu).
 HEADERS = (_PKG / "csrc" / "small_blocks.cuh",
            _PKG / "csrc" / "row_groups.cuh",
-           _PKG / "csrc" / "leaf_rows.cuh")
+           _PKG / "csrc" / "leaf_rows.cuh",
+           _PKG / "csrc" / "bf16_rows.cuh")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -163,45 +166,55 @@ def ptxas_kernels(report: str) -> dict:
     return out
 
 
+_P, _PP, _PI = (ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
+               ctypes.POINTER(ctypes.c_int))
+_I, _FL, _LL = ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+# Every C entry point's argument types (the last one the CUDA stream);
+# each returns an int error code.
+SIGNATURES = {
+    # csrc/schur_kernels.cu
+    "rslqr_rhs_update_level": [_P] * 7 + [_I] * 6 + [_P],
+    "rslqr_schur_update_level": [_P] * 3 + [_PP] * 4 + [_P] * 2 + [_PP] * 2
+    + [_I] * 11 + [_P],
+    "rslqr_schur_update_pair": [_P] * 3 + [_PP] * 4 + [_P, _PP, _P, _P, _PP]
+    + [_I] * 10 + [_P],
+    "rslqr_leaf_schur_level0": [_P] * 5 + [_PP] + [_P] * 2 + [_PP] * 4
+    + [_I] * 8 + [_P],
+    # csrc/bf16_kernels.cu
+    "rslqr_schur_update_pair_bf16": [_P] * 3 + [_PP] * 4
+    + [_P, _PP, _P, _P, _PP] + [_I] * 11 + [_LL, _P],
+    "rslqr_leaf_schur_level0_bf16": [_P] * 5 + [_PP] + [_P] * 2 + [_PP] * 4
+    + [_I] * 9 + [_LL, _P],
+    # csrc/planes_kernels.cu
+    "rslqr_pgemm": [_P] * 3 + [_I] * 4 + [_P],
+    "rslqr_schur_update_planes": [_P] * 3 + [_I] * 7 + [_P],
+    "rslqr_pchol": [_P] * 2 + [_I] * 2 + [_P],
+    "rslqr_pcho_solve": [_P] * 2 + [_I] * 3 + [_P],
+    "rslqr_schur3_update_planes": [_P] * 7 + [_I] * 6 + [_P],
+    # csrc/flagged_kernels.cu
+    "rslqr_pgemm_flagged": [_P] * 6 + [_I] * 8 + [_FL, _I, _I, _PI, _P],
+    # csrc/plu_kernels.cu
+    "rslqr_plu_solve_multi": [_P, _P, _PP, _PP, _PI] + [_I] * 3 + [_P],
+    # csrc/flat_kernels.cu
+    "rslqr_flat_rhs_update_level": [_P] * 7 + [_I] * 5 + [_P],
+    "rslqr_flat_schur_update_level": [_P] * 3 + [_PP] * 4 + [_P] * 2 + [_PP]
+    + [_I] * 10 + [_P],
+    "rslqr_flat_leaf_schur_level0": [_P] * 5 + [_PP] + [_P] * 2 + [_PP] * 4
+    + [_I] * 8 + [_P],
+    # csrc/probe_kernels.cu
+    "rslqr_pgemm_ib": [_P] * 3 + [_I] * 6 + [_P],
+    "rslqr_fma_peak": [_P] * 2 + [_I] * 2 + [_P],
+}
+
+
 @functools.lru_cache(maxsize=None)
 def load() -> ctypes.CDLL:
     """Build if needed, load, and declare every C entry point's types."""
     lib = ctypes.CDLL(str(build()))
-    P, PP, I = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p), ctypes.c_int
-    PI, FL = ctypes.POINTER(ctypes.c_int), ctypes.c_float
-    sigs = {
-        # csrc/schur_kernels.cu
-        "rslqr_rhs_update_level": [P] * 7 + [I] * 6 + [P],
-        "rslqr_schur_update_level": [P] * 3 + [PP] * 4 + [P] * 2 + [PP] * 2
-        + [I] * 11 + [P],
-        "rslqr_schur_update_pair": [P] * 3 + [PP] * 4 + [P, PP, P, P, PP, PP]
-        + [I] * 11 + [P],
-        "rslqr_leaf_schur_level0": [P] * 5 + [PP] + [P] * 2 + [PP] * 5
-        + [I] * 9 + [P],
-        # csrc/planes_kernels.cu
-        "rslqr_pgemm": [P] * 3 + [I] * 4 + [P],
-        "rslqr_schur_update_planes": [P] * 3 + [I] * 7 + [P],
-        "rslqr_pchol": [P] * 2 + [I] * 2 + [P],
-        "rslqr_pcho_solve": [P] * 2 + [I] * 3 + [P],
-        "rslqr_schur3_update_planes": [P] * 7 + [I] * 6 + [P],
-        # csrc/flagged_kernels.cu
-        "rslqr_pgemm_flagged": [P] * 6 + [I] * 8 + [FL, I, I, PI, P],
-        # csrc/plu_kernels.cu
-        "rslqr_plu_solve_multi": [P, P, PP, PP, PI] + [I] * 3 + [P],
-        # csrc/flat_kernels.cu
-        "rslqr_flat_rhs_update_level": [P] * 7 + [I] * 5 + [P],
-        "rslqr_flat_schur_update_level": [P] * 3 + [PP] * 4 + [P] * 2 + [PP]
-        + [I] * 10 + [P],
-        "rslqr_flat_leaf_schur_level0": [P] * 5 + [PP] + [P] * 2 + [PP] * 4
-        + [I] * 8 + [P],
-        # csrc/probe_kernels.cu
-        "rslqr_pgemm_ib": [P] * 3 + [I] * 6 + [P],
-        "rslqr_fma_peak": [P] * 2 + [I] * 2 + [P],
-    }
-    for name, args in sigs.items():
+    for name, args in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = args
-        fn.restype = I
-    lib.rslqr_error_string.argtypes = [I]
+        fn.restype = _I
+    lib.rslqr_error_string.argtypes = [_I]
     lib.rslqr_error_string.restype = ctypes.c_char_p
     return lib

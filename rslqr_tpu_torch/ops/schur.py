@@ -58,7 +58,9 @@ next-level products are emitted from the values just computed, so the
 products stage re-reads no slab. B2 runs one thread per (knot, batch
 column); B1, B3 and B4 split each knot's slab rows into groups of three,
 one thread each (:func:`_level_plan`, ``csrc/row_groups.cuh``,
-``csrc/leaf_rows.cuh``).
+``csrc/leaf_rows.cuh``); with bf16 slabs, B3 and B4 give each thread two
+batch columns and stage their product emission in shared memory
+(``csrc/bf16_rows.cuh``, ``csrc/bf16_kernels.cu``).
 """
 
 from __future__ import annotations
@@ -118,28 +120,39 @@ def _pair_emits(level: int, N: int, B: int, U: int, n: int, m: int,
 # csrc/leaf_rows.cuh): B1, B3 and B4 here, B10 and B11 in ops/flat.py.
 # ---------------------------------------------------------------------------
 
-# A block: LEVEL_TB batch columns by up to LEVEL_SLOTS row groups of
-# LEVEL_RPT slab rows by LEVEL_KB knots (at most 1,024 threads); the pair
-# kernel (B4) takes at most PAIR_WIDE_SLOTS at the wide inputs (m > 8).
+# A block: LEVEL_TB lanes of batch columns by up to LEVEL_SLOTS row groups
+# of LEVEL_RPT slab rows by LEVEL_KB knots (at most 1,024 threads); the
+# pair kernel (B4) takes at most PAIR_WIDE_SLOTS at the wide inputs (m > 8).
+# With bf16 slabs, B3 and B4 give each lane PAIR_COLS adjacent batch
+# columns (csrc/bf16_rows.cuh).
 LEVEL_TB, LEVEL_KB, LEVEL_RPT, LEVEL_SLOTS = 32, 2, 3, 16
 PAIR_WIDE_SLOTS = 8
+PAIR_COLS = 2
 
 
 class LevelPlan(NamedTuple):
     """Launch geometry of the row-group level kernels: grid row ``y``
     covers knots ``y * LEVEL_KB - shift`` .. ``+ LEVEL_KB - 1`` (those in
-    ``[0, N)``), grid column ``x`` batch columns ``x * LEVEL_TB`` ..
-    ``+ LEVEL_TB - 1`` (those below ``B``); ``groups`` the row groups of
-    the lambda, x and u slabs (row group ``z`` of a knot, in that order,
-    takes slab rows ``LEVEL_RPT * (z - first group of its slab)`` ..
-    ``+ LEVEL_RPT - 1``, those below the slab's row count); ``slots`` the
-    block's threads per knot and batch column, which take row groups
-    ``slot, slot + slots, ...``."""
+    ``[0, N)``), grid column ``x`` batch columns ``x * LEVEL_TB * cols``
+    .. ``+ LEVEL_TB * cols - 1`` (those below ``B``; lane ``t`` takes the
+    ``cols`` columns from ``(x * LEVEL_TB + t) * cols``); ``groups`` the
+    row groups of the lambda, x and u slabs (row group ``z`` of a knot, in
+    that order, takes slab rows ``LEVEL_RPT * (z - first group of its
+    slab)`` .. ``+ LEVEL_RPT - 1``, those below the slab's row count);
+    ``slots`` the block's threads per knot and lane, which take row groups
+    ``slot, slot + slots, ...``. The bf16 pair and leaf kernels
+    (``cols == 2``) move a lane's two columns as one 4-byte bf16 pair where
+    ``vec`` (B even; a wrapper also needs its tensors aligned), and stage
+    an emitting launch's products in ``smem`` bytes of shared memory a
+    block (:func:`_pair2_smem`)."""
 
     shift: int
     grid: Tuple[int, int]
     groups: Tuple[int, int, int]
     slots: int
+    cols: int = 1
+    vec: bool = False
+    smem: int = 0
 
 
 def _row_groups(rows: int) -> int:
@@ -148,19 +161,74 @@ def _row_groups(rows: int) -> int:
     return -(-rows // LEVEL_RPT)
 
 
+# The dynamic shared memory a block may take on sm_90.
+SMEM_MAX = 227 * 1024
+
+
+def _pair2_smem(n: int, m: int, slots: int, pair: bool, emit: bool) -> int:
+    """Shared memory of a bf16 B4 (``pair``) or B3 block of ``slots`` row
+    group slots (``csrc/bf16_rows.cuh``: ``smem2``). Below the wide inputs
+    (m <= ``MAX_STATE``): B4's double buffer of each thread's rows of an
+    upper slab (2 x ``LEVEL_RPT`` x n words a thread, filled a slab ahead)
+    and its level-L multiplier rows (``LEVEL_RPT`` x n words), and, in an
+    emitting launch, the products' stage (the f32 x and u rows of the
+    separator knot r and the x rows of r + 1, ``2nn + mn`` values a batch
+    column) and, where the block can hold them, A_sep and B_sep of its
+    group; two stages where that keeps the blocks an SM that the register
+    cap aims at (640 threads' worth). At the wide inputs one stage only."""
+    hold = m <= MAX_STATE
+    threads = LEVEL_TB * LEVEL_KB * slots
+    blocks = max(1, 640 // threads)
+    budget = min(SMEM_MAX, 233472 // blocks - 1024)
+    cols = LEVEL_TB * PAIR_COLS
+    vbuf = 3 * LEVEL_RPT * n * threads if pair and hold else 0
+    stage = (2 * n * n + m * n) * cols if emit else 0
+    sep = (n * n + n * m) * cols if emit and hold else 0
+    if 4 * (vbuf + stage + sep) > SMEM_MAX:
+        sep = 0  # (8, 8) B4: A_sep and B_sep from device memory
+    one = 4 * (vbuf + stage + sep)
+    nstage = 0 if not emit else (
+        2 if hold and one + 4 * stage <= budget else 1)
+    return 4 * (vbuf + nstage * stage + sep)
+
+
 def _level_plan(N: int, B: int, emit: bool, n: int, m: int,
-                pair: bool = False) -> LevelPlan:
+                pair: bool = False, bf16: bool = False,
+                leaf: bool = False) -> LevelPlan:
     """Knot pairs shifted by one when the level emits products, so that
     each next-level group's separator row r (odd) and r + 1 share a
     block; unshifted otherwise. Row groups: ``ceil(n / 3)`` for each of the
     lambda and x slabs, ``ceil(m / 3)`` for u, in at most ``LEVEL_SLOTS``
     slots (``pair``: the pair kernel's, at most ``PAIR_WIDE_SLOTS`` at the
-    wide inputs, m > ``MAX_STATE``)."""
+    wide inputs, m > ``MAX_STATE``). ``pair`` with ``bf16`` slabs (B4, or
+    B3 with ``leaf``): ``PAIR_COLS`` batch columns a lane and
+    :func:`_pair2_smem`."""
     shift = int(emit)
     groups = (_row_groups(n), _row_groups(n), _row_groups(m))
     cap = PAIR_WIDE_SLOTS if pair and m > MAX_STATE else LEVEL_SLOTS
-    return LevelPlan(shift, (-(-B // LEVEL_TB), -(-(N + shift) // LEVEL_KB)),
-                     groups, min(sum(groups), cap))
+    slots = min(sum(groups), cap)
+    cols = PAIR_COLS if pair and bf16 else 1
+    return LevelPlan(
+        shift, (-(-B // (LEVEL_TB * cols)), -(-(N + shift) // LEVEL_KB)),
+        groups, slots, cols, cols > 1 and B % 2 == 0,
+        _pair2_smem(n, m, slots, not leaf, emit) if cols > 1 else 0)
+
+
+def _check_pair2(name: str, tensors: Sequence[torch.Tensor]) -> None:
+    """The bf16 pair and leaf kernels index with 32-bit offsets: every
+    tensor below 2^31 elements."""
+    big = [tuple(t.shape) for t in tensors if t.numel() >= 2**31]
+    if big:
+        raise ValueError(f"{name}: bf16 kernels take tensors below 2^31 "
+                         f"elements, got {big}")
+
+
+def _vec(plan: LevelPlan, tensors: Sequence[torch.Tensor]) -> int:
+    """Whether a bf16 pair or leaf launch moves column pairs as one access:
+    the plan's ``vec``, and every tensor aligned to its pair (4 bytes for
+    bf16, 8 for f32)."""
+    return int(plan.vec and all(
+        t.data_ptr() % (2 * t.element_size()) == 0 for t in tensors))
 
 
 # ---------------------------------------------------------------------------
@@ -463,12 +531,14 @@ def _stacked(device, *shapes, dtype=torch.float32):
 
 def _shadow(bf16: bool, count: int, nn: int, mn: int, G2: int, B: int,
             device):
-    """The f32 rows an emitting bf16 launch writes beside its rounded slab
-    stores, so that its products read unrounded values as the JAX kernels
-    form them (from the f32 values before the store): per emitted slab the
-    x and u rows of each next-level separator knot r and the x rows of
-    r + 1, ``[2nn + mn, G2, B]`` (``csrc/row_groups.cuh``: ``Shadow``).
-    None for f32 slabs, which the products read back themselves."""
+    """The f32 rows an emitting bf16 B1 launch writes beside its rounded
+    slab stores, so that its products read unrounded values as the JAX
+    kernels form them (from the f32 values before the store): per emitted
+    slab the x and u rows of each next-level separator knot r and the x
+    rows of r + 1, ``[2nn + mn, G2, B]`` (``csrc/row_groups.cuh``:
+    ``shadow_part``). None for f32 slabs, which the products read back
+    themselves; B3 and B4 stage those rows in shared memory
+    (:func:`_pair2_smem`)."""
     if not (bf16 and count):
         return []
     return torch.empty((count, 2 * nn + mn, G2, B), device=device).unbind(0)
@@ -633,7 +703,9 @@ def schur_update_pair_em(
     :func:`_level_plan` with ``pair=True``): a thread's rows of slab L+1,
     which it writes first, are the level-(L+1) multiplier rows its upper
     slab rows need, so no value crosses threads except the product
-    emission's separator rows.
+    emission's separator rows. bf16 slabs: ``row_pair2_kernel``
+    (``csrc/bf16_rows.cuh``): two batch columns a thread, the multiplier
+    rows held packed, the emission's f32 rows staged in shared memory.
     """
     if not kernel_applies(kernels, FLl.device, Sbar2.dtype):
         return schur_update_pair_em_plain(
@@ -658,16 +730,20 @@ def schur_update_pair_em(
            slabs=3 + 3 * U)
     S = [torch.empty((G3, nn, B), device=FLl.device)
          for _ in range(U - 1)] if emit else []
-    H = _shadow(bf16 and emit, U - 1, nn, mn, G3, B, FLl.device)
-    plan = _level_plan(N, B, emit, n, m, pair=True)
-    _launch(
-        "rslqr_schur_update_pair", FLl.device,
+    plan = _level_plan(N, B, emit, n, m, pair=True, bf16=bf16)
+    args = (
         _ptr(FLl), _ptr(FLx), _ptr(FLu), _ptrs(Fls), _ptrs(Fxs), _ptrs(Fus),
         _ptrs(fsol1), _ptr(Sbar2), _ptrs(fsol2),
         _ptr(Asep3 if emit else None), _ptr(Bsep3 if emit else None),
-        _ptrs(S), _ptrs(H), U, N, B, level, int(emit), n, m, plan.shift,
-        plan.grid[1], sum(plan.groups), int(bf16),
+        _ptrs(S), U, N, B, level, int(emit), n, m, plan.shift, plan.grid[1],
+        sum(plan.groups),
     )
+    if bf16:
+        _check_pair2("schur_update_pair_em", ts)
+        _launch("rslqr_schur_update_pair_bf16", FLl.device, *args,
+                _vec(plan, ts + S), plan.smem)
+    else:
+        _launch("rslqr_schur_update_pair", FLl.device, *args)
     schur_update_pair_em.launches += 1
     return tuple(Fls), tuple(Fxs), tuple(Fus), (S if emit else None)
 
@@ -704,7 +780,9 @@ def leaf_schur_level0_em(
     Kernel: ``leaf_row_kernel`` (``csrc/leaf_rows.cuh``, on the pair
     kernel's emitting plan, :func:`_level_plan` with ``pair``: reads 63
     floats of problem data per knot and batch column at (6, 3), writes each
-    element of the ``depth`` slab trios once).
+    element of the ``depth`` slab trios once). bf16 slabs:
+    ``leaf_row2_kernel`` (``csrc/bf16_rows.cuh``): two batch columns a
+    thread, the emission's f32 rows staged in shared memory.
     """
     if depth < 2:
         raise ValueError("the fused leaf needs a tree of depth >= 2")
@@ -729,15 +807,19 @@ def leaf_schur_level0_em(
                              (depth, nn, N, Bb), (depth, mn, N, Bb),
                              dtype=fdt)
     S, = _stacked(A.device, (U, G1, nn, Bb))
-    H = _shadow(bf16, U, nn, mn, G1, Bb, A.device)
-    plan = _level_plan(N, Bb, True, n, m, pair=True)
-    _launch(
-        "rslqr_leaf_schur_level0", A.device,
+    plan = _level_plan(N, Bb, True, n, m, pair=True, bf16=bf16, leaf=True)
+    args = (
         _ptr(A), _ptr(B), _ptr(qinv), _ptr(rinv), _ptr(S0), _ptrs(fsol),
         _ptr(Asep), _ptr(Bsep), _ptrs(Fls), _ptrs(Fxs), _ptrs(Fus), _ptrs(S),
-        _ptrs(H), depth, N, Bb, n, m, plan.shift, plan.grid[1],
-        sum(plan.groups), int(bf16),
+        depth, N, Bb, n, m, plan.shift, plan.grid[1], sum(plan.groups),
     )
+    if bf16:
+        ts = [A, B, qinv, rinv, S0, *fsol, Asep, Bsep, *Fls, *Fxs, *Fus, *S]
+        _check_pair2("leaf_schur_level0_em", ts)
+        _launch("rslqr_leaf_schur_level0_bf16", A.device, *args,
+                _vec(plan, ts), plan.smem)
+    else:
+        _launch("rslqr_leaf_schur_level0", A.device, *args)
     leaf_schur_level0_em.launches += 1
     return Fls, Fxs, Fus, list(S)
 

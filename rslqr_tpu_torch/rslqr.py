@@ -433,15 +433,14 @@ def leaf_solve_rhs(prob: LQRProblem, tables: Optional[TreeTables] = None):
 def _use_em_layout(prob: LQRProblem, opts: SolveOptions) -> bool:
     """Layout dispatch (JAX ``_use_em_layout``, rslqr.py:498-533, with the
     port's rule, see :mod:`rslqr_tpu_torch.config`): element-major for
-    blocks up to ``MAX_BLOCK`` unless ``layout="grid"``; the grid path
-    above it. ``layout="em"`` above it raises ``ValueError``."""
-    big = max(prob.nstates, prob.ninputs) > MAX_BLOCK
-    if opts.layout == "em" and big:
-        raise ValueError(
-            f"layout='em' takes blocks up to {MAX_BLOCK}, got n="
-            f"{prob.nstates}, m={prob.ninputs}: use 'auto' or 'grid'"
-        )
-    return opts.layout != "grid" and not big
+    blocks up to ``MAX_BLOCK`` unless ``layout="grid"``, the grid path
+    above it; ``layout="em"`` takes the element-major path at every block
+    size, as in the JAX package (rslqr.py:508-509): blocks above
+    ``MAX_BLOCK`` run its mid-block route through the plain versions of
+    the plane kernels (``rslqr_em._plane_options``)."""
+    if opts.layout != "auto":
+        return opts.layout == "em"
+    return max(prob.nstates, prob.ninputs) <= MAX_BLOCK
 
 
 def _one_batch_axis(prob: LQRProblem):
@@ -464,9 +463,11 @@ def solve(
 
     Blocks up to 64 run the element-major path (small blocks through the
     Schur sweep kernels, mid blocks through the element-plane kernels);
-    ``layout="grid"`` and blocks above 64 run the knot-major grid path, the
-    whole batch in one batched call per stage (JAX vmaps single solves
-    there, rslqr.py:571-580). Sets TF32 off (:func:`_no_tf32`).
+    ``layout="grid"`` and, under ``layout="auto"``, blocks above 64 run the
+    knot-major grid path, the whole batch in one batched call per stage
+    (JAX vmaps single solves there, rslqr.py:571-580). ``layout="em"``
+    runs the element-major path at every block size (above 64 the plain
+    versions of the plane kernels). Sets TF32 off (:func:`_no_tf32`).
 
     Differentiable: when grad is enabled and a field requires grad, the
     solve runs as :mod:`rslqr_tpu_torch.autodiff`'s Function (the same

@@ -323,6 +323,18 @@ def _mid_block(n: int, opts: SolveOptions) -> bool:
     return n > min(opts.mxu_block_threshold, schur.MAX_STATE)
 
 
+def _plane_options(n: int, m: int, opts: SolveOptions) -> SolveOptions:
+    """The options the sweep runs a block on: blocks past the plane
+    kernels' ``planes.MAX_BLOCK`` (``max(n, m) > 64``) take the mid-block
+    route through the plain versions of B5-B9 (``kernels="off"``) on every
+    device, as the JAX package's plane kernels stand aside there
+    (rslqr_tpu/linalg.py:172-193); smaller blocks keep ``opts``. One static
+    rule, decided before any launch, beside :func:`_mid_block`."""
+    if max(n, m) > planes.MAX_BLOCK:
+        return dataclasses.replace(opts, kernels="off")
+    return opts
+
+
 def _pcho_solve(Lc, S, opts):
     """Mid-block separator solve, in place on ``S`` (a level's compact
     product or RHS, used no more after it; JAX donates it the same way)."""
@@ -672,10 +684,10 @@ def factorize_em(
     element-major RHS ``(zy, zx, zu)``. ``clock`` times each reference
     phase (``profile.py``): the fused leaf kernel counts as leaves, the
     compact products from which it starts as products."""
-    opts = resolve_options(options)
     pbl = _to_batch_last(prob, 1)
     t = tables or build_tree_tables(pbl.A.shape[0])
     n, m = pbl.A.shape[1], pbl.B.shape[2]
+    opts = _plane_options(n, m, resolve_options(options))
     N, Bb = pbl.A.shape[0], pbl.A.shape[3]
 
     mid = _mid_block(n, opts)
@@ -779,6 +791,7 @@ def rhs_sweep_em(A, B, fact: EmFactorization, rhs: Tuple,
     with element-major dynamics ``A``/``B``; ``rhs`` is an element-major
     leaf-solved RHS (made contiguous, then updated in place). Returns
     ``(zy, zx, zu)``."""
+    opts = _plane_options(A.shape[0], B.shape[1], opts)
     zy, zx, zu = (z.contiguous() for z in rhs)
     for level in range(len(fact.chols)):
         zy, zx, zu = _rhs_level_em(

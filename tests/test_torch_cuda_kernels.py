@@ -974,8 +974,9 @@ def test_level_kernel_bf16(dev, bn, bm, N, B, level, with_sep):
 
 
 @pytest.mark.parametrize("bn,bm", BF16_BLOCKS)
-@pytest.mark.parametrize("N,B,level", [(16, 40, 0), (64, 33, 1),
-                                       (256, 40, 1), (256, 40, 5)])
+@pytest.mark.parametrize("N,B,level", [(16, 40, 0), (16, 33, 0),
+                                       (64, 33, 1), (256, 40, 1),
+                                       (256, 40, 5)])
 def test_pair_kernel_bf16(dev, bn, bm, N, B, level):
     """B4: slab L+1 rounded once and read back as the level-(L+1)
     multiplier, the upper slabs rounded once for both levels."""
@@ -998,7 +999,7 @@ def test_pair_kernel_bf16(dev, bn, bm, N, B, level):
 
 
 @pytest.mark.parametrize("bn,bm", BF16_BLOCKS)
-@pytest.mark.parametrize("N,B", [(4, 1), (16, 40), (256, 33)])
+@pytest.mark.parametrize("N,B", [(4, 1), (16, 40), (16, 33), (256, 33)])
 def test_leaf_kernel_bf16(dev, bn, bm, N, B):
     """B3 writing bf16 slabs, the level-1 products from the f32 values."""
     g = torch.Generator().manual_seed(2300 + N + bn)

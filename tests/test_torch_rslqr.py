@@ -97,11 +97,15 @@ def test_options_validation():
     with pytest.raises(ValueError):
         pt.SolveOptions(layout="planes")
     # Mid blocks (n <= 64) run the planes path; larger blocks the grid
-    # path (the large-block route), which layout="em" refuses.
+    # path (the large-block route) under "auto", and the element-major
+    # path under layout="em" (the plain plane versions above 64).
     big = pt.double_integrator_problem(2, nstates=130, ninputs=65,
                                        device="cpu")
     sol = pt.solve(big)
     assert isinstance(sol.fact, pt.RsLqrFactorization)
     assert float(pt.kkt_residual(big, sol.kkt_vector())) < 1e-8
-    with pytest.raises(ValueError):
-        pt.solve(big, options=pt.SolveOptions(layout="em"))
+    em = pt.solve(big, options=pt.SolveOptions(layout="em"))
+    assert isinstance(em.fact, pt.EmFactorization)
+    assert float(pt.kkt_residual(big, em.kkt_vector())) < 1e-8
+    assert rel_err(em.kkt_vector().numpy(), sol.kkt_vector().numpy()) < 1e-10
+
