@@ -7,13 +7,12 @@ Phases, each printing one line of numbers:
 
 1. device: the card's name and power limit (nvidia-smi), then the kernel
    build from ``rslqr_tpu_torch/csrc/*.cu`` (one nvcc per source, in
-   parallel, timed), and beside it a ``-Xptxas -v`` compile of the three
-   small-block sources and of ``csrc/probe_kernels.cu``: the registers,
+   parallel, timed), with ``-Xptxas -v``, whose report gives the registers,
    stack and spills of every instantiation of the fused leaf kernel (B3 and
    B11, ``csrc/leaf_rows.cuh``), of every bf16-slab instantiation of B1-B4
-   (``schur_kernels.cu``; B3's and B4's own kernels in
-   ``csrc/bf16_rows.cuh``) and of the probe kernels (P1 at every ib,
-   column tile and t1; P2);
+   (B2's in ``schur_kernels.cu``; B1's, B3's and B4's own kernels in
+   ``csrc/bf16_rows.cuh``), of B8 at every width (``csrc/plu_kernels.cu``)
+   and of the probe kernels (P1 at every ib, column tile and t1; P2);
 2. each of the four small-block sweep kernels (B1-B4) against its plain
    PyTorch version on clones of the same random f32 inputs, at the small
    path's shapes (N=256, B=1024; B1 at N=128 and with level pairing off),
@@ -43,8 +42,11 @@ Phases, each printing one line of numbers:
    B5's ``schur_update_planes`` (lambda masked and not; ``rows_kernel``,
    also chained) and B8
    ``plu_solve_multi`` with each right-hand-side pattern of the path, and
-   at n=48 (``plu_scratch_kernel``, n > 36), also chained (its library
-   call single only);
+   at n=48 and 64 (``plu_wide``: its W = 48 and 64 instantiations, the LU
+   in dynamic shared memory), also chained, beside the median of 50
+   single launches of ``lu_factor_ex`` + ``lu_solve`` taken in turns with
+   50 of the kernel (kernel, library, library, kernel; the library call
+   is not captured in a CUDA graph);
 3b. the mid-block slice: ``solve_kkt`` on BASELINE.json's quadruped config
    (``random_problem`` nx=36, nu=12, N=512, perturbed into B=256 instances,
    f32, one batch), with launch counts, agreement with ``kernels="off"``,
@@ -151,8 +153,19 @@ Phases, each printing one line of numbers:
    versions at phase 2's shapes (rounding flips in at most 0.1% of the
    elements; bit for bit on inputs whose every sum is exact in f32),
    single and chained ms against bounds from the bf16 byte counts, B1 and
-   B2 beside one unmasked ``baddbmm`` on bf16 operands, and B3 and B4
+   B2 beside one unmasked ``baddbmm`` on bf16 operands, and B1, B3 and B4
    chained in turns with their f32 instantiations on the same inputs;
+   (f) ``factor_dtype`` ``"float32"`` on phase 3's N=256 batch equal to the
+   default solve bit for bit, ``"float16"`` and ``"float64"`` (the plain
+   single-level schedule: no launch of B1-B4 or B10-B12) against
+   ``kernels="off"`` and, reported, the f32 solve and the f64 Riccati
+   solve;
+3j. the parallel scan at a mid block past 36 (``random_problem`` N=64,
+   nx=48, nu=16, B=64 in one batch, f32): B8's wide launches (> 0, by (n,
+   widths, plane)), agreement with ``kernels="off"`` (3e-3 relative,
+   bench.py:322), the f64 plain scan of 4 instances against the f64
+   Riccati oracle, and B8 against its plain twin (the kernel bar) on fresh
+   inputs at each (n, widths, plane) the scan launched it at;
 4. time per batched solve of both slices, kernel path and
    ``kernels="off"``; 4c the same for the parallel scan; 4d for the flat
    solve and the refined solve; 4e the grid slice in turns: the quadruped
@@ -199,7 +212,6 @@ import statistics
 import sys
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -227,6 +239,11 @@ SCHUR_SRC = "rslqr_tpu_torch/csrc/schur_kernels.cu"
 PLANES_SRC = "rslqr_tpu_torch/csrc/planes_kernels.cu"
 FLAGGED_SRC = "rslqr_tpu_torch/csrc/flagged_kernels.cu"
 PLU_SRC = "rslqr_tpu_torch/csrc/plu_kernels.cu"
+# Phase 3j: a mid block past 36 through the parallel scan.
+WN, WX, WU, WB = 64, 48, 16, 64
+# B8's wide instantiations: median of PLU_TURNS single launches in turns
+# with the library call (phase 2c).
+PLU_TURNS = 50
 FLAT_SRC = "rslqr_tpu_torch/csrc/flat_kernels.cu"
 PROBE_SRC = "rslqr_tpu_torch/csrc/probe_kernels.cu"
 # The probe's shape (probes/probe_pgemm.py:27-28): 36x36 blocks over a
@@ -244,6 +261,7 @@ REPLACES = {
     "schur3_update_planes": "rslqr_tpu/ops/planes_pallas.py:503",
     "schur_update_planes": "rslqr_tpu/ops/planes_pallas.py:270",
     "plu_solve_multi": "rslqr_tpu/ops/planes_pallas.py:425",
+    "plu_wide": "rslqr_tpu/ops/planes_pallas.py:425",
     "schur_update_level_flat": "rslqr_tpu/ops/schur_planes.py:338",
     "leaf_schur_level0_flat": "rslqr_tpu/ops/schur_planes.py:429",
     "rhs_update_level_flat": "rslqr_tpu/ops/schur_planes.py:518",
@@ -261,9 +279,9 @@ SOURCES["schur_update_level_em"] = "rslqr_tpu_torch/csrc/row_groups.cuh"
 SOURCES["schur_update_pair_em"] = "rslqr_tpu_torch/csrc/row_groups.cuh"
 SOURCES["leaf_schur_level0_em"] = "rslqr_tpu_torch/csrc/leaf_rows.cuh"
 SOURCES["leaf_schur_level0_flat"] = "rslqr_tpu_torch/csrc/leaf_rows.cuh"
-# B3's and B4's bf16-slab kernels (instantiated by bf16_kernels.cu).
+# B1's, B3's and B4's bf16-slab kernels (instantiated by bf16_kernels.cu).
 BF16_SOURCES = {k: "rslqr_tpu_torch/csrc/bf16_rows.cuh" for k in (
-    "schur_update_pair_em", "leaf_schur_level0_em")}
+    "schur_update_level_em", "schur_update_pair_em", "leaf_schur_level0_em")}
 # The kernels of each mid-block path (the others launch no time there).
 RSLQR_MID = ("pgemm", "pchol", "pcho_solve", "schur3_update_planes")
 PSCAN_MID = ("pgemm", "pgemm_flagged", "plu_solve_multi")
@@ -277,6 +295,7 @@ LAUNCHES_FROM = {
     **{k: "rslqr quadruped" for k in RSLQR_MID},
     **{k: "pscan quadruped" for k in (
         "pgemm", "pgemm_flagged", "plu_solve_multi", "schur_update_planes")},
+    "plu_wide": f"pscan N={WN} nx={WX} nu={WU} B={WB}",
     **{k: "rslqr flat N=256 B=1024" for k in REPLACES if k.endswith("_flat")},
     **{k: "probe_pgemm --rounds 1 (on no solver path)" for k in PROBES},
 }
@@ -346,7 +365,7 @@ def small_ptxas(build, report: str):
     lines = []
     for name, (regs, stack, st, ld) in sorted(
             build.ptxas_kernels(report).items()):
-        kern = re.search(r"(row_level_kernel|row_pair2?_kernel|"
+        kern = re.search(r"(row_level2?_kernel|row_pair2?_kernel|"
                          r"leaf_row2?_kernel|rhs_kernel)", name)
         bf16 = "__nv_bfloat16" in name or "2_kernel" in name
         if kern is None or not (bf16 or "leaf_row_kernel" in name):
@@ -369,6 +388,20 @@ def small_ptxas(build, report: str):
         lines.append(f"phase1 ptxas {kern} {_blk_tag(name)}{what}: {regs} "
                      f"registers, {stack} bytes stack, {st}/{ld} bytes spill "
                      f"stores/loads")
+    return lines
+
+
+def plu_ptxas(build, report: str):
+    """One line per width of B8's ``plu_kernel`` in a ``-Xptxas -v``
+    report: registers, stack and spills."""
+    lines = []
+    for name, (regs, stack, st, ld) in sorted(
+            build.ptxas_kernels(report).items()):
+        w = re.search(r"plu_kernelILi(\d+)E", name)
+        if w:
+            lines.append(f"phase1 ptxas plu_kernel W={w[1]}: {regs} "
+                         f"registers, {stack} bytes stack, {st}/{ld} bytes "
+                         f"spill stores/loads")
     return lines
 
 
@@ -1141,32 +1174,69 @@ class Smoke:
             )
         # B8: the Woodbury solve (m=12, identity right-hand side) of every
         # fold / down-sweep step, and the suffix tree's I + C J solves; and
-        # n=48, past 36, where plu_scratch_kernel keeps the LU in a global
-        # scratch (no solver path here reaches it).
+        # n=48 and 64, past 36 (``plu_wide``: the W = 48 and 64
+        # instantiations; phase 3j's scan reaches them).
         for n, ws, plane in ((U, (U,), fold), (X, (X, 1, X, 1), tree),
-                             (X, (X, 1), tree2), (48, (48, 1), tree)):
-            F = plane[0] * plane[1]
-            M = self.drand(*plane, n, n, scale=n ** -0.5)
-            P = self.drand(*plane, n, n, scale=n ** -0.5)
-            IC = t.eye(n, device=self.dev) + (M @ M.transpose(-1, -2)) @ (
-                P @ P.transpose(-1, -2))
-            A = IC.movedim((-2, -1), (0, 1)).contiguous()
-            Bs = [R(n, w, *plane) for w in ws]
-            wt = sum(ws)
-            Aml = ml(A)
-            Bml = t.cat([ml(b) for b in Bs], dim=2)
+                             (X, (X, 1), tree2), (48, (48, 1), tree),
+                             (64, (64, 1), tree)):
+            name, case, fn, args, ops, lib, moved = self.plu_case(n, ws,
+                                                                  plane)
+            self.compare(name, case, fn, args, {}, ops, lib, moved,
+                         phase="phase2c", chain=True, chain_library=False)
+            if name == "plu_wide":
+                self.plu_turns(case, fn, args, *lib)
 
-            def lu_lib(a, b):
-                LU, piv, _ = t.linalg.lu_factor_ex(a)
-                return t.linalg.lu_solve(LU, piv, b)
+    def plu_case(self, n, ws, plane):
+        """B8 on a well-conditioned ``I + C J`` block (C, J PSD) of n at
+        ``plane`` with right-hand sides of widths ``ws``: the JSON name
+        (``plu_wide`` past 36), the case, the call, its arguments, FLOPs,
+        library call (``lu_factor_ex`` + ``lu_solve`` on mat-last views)
+        and bytes, for ``compare``."""
+        t, pl, R, ml = self.torch, self.planes, self.drand, self.mat_last
+        F = plane[0] * plane[1]
+        M = R(*plane, n, n, scale=n ** -0.5)
+        P = R(*plane, n, n, scale=n ** -0.5)
+        IC = t.eye(n, device=self.dev) + (M @ M.transpose(-1, -2)) @ (
+            P @ P.transpose(-1, -2))
+        A = IC.movedim((-2, -1), (0, 1)).contiguous()
+        Bs = [R(n, w, *plane) for w in ws]
+        wt = sum(ws)
 
-            self.compare(
-                "plu_solve_multi", f"n={n} w={ws} plane={plane}",
-                lambda a, bs, **k: pl.plu_solve_multi(a, *bs, **k),
-                [A, Bs], {}, F * (2 * n ** 3 / 3 + 2 * n * n * wt),
-                (lu_lib, (Aml, Bml)), 4 * F * (n * n + 2 * n * wt),
-                phase="phase2c", chain=True, chain_library=False,
-            )
+        def lu_lib(a, b):
+            LU, piv, _ = t.linalg.lu_factor_ex(a)
+            return t.linalg.lu_solve(LU, piv, b)
+
+        name = "plu_wide" if n >= pl.LU_WIDE_MIN else "plu_solve_multi"
+        return (name, f"n={n} w={ws} plane={plane}",
+                lambda a, bs, **k: pl.plu_solve_multi(a, *bs, **k), [A, Bs],
+                F * (2 * n ** 3 / 3 + 2 * n * n * wt),
+                (lu_lib, (ml(A), t.cat([ml(b) for b in Bs], dim=2))),
+                4 * F * (n * n + 2 * n * wt))
+
+    def plu_turns(self, case, fn, args, lib_fn, lib_args):
+        """B8's wide instantiations against ``lu_factor_ex`` + ``lu_solve``:
+        the median of PLU_TURNS single launches of each, in turns (kernel,
+        library, library, kernel); the library call single only (MAGMA,
+        see ``compare``). The first case's library median is the JSON
+        line's ``library_ms``."""
+        from rslqr_tpu_torch.bench_kernels import launch_ms
+
+        run_k = lambda: launch_ms(fn, lambda: clone_args(args), PLU_TURNS)
+        run_l = lambda: launch_ms(lib_fn, lambda: lib_args, PLU_TURNS)
+        ks, ls = [run_k()], [run_l(), run_l()]
+        ks.append(run_k())
+        k_ms, l_ms = min(ks), min(ls)
+        self.check(k_ms <= l_ms,
+                   f"plu_wide {case}: kernel {k_ms:.4f} ms slower than "
+                   f"lu_factor_ex + lu_solve {l_ms:.4f} ms (medians of "
+                   f"{PLU_TURNS}, in turns)")
+        print(f"phase2c plu_wide {case}: in turns, medians of {PLU_TURNS} "
+              f"single launches: kernel {ks[0]:.4f}, {ks[1]:.4f} ms; "
+              f"lu_factor_ex + lu_solve {ls[0]:.4f}, {ls[1]:.4f} ms "
+              f"(library / kernel {l_ms / k_ms:.2f}x)", flush=True)
+        st = self.kernel_stats["plu_wide"]
+        if st["case"] == case:
+            st.update(library_ms=l_ms, turns_ms=k_ms)
 
     def schur1_case(self, lam):
         """Arguments, kwargs, FLOPs, library call and bytes of one
@@ -1487,11 +1557,11 @@ class Smoke:
         for k in PSCAN_MID:
             self.check(counts[k] > 0,
                        f"{k} launched no time on the quadruped pscan path")
-        shapes = {f"n={k[0]} w={k[1]}": v for k, v in
+        shapes = {f"n={k[0]} w={k[1]} plane={k[2]}": v for k, v in
                   self.planes.plu_solve_multi.shape_launches.items()}
         print(f"phase3c launches pscan N={QN} B={QB} nx={QX} nu={QU}: "
               f"{json.dumps(counts)} small-block kernels: "
-              f"{json.dumps(small)}; plu_solve_multi by (n, widths): "
+              f"{json.dumps(small)}; plu_solve_multi by (n, widths, plane): "
               f"{json.dumps(shapes)}; peak device memory "
               f"{peak / 2**30:.2f} GiB", flush=True)
 
@@ -2254,6 +2324,95 @@ class Smoke:
               flush=True)
         self.bf16_quad = (qb, got)
 
+    def storage_checks(self):
+        """(f) ``factor_dtype`` names other than bf16 on phase 3's N=256
+        f32 batch: ``"float32"`` is the default solve bit for bit;
+        ``"float16"`` and ``"float64"`` take the plain single-level
+        schedule (``rslqr_em._kernel_schedule``; the kernels take f32 and
+        bf16 slabs): no launch of B1-B4 or B10-B12, equal to their
+        ``kernels="off"`` solves within SLICE_BAR; their distance to the f32
+        solve and to the f64 Riccati solve (16 instances) reported."""
+        t, pt = self.torch, self.pt
+        b = self.main_batch
+        sub64 = b.map(lambda x: x[:16]).to(dtype=t.float64)
+        ric = pt.solve_riccati(sub64).kkt_vector()
+        same = pt.solve_kkt(b, options=pt.SolveOptions(factor_dtype="float32"))
+        self.check(bool(t.equal(same, self.main_got)),
+                   "factor_dtype float32: not the default solve bit for bit")
+        for name in ("float16", "float64"):
+            self.reset_hand_launches()
+            sol = pt.solve(b, options=pt.SolveOptions(factor_dtype=name))
+            t.cuda.synchronize()
+            counts = self.hand_launches()
+            sweep = {k: v for k, v in counts.items()
+                     if k in self.schur.launch_counts()
+                     or k in self.flat.launch_counts()}
+            got = sol.kkt_vector()
+            dts = {x.dtype for F in (sol.fact.Fls, sol.fact.Fxs, sol.fact.Fus)
+                   for x in F}
+            off = pt.solve_kkt(b, options=pt.SolveOptions(
+                factor_dtype=name, kernels="off"))
+            d_off = rel_err(got, off)
+            self.check(not sweep and dts == {getattr(t, name)}
+                       and bool(t.isfinite(got).all()) and d_off <= SLICE_BAR,
+                       f"factor_dtype {name}: launches {counts}, slabs {dts},"
+                       f" rel diff vs off {d_off:.3e}")
+            print(f"phase3i (f) factor_dtype={name} N={N_MAIN} B={BATCH}: "
+                  f"hand launches {json.dumps(counts)}; slabs "
+                  f"{sorted(map(str, dts))}; rel_diff_vs_off={d_off:.3e} "
+                  f"(bar {SLICE_BAR}); vs the f32 solve "
+                  f"{rel_err(got, self.main_got):.3e}, err_vs_f64_riccati="
+                  f"{rel_err(got[:16].double(), ric):.3e} (reported)",
+                  flush=True)
+
+    # -- phase 3j --------------------------------------------------------
+    def wide_pscan_checks(self):
+        """The parallel scan at a mid block past 36 (nx=48, nu=16, N=64,
+        B=64 in one batch, f32), where B8 runs its wide instantiations:
+        their launches, agreement with ``kernels="off"``, and the f64 plain
+        scan of 4 instances against the f64 Riccati oracle; then B8 against
+        its twin at each (n, widths, plane) the scan launched it at, on
+        fresh inputs, at KERNEL_BAR."""
+        t, pt, pl = self.torch, self.pt, self.planes
+        off = pt.SolveOptions(kernels="off")
+        prob = pt.random_problem(t.Generator().manual_seed(4), WN, WX, WU,
+                                 device=self.dev)
+        b = pt.batch_problems(prob, WB, t.Generator().manual_seed(5))
+        self.reset_hand_launches()
+        got = pt.solve_pscan_kkt(b)
+        t.cuda.synchronize()
+        counts = self.hand_launches()
+        wide = pl.wide_launches()
+        launched = dict(pl.plu_solve_multi.shape_launches)
+        shapes = {f"n={k[0]} w={k[1]} plane={k[2]}": v
+                  for k, v in launched.items()}
+        self.launches["plu_wide"] = wide
+        ref = pt.solve_pscan_kkt(b, options=off)
+        d_off = rel_err(got, ref)
+        sub64 = b.map(lambda x: x[:4]).to(dtype=t.float64)
+        ric = pt.solve_riccati(sub64).kkt_vector()
+        f64 = pt.solve_pscan_kkt(sub64, options=off)
+        e64 = float((f64 - ric).abs().max())
+        bar64 = F64_BAR * (1.0 + float(ric.abs().max()))
+        self.check(wide > 0, f"pscan nx={WX}: B8's wide instantiations "
+                             f"launched no time ({shapes})")
+        self.check(tuple(got.shape) == (WB, b.nvars)
+                   and bool(t.isfinite(got).all()) and d_off <= QUAD_SLICE_BAR,
+                   f"pscan nx={WX}: shape {tuple(got.shape)}, rel diff vs "
+                   f"off {d_off:.3e}")
+        self.check(e64 <= bar64, f"pscan nx={WX}: f64 plain vs f64 Riccati "
+                                 f"{e64:.3e} > {bar64:.3e}")
+        print(f"phase3j pscan N={WN} B={WB} nx={WX} nu={WU} f32: launches "
+              f"{json.dumps(counts)}; plu_solve_multi by (n, widths, plane): "
+              f"{json.dumps(shapes)}; wide {wide}; rel_diff_vs_off="
+              f"{d_off:.3e} (bar {QUAD_SLICE_BAR}); f64_plain_vs_riccati="
+              f"{e64:.3e} (bar {bar64:.3e})", flush=True)
+        for n, ws, plane in launched:
+            name, case, fn, args, ops, lib, moved = self.plu_case(n, ws,
+                                                                  plane)
+            self.compare(name, case + " (as pscan nx=48 launches it)", fn,
+                         args, {}, ops, lib, moved, phase="phase3j")
+
     @staticmethod
     def bf16_ulps(a, b):
         """Per-element distance of two bf16 tensors in units in the last
@@ -2471,7 +2630,9 @@ class Smoke:
                 sweep_ops(NN, B, level, U, emitted, G2),
                 update_moved(n, m, n, NN, B, level, U, msize=2, csize=2)
                 + (emit_moved(G2, B, emitted, size=2) if emitted else 0),
-                exact_args=exact_like(args, 6), library=lib)
+                exact_args=exact_like(args, 6), library=lib,
+                f32=(self.level_args(NN, B, level),
+                     dict(level=level, n=n, m=m)))
 
     def time_bf16(self, card):
         """Phase 4g: bf16 slabs against f32 slabs, in turns: the em solve
@@ -2760,20 +2921,16 @@ def main() -> int:
 
     card = device_name(dev)
     print(card, flush=True)
-    small = [src for src in _build.SOURCES
-             if src.name in ("schur_kernels.cu", "flat_kernels.cu",
-                             "bf16_kernels.cu")]
-    probe_src = next(src for src in _build.SOURCES
-                     if src.name == "probe_kernels.cu")
-    with ThreadPoolExecutor(len(small) + 1) as pool:
-        reports = [pool.submit(_build.ptxas_report, src) for src in small]
-        probe_report = pool.submit(_build.ptxas_report, probe_src)
-        t0 = time.perf_counter()
-        lib = _build.build()
-        build_s = time.perf_counter() - t0
-        ptxas = [line for r in reports
-                 for line in small_ptxas(_build, r.result())]
-        ptxas += probe_ptxas(_build, probe_report.result())
+    # One compile of every source, with ptxas's report of each kernel.
+    reports = {}
+    t0 = time.perf_counter()
+    lib = _build.build(extra_flags=("-Xptxas", "-v"), reports=reports)
+    build_s = time.perf_counter() - t0
+    ptxas = [line for name in ("schur_kernels.cu", "flat_kernels.cu",
+                               "bf16_kernels.cu")
+             for line in small_ptxas(_build, reports[name])]
+    ptxas += plu_ptxas(_build, reports["plu_kernels.cu"])
+    ptxas += probe_ptxas(_build, reports["probe_kernels.cu"])
     _build.load()
     print(f"phase1 device={torch.cuda.get_device_name(0)} "
           f"count={torch.cuda.device_count()} torch={torch.__version__} "
@@ -2799,7 +2956,9 @@ def main() -> int:
         ("phase3g", smoke.autodiff_checks),
         ("phase3h", smoke.sharded_checks),
         ("phase3i", lambda: (smoke.bf16_checks(),
-                             smoke.bf16_kernel_cases())),
+                             smoke.bf16_kernel_cases(),
+                             smoke.storage_checks())),
+        ("phase3j", smoke.wide_pscan_checks),
         ("phase4", lambda: smoke.time_solves(
             card, smoke.main_batch, REPS, f"phase4 N={N_MAIN}")),
         ("phase4b", lambda: smoke.time_solves(
@@ -2862,7 +3021,7 @@ def main() -> int:
          "case": st["case"], "launches_from": LAUNCHES_FROM.get(name),
          "backward_launches": smoke.bwd_launches.get(name, 0),
          **{k: st[k] for k in ("em_twin_ms", "chained_ms",
-                               "library_chained_ms") if k in st},
+                               "library_chained_ms", "turns_ms") if k in st},
          **({"bf16": {**smoke.bf16_stats[name],
                       "launches": smoke.bf16_launches.get(name)}}
             if name in smoke.bf16_stats else {})}

@@ -11,9 +11,19 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import torch
+
 _LAYOUTS = ("auto", "em", "grid")
 _KERNEL_MODES = ("auto", "off")
-_FACTOR_DTYPES = ("", "bfloat16")
+# ``factor_dtype`` names and the slab storage each names ("" = the problem
+# dtype): the floating dtypes ``jnp.dtype`` takes by these names.
+FACTOR_DTYPES = {
+    "": None,
+    "float16": torch.float16,
+    "bfloat16": torch.bfloat16,
+    "float32": torch.float32,
+    "float64": torch.float64,
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,16 +56,24 @@ class SolveOptions:
       launches no hand kernel, as in the JAX package; for ``solve_pscan``
       the batch-last scan.
 
-    ``factor_dtype`` (JAX config.py:73-79, 137): ``""`` stores the factor
-    slabs in the problem dtype; ``"bfloat16"`` stores the element-major
-    path's factor slabs ``Fls``/``Fxs``/``Fus`` in bf16, to halve the
-    sweep's slab traffic. The Cholesky factors, separator products and
-    solves and the right-hand sides stay in the problem dtype; the kernels
-    load bf16, compute in f32 and round once at each store. Accuracy
-    contract (as the JAX package's): the raw bf16-slab solve loses digits
-    with tree depth; pair it with ``refine.solve_refined``. The grid path
-    and the parallel scan ignore it. Any other value raises: a departure
-    from the JAX package, which takes whatever ``jnp.dtype(...)`` names.
+    ``factor_dtype`` (JAX config.py:73-79, 137; rslqr_em.py:162-168,
+    875): the storage of the element-major path's factor slabs
+    ``Fls``/``Fxs``/``Fus``. ``""`` stores them in the problem dtype, as
+    does the problem dtype's own name (``"float32"`` on an f32 problem is
+    the default solve, bit for bit); ``"bfloat16"``, ``"float16"``,
+    ``"float32"`` and ``"float64"`` (:data:`FACTOR_DTYPES`) store them in
+    that dtype; ``"bfloat16"`` halves the sweep's slab traffic. The
+    Cholesky factors, separator products and solves and the right-hand
+    sides stay in the problem dtype: every slab element is taken into the
+    problem dtype on load, the math runs there, and each store rounds
+    once. (JAX promotes instead, so f64 slabs on an f32 problem compute
+    and return f64 there; the port keeps the problem dtype.) The kernels
+    take f32 and bf16 slabs (bf16: f32 math, one rounding a store); any
+    other storage runs the plain stages, with the single-level schedule
+    of JAX's XLA stages (``rslqr_em._kernel_schedule``). Accuracy contract
+    (as the JAX package's): the raw bf16-slab solve loses digits with tree
+    depth; pair it with ``refine.solve_refined``. The grid path and the
+    parallel scan ignore it. A name that is no floating dtype raises.
     """
 
     layout: str = "auto"
@@ -93,13 +111,19 @@ class SolveOptions:
                 f"unknown kernel mode {self.kernels!r} "
                 f"(want one of {_KERNEL_MODES})"
             )
-        if self.factor_dtype not in _FACTOR_DTYPES:
+        if self.factor_dtype not in FACTOR_DTYPES:
             raise ValueError(
                 f"unknown factor_dtype {self.factor_dtype!r} "
-                f"(want one of {_FACTOR_DTYPES})"
+                f"(want one of {tuple(FACTOR_DTYPES)})"
             )
 
 
 def resolve_options(options: Optional[SolveOptions]) -> SolveOptions:
     """``options`` if given, else the defaults."""
     return options if options is not None else SolveOptions()
+
+
+def storage_dtype(factor_dtype: str, dtype: torch.dtype) -> torch.dtype:
+    """The slabs' storage dtype: what ``factor_dtype`` names, or the
+    problem dtype ``dtype`` for ``""``."""
+    return FACTOR_DTYPES[factor_dtype] or dtype

@@ -1,18 +1,21 @@
-// The bf16-slab instantiations of the pair and leaf kernels, on column
-// pairs, with the product emission staged in shared memory.
+// The bf16-slab instantiations of the level, pair and leaf kernels, on
+// column pairs, with the product emission staged in shared memory.
 //
-//   row_pair2_kernel <- rslqr_tpu/ops/schur_pallas.py:schur_update_pair_em
-//                       (B4 with bf16 slabs, bf16_kernels.cu)
-//   leaf_row2_kernel <- rslqr_tpu/ops/schur_pallas.py:leaf_schur_level0_em
-//                       (B3 with bf16 slabs, bf16_kernels.cu)
+//   row_level2_kernel <- rslqr_tpu/ops/schur_pallas.py:schur_update_level_em
+//                        (B1 with bf16 slabs, bf16_kernels.cu)
+//   row_pair2_kernel  <- rslqr_tpu/ops/schur_pallas.py:schur_update_pair_em
+//                        (B4 with bf16 slabs, bf16_kernels.cu)
+//   leaf_row2_kernel  <- rslqr_tpu/ops/schur_pallas.py:leaf_schur_level0_em
+//                        (B3 with bf16 slabs, bf16_kernels.cu)
 //
 // The math, each batch column's order of sums and the roundings are those of
-// row_pair_kernel (row_groups.cuh) and leaf_row_kernel (leaf_rows.cuh) with
-// T = __nv_bfloat16: slab elements loaded into f32, f32 math, one rounding
-// (to nearest even) at each store; the products formed from the unrounded
-// f32 values (schur_pallas.py:247-257); B4's level-(L+1) multiplier is slab
-// L+1 as stored, rounded. Those kernels run f32 slabs; the bf16 slabs run
-// here, on the same plan (ops/schur.py:_level_plan with pair), except:
+// row_level_kernel and row_pair_kernel (row_groups.cuh) and leaf_row_kernel
+// (leaf_rows.cuh) in f32, with bf16 storage: slab elements loaded into f32,
+// f32 math, one rounding (to nearest even) at each store; the products
+// formed from the unrounded f32 values (schur_pallas.py:247-257); B4's
+// level-(L+1) multiplier is slab L+1 as stored, rounded. Those kernels run
+// f32 slabs; the bf16 slabs run here, on the same plan (ops/schur.py:
+// _level_plan; the pair's slots for B3 and B4), except:
 //
 // * Column pairs. A thread owns its slab rows at two adjacent batch columns
 //   b, b + 1 (CPT = 2), so that a slab element moves as one
@@ -32,7 +35,8 @@
 //   exactly at each use.
 // * The emission from shared memory. The products of a next-level group
 //   read the f32 x and u rows of its separator knot r and the x rows of r +
-//   1, and a block holds that pair (the plan's shift). In an emitting block
+//   1, and a block holds that pair (the plan's shift). (B1's f32 kernel
+//   reads them back from the slabs; bf16 slabs hold them rounded.) In an emitting block
 //   the threads of those rows write their unrounded values of each upper
 //   slab into a stage, [2nn + mn][TB2] f32 (x at r, u at r, x at r + 1;
 //   23,040 bytes at (6, 3)), beside A_sep and B_sep of the block's group;
@@ -49,7 +53,7 @@
 //   cannot fold (opaque), and offsets are 32-bit.
 //
 // A thread takes one row group below the wide tag, whose multiplier rows
-// (B4) and leaf values (B3) it holds across the slabs; at the wide tag
+// (B1, B4) and leaf values (B3) it holds across the slabs; at the wide tag
 // (m > 8, several row groups a thread) it reloads them per slab.
 
 #pragma once
@@ -131,10 +135,14 @@ __device__ __forceinline__ void cp_async_wait_prev() {
 }
 
 // Blocks per SM the register cap aims at: 20 warps at (6, 3), two columns
-// a thread.
+// a thread (``threads`` a block).
+__host__ __device__ constexpr int min_blocks2(int threads) {
+  return 640 / threads > 1 ? 640 / threads : 1;
+}
+
 template <class K>
 __host__ __device__ constexpr int pair2_min_blocks() {
-  return 640 / row_pair_threads<K>() > 1 ? 640 / row_pair_threads<K>() : 1;
+  return min_blocks2(row_pair_threads<K>());
 }
 
 // A thread's site: its first batch column b (even), knot k, and its offset
@@ -693,6 +701,117 @@ __global__ void __launch_bounds__(row_pair_threads<K>(),
 }
 
 // ---------------------------------------------------------------------------
+// B1, bf16 slabs: one level of every upper slab (row_level_kernel's math).
+// ---------------------------------------------------------------------------
+
+// The upper slabs run outermost, so that an emitting block (one in 2^(L+1)
+// at level L: its knots are (r, r + 1) of a next-level group) stages the
+// rows its products read and takes the slab's products after one barrier;
+// the other blocks take no barrier. Below the wide tag a thread holds its
+// one row group's level-L multiplier rows (packed) across the slabs, and
+// loads its rows of each slab at once before their math (every load of a
+// slab in flight together); at the wide tag it reloads the multiplier per
+// slab and takes a slab's rows a column at a time.
+template <class K, bool EMIT, bool VEC>
+__global__ void __launch_bounds__(row_level_threads<K>(),
+                                  min_blocks2(row_level_threads<K>()))
+    row_level2_kernel(const bf16* __restrict__ FLl,
+                      const bf16* __restrict__ FLx,
+                      const bf16* __restrict__ FLu, PtrsT<bf16> Fls,
+                      PtrsT<bf16> Fxs, PtrsT<bf16> Fus, CPtrs fsol,
+                      const float* __restrict__ Asep,
+                      const float* __restrict__ Bsep, Ptrs Sout, int U, int N,
+                      int B, int level, int shift, int n_, int m_) {
+  extern __shared__ float smem[];
+  constexpr int NP = K::NP;
+  const int n = K::EX ? NP : n_, m = K::EX ? K::MP : m_;
+  constexpr bool WHOLE = K::EX && NP % RPT == 0 && K::MP % RPT == 0;
+  constexpr bool HOLD = !K::WIDE;
+  const int nn = n * n, NL = groups_of(n), rgs = 2 * NL + groups_of(m);
+  const Smem2 sm =
+      smem2(n, m, blockDim.x * blockDim.y * blockDim.z, false, EMIT);
+  float* stage = smem;
+  float* sep = sm.sep ? stage + sm.nstage * sm.stage : nullptr;
+  const PairSite s = pair_site(N, B, shift, VEC);
+  const int k = s.k;
+  const int half = 1 << level, span = 2 * half;
+  const bool keep = (k & (half - 1)) != 0 || k == 0;
+  const bool sepk = (k & (span - 1)) == half;
+  const int g = k >> (level + 1);
+  // The block's knots are (r, r + 1) of a next-level group: it emits.
+  const int k1 = (int)blockIdx.y * LKB - shift + 1;
+  const bool emits = EMIT && k1 < N && (k1 & (2 * span - 1)) == span;
+  const int g2 = k1 >> (level + 2);
+  if (emits && sep)
+    load_sep(sep, Asep, Bsep, g2, B, n, m, second_site(s, k1, B));
+  auto mult_of = [&](const RowGroup& R) {
+    return R.slab == 0 ? FLl : (R.slab == 1 ? FLx : FLu);
+  };
+  auto slab_of = [&](const RowGroup& R, int u) {
+    return R.slab == 0 ? Fls.p[u] : (R.slab == 1 ? Fxs.p[u] : Fus.p[u]);
+  };
+  // Lambda rows that calc_lambda skips or the separator overwrites read no
+  // multiplier rows.
+  auto updates = [&](const RowGroup& R) {
+    return R.slab != 0 || (keep && !sepk);
+  };
+  bf162 mrow[RPT][NP];
+  if constexpr (HOLD) {
+    if (s.live && (int)threadIdx.y < rgs) {
+      const RowGroup R = row_group<WHOLE>(threadIdx.y, NL, n, m);
+      if (updates(R)) load_rows2<NP>(mrow, mult_of(R), R, n, s);
+    }
+  }
+
+  for (int u = 0; u < U; ++u) {
+    const float* fu = fsol.p[u];
+    float* st = stage + (sm.nstage == 2 ? (u & 1) * sm.stage : 0);
+    const PairSite su = through(s, opaque(s, u + 1));
+    for (int rg = threadIdx.y; s.live && rg < rgs; rg += blockDim.y) {
+      const RowGroup R = row_group<WHOLE>(rg, NL, n, m);
+      bf16* out = slab_of(R, u);
+      if (!updates(R)) {
+        if (R.slab == 0 && sepk) put_rows2<NP>(out, fu, R, n, g, B, su);
+        continue;  // lambda rows neither level moves
+      }
+      if constexpr (!HOLD) load_rows2<NP>(mrow, mult_of(R), R, n, su);
+      bf162 vp[RPT][HOLD ? NP : 1];
+      if constexpr (HOLD) load_rows2<NP>(vp, out, R, n, su);
+      const int part =
+          emits ? stage_part(R.slab, (int)threadIdx.z, nn, n * m) : -1;
+#pragma unroll
+      for (int c = 0; c < NP; ++c) {
+        if (c >= n) continue;
+        const int z = opaque(s, 16 * u + c + 1);
+        const PairSite sc = through(s, z);
+        float2 fc[NP];
+        load_fcol2<NP>(fc, fu, c, n, g, s, B + z);
+#pragma unroll
+        for (int r = 0; r < RPT; ++r) {
+          if (!R.ok[r]) continue;
+          const int el = (R.i0 + r) * n + c;
+          const unsigned o = el * sc.plane + sc.idx;
+          bf162 v;
+          if constexpr (HOLD)
+            v = vp[r][c];
+          else
+            v = ldh2(out, o, s);
+          const float2 res = sub2(up2(v), row_dot2<NP>(mrow, r, fc, z));
+          sth2(out, o, rnd2(res), s);
+          if (part >= 0) *stage_at(st, part + el) = res;
+        }
+      }
+    }
+    if (emits) {
+      __syncthreads();
+      emit2<NP>(st, sep, true, u == 0, Fls.p[u], Sout.p[u], Asep, Bsep, g2,
+                B, n, m, second_site(s, k1, B));
+      if (sm.nstage == 1) __syncthreads();
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // B3, bf16 slabs: the fused leaf (leaf_row_kernel's math).
 // ---------------------------------------------------------------------------
 
@@ -926,13 +1045,48 @@ int with_stage(F* kernel, size_t bytes) {
       static_cast<int>(bytes)));
 }
 
-// The bf16 plan's checks: ``smem`` the block's shared memory (smem2),
-// ``vec`` only where B is even.
-inline bool pair2_plan_ok(bool pair, int emit, int n, int m, int B, int vec,
-                          long long smem) {
-  const int threads = TB * LKB * pair_slots_of(n, m, m > MAX_STATE_DIM);
+// The bf16 plan's checks: ``smem`` the block's shared memory (smem2) for
+// ``slots`` row-group slots, ``vec`` only where B is even.
+inline bool plan2_ok(int slots, bool pair, int emit, int n, int m, int B,
+                     int vec, long long smem) {
+  const int threads = TB * LKB * slots;
   return smem == (long long)smem2(n, m, threads, pair, emit).bytes() &&
          (vec == 0 || (vec == 1 && B % 2 == 0));
+}
+
+// B3 and B4: the pair kernel's slots.
+inline bool pair2_plan_ok(bool pair, int emit, int n, int m, int B, int vec,
+                          long long smem) {
+  return plan2_ok(pair_slots_of(n, m, m > MAX_STATE_DIM), pair, emit, n, m,
+                  B, vec, smem);
+}
+
+// B1: the level kernel's slots, no slab buffers.
+inline bool level2_plan_ok(int emit, int n, int m, int B, int vec,
+                           long long smem) {
+  return plan2_ok(slots_of(n, m), false, emit, n, m, B, vec, smem);
+}
+
+template <class K>
+int launch_row_level2(const void* FLl, const void* FLx, const void* FLu,
+                      void* const* Fls, void* const* Fxs, void* const* Fus,
+                      void* const* fsol, const float* Asep, const float* Bsep,
+                      void* const* S, int U, int N, int B, int level,
+                      int emit, int n, int m, int shift, int gy, int vec,
+                      size_t smem, cudaStream_t st) {
+  const dim3 grid((B + TB2 - 1) / TB2, gy), block(TB, slots_of(n, m), LKB);
+  const auto ml = static_cast<const bf16*>(FLl);
+  const auto mx = static_cast<const bf16*>(FLx);
+  const auto mu = static_cast<const bf16*>(FLu);
+  auto kernel = emit ? (vec ? row_level2_kernel<K, true, true>
+                            : row_level2_kernel<K, true, false>)
+                     : (vec ? row_level2_kernel<K, false, true>
+                            : row_level2_kernel<K, false, false>);
+  if (const int err = with_stage(kernel, smem)) return err;
+  kernel<<<grid, block, smem, st>>>(
+      ml, mx, mu, ptrs<bf16>(Fls), ptrs<bf16>(Fxs), ptrs<bf16>(Fus),
+      cptrs(fsol), Asep, Bsep, ptrs(S), U, N, B, level, shift, n, m);
+  return 0;
 }
 
 template <class K>

@@ -82,10 +82,10 @@ __device__ __forceinline__ LeafMask leaf_mask(int L, int k, int N) {
 // level-0 multiplier where the knot owns level 0; the level-L value of a
 // knot that owns level L > 0 reads its column c of src again (one level a
 // knot), so that the column loop runs at run time and holds no more.
-template <int NP, class Lay, class T>
+template <int NP, class Lay>
 __device__ __forceinline__ void leaf_value_rows(
     const float* __restrict__ src, const float* __restrict__ scale,
-    bool xrows, const PtrsT<T>& out, const CPtrs& fsol, int depth, int i0, const bool (&row_ok)[RPT], int cols, int n, int m,
+    bool xrows, const Ptrs& out, const CPtrs& fsol, int depth, int i0, const bool (&row_ok)[RPT], int cols, int n, int m,
     int k, int N, int g, int G, int B, const RowSite& s) {
   float w[RPT][NP], sc[RPT];
 #pragma unroll
@@ -106,7 +106,7 @@ __device__ __forceinline__ void leaf_value_rows(
   for (int u = 0; u < depth; ++u) {
     const LeafMask lu = leaf_mask(u, k, N);
     const bool own = xrows ? lu.own : lu.ownu, prev = xrows && lu.prev;
-    T* o = out.p[u];
+    float* o = out.p[u];
 #pragma unroll 1
     for (int c = 0; c < n; ++c) {
       // (M_0 @ f)[i, c], summed in order (a diagonal M_0 adds exact zeros
@@ -133,7 +133,7 @@ __device__ __forceinline__ void leaf_value_rows(
         float v = own ? src[(c * cols + i) * s.plane + s.idx] * sc[q] : 0.0f;
         if (c == i) v -= prev ? sc[q] : 0.0f;
         if (u > 0) v -= acc[q];
-        o[(i * n + c) * s.plane + s.idx] = stf<T>(v);
+        o[(i * n + c) * s.plane + s.idx] = v;
       }
     }
   }
@@ -143,14 +143,14 @@ __device__ __forceinline__ void leaf_value_rows(
 // f's (upper slabs) at odd knots; -A' and -(-A' @ f) at knot 0; zero at
 // the other even knots, except slab 1 at r + 1 (k = 4g + 2), which the
 // product emission writes.
-template <int NP, class Lay, class T>
+template <int NP, class Lay>
 __device__ __forceinline__ void leaf_lambda_rows(
     const float* __restrict__ A, const float* __restrict__ S0,
-    const PtrsT<T>& Fls, const CPtrs& fsol, int depth, int i0,
+    const Ptrs& Fls, const CPtrs& fsol, int depth, int i0,
     const bool (&row_ok)[RPT], int n, int k, int g, int G, int B,
     const RowSite& s) {
   for (int u = 0; u < depth; ++u) {
-    T* o = Fls.p[u];
+    float* o = Fls.p[u];
     if (k & 1) {
       put_rows<NP, Lay>(o, u == 0 ? S0 : fsol.p[u - 1], i0, row_ok, n, g, G,
                         B, s);
@@ -163,7 +163,7 @@ __device__ __forceinline__ void leaf_lambda_rows(
 #pragma unroll
         for (int c = 0; c < NP; ++c)
           if (row_ok[q] && c < n)
-            o[((i0 + q) * n + c) * s.plane + s.idx] = stf<T>(0.0f);
+            o[((i0 + q) * n + c) * s.plane + s.idx] = 0.0f;
       continue;
     }
     // Knot 0: fl_0 = -A' (slab 0), -(fl_0 @ f) (upper slabs).
@@ -184,7 +184,7 @@ __device__ __forceinline__ void leaf_lambda_rows(
         if (!row_ok[q]) continue;
         const float v = u > 0 ? 0.0f - row_dot<NP>(w, q, fc)
                               : -A[(c * n + i0 + q) * s.plane + s.idx];
-        o[((i0 + q) * n + c) * s.plane + s.idx] = stf<T>(v);
+        o[((i0 + q) * n + c) * s.plane + s.idx] = v;
       }
     }
   }
@@ -195,9 +195,9 @@ __device__ __forceinline__ void leaf_lambda_rows(
 // into Sout and, on slab 1, into the lambda rows. The rows of A_sep (and
 // of B_sep below the wide tag) are held as values, not addresses. x and u
 // are read back from the slab (``src``, row_groups.cuh: emit_src).
-template <class K, class Lay, bool WHOLE, class T>
+template <class K, class Lay, bool WHOLE>
 __device__ __forceinline__ void leaf_emit(
-    int i0, const EmitRows& src, T* ls, float* so, bool fold,
+    int i0, const EmitRows& src, float* ls, float* so, bool fold,
     const float* __restrict__ Asep, const float* __restrict__ Bsep, int g2,
     int G2, int B, int n, int m, const RowSite& e) {
   // B_sep's rows are held as values where they are few (NP <= 6); at the
@@ -259,12 +259,12 @@ __device__ __forceinline__ void leaf_emit(
       const int el = (i0 + q) * n + c;
       const float v = acc[q] - src.x1[el * src.es];
       so[Lay::at(el, g2, nn, G2, B, e.b)] = v;
-      if (fold) ls[el * e.plane + e.idx] = stf<T>(v);
+      if (fold) ls[el * e.plane + e.idx] = v;
     }
   }
 }
 
-template <class K, class Lay, class T>
+template <class K, class Lay>
 __global__ void __launch_bounds__(row_pair_threads<K>(),
                                   row_level_min_blocks<K>())
     leaf_row_kernel(const float* __restrict__ A,
@@ -273,8 +273,8 @@ __global__ void __launch_bounds__(row_pair_threads<K>(),
                     const float* __restrict__ rinv,
                     const float* __restrict__ S0, CPtrs fsol,
                     const float* __restrict__ Asep,
-                    const float* __restrict__ Bsep, PtrsT<T> Fls,
-                    PtrsT<T> Fxs, PtrsT<T> Fus, Ptrs Sout, int depth, int N,
+                    const float* __restrict__ Bsep, Ptrs Fls, Ptrs Fxs,
+                    Ptrs Fus, Ptrs Sout, int depth, int N,
                     int B, int n_, int m_) {
   constexpr int NP = K::NP;
   const int n = K::EX ? NP : n_, m = K::EX ? K::MP : m_;
@@ -314,8 +314,7 @@ __global__ void __launch_bounds__(row_pair_threads<K>(),
   for (int it = threadIdx.z * blockDim.y + threadIdx.y; it < items;
        it += step) {
     const int rg = it % NL, u = 1 + it / NL;
-    const EmitRows src = emit_src<T>(Fxs.p[u], Fus.p[u], nullptr, n * n,
-                                     n * m, k1 >> 2, N >> 2, B, e);
+    const EmitRows src = emit_src(Fxs.p[u], Fus.p[u], B, e);
     leaf_emit<K, Lay, WHOLE>(rg * RPT, src, Fls.p[u], Sout.p[u - 1], u == 1,
                              Asep, Bsep, k1 >> 2, N >> 2, B, n, m, e);
   }
@@ -332,7 +331,7 @@ inline bool leaf_plan_ok(int depth, int N, int n, int m, int shift, int gy,
 // Launch leaf_row_kernel on the plan (gy rows of LKB knots from knot -1;
 // the pair kernel's slots). f32 slabs; bf16 slabs run leaf_row2_kernel
 // (bf16_rows.cuh).
-template <class K, class Lay, class T = float>
+template <class K, class Lay>
 int launch_leaf_rows(const float* A, const float* Bm, const float* qinv,
                      const float* rinv, const float* S0, void* const* fsol,
                      const float* Asep, const float* Bsep, void* const* Fls,
@@ -341,9 +340,9 @@ int launch_leaf_rows(const float* A, const float* Bm, const float* qinv,
                      cudaStream_t st) {
   const dim3 grid((B + TB - 1) / TB, gy),
       block(TB, pair_slots_of(n, m, K::WIDE), LKB);
-  leaf_row_kernel<K, Lay, T><<<grid, block, 0, st>>>(
-      A, Bm, qinv, rinv, S0, cptrs(fsol), Asep, Bsep, ptrs<T>(Fls),
-      ptrs<T>(Fxs), ptrs<T>(Fus), ptrs(S), depth, N, B, n, m);
+  leaf_row_kernel<K, Lay><<<grid, block, 0, st>>>(
+      A, Bm, qinv, rinv, S0, cptrs(fsol), Asep, Bsep, ptrs(Fls), ptrs(Fxs),
+      ptrs(Fus), ptrs(S), depth, N, B, n, m);
   return 0;
 }
 

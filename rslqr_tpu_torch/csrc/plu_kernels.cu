@@ -1,7 +1,7 @@
-// Hand-written Hopper kernels for the unpivoted multi-right-hand-side LU
-// solve on element planes (8 < n <= 64):
-//   plu_kernel          <- rslqr_tpu/ops/planes_pallas.py: plu_solve_multi /
-//   plu_scratch_kernel     plu_solve (_lu_solve_kernel)
+// Hand-written Hopper kernel for the unpivoted multi-right-hand-side LU
+// solve on element planes (1 <= n <= 64):
+//   plu_kernel <- rslqr_tpu/ops/planes_pallas.py: plu_solve_multi /
+//                 plu_solve (_lu_solve_kernel)
 //
 // Computes X_r = A^-1 B_r for 1..4 right-hand sides with ONE unpivoted
 // Doolittle LU of A per plane element: A [n, n, F], B_r and X_r [n, w_r, F],
@@ -10,7 +10,8 @@
 // have eigenvalues >= 1. X_r are fresh outputs (separate pointers from
 // B_r): the TPU kernel's donation of B_r is an aliasing hint there, and an
 // in-place write here would overwrite operands the caller still reads.
-// One launch per call: plu_kernel for n <= 36, plu_scratch_kernel above.
+// One launch per call, of plu_kernel<W> at the register width W (12, 36,
+// 48 or 64) that holds n.
 //
 // Bound: at the scan's shapes (n = 36 with 74 or 37 right-hand columns,
 // n = 12 with 12) the LU and the substitutions do 2n^3/3 + 2n^2 w FLOP over
@@ -19,8 +20,8 @@
 // (F = 1,792-4,096), where what sets the time is how many SMs and warps
 // the call keeps busy and how long each block's chain of steps is.
 //
-// plu_kernel (n <= 36). A block owns LU_LANES = 8 plane elements (one
-// 32-byte sector) and W slots of 8 threads (W = 12 or 36, the register
+// plu_kernel. A block owns LU_LANES = 8 plane elements (one 32-byte
+// sector) and W slots of 8 threads (W = 12, 36, 48 or 64, the register
 // width that holds n). The grid runs (plane chunk x column group), the
 // groups of one chunk next to each other (A comes from HBM once, then from
 // L2). Factor: slot i holds row i of its element's A in registers (every
@@ -28,16 +29,17 @@
 // barrier a step: row k, final at step k, writes U(k, k..n-1) and
 // 1/u(k, k) to shared memory; each row i > k forms l(i, k), writes it
 // beside, and updates its entries from U's row k. The shared LU is
-// column-major (41.5 KB at n = 36: four blocks per SM, where the old
-// kernel's 166 KB allowed one). Solve: each slot takes right-hand columns
-// in turn, each in registers through the unit-lower forward and the upper
-// back substitution, both right-looking from the shared LU (one shared load
-// per FMA at an immediate offset; the four slots of a warp read the same
-// word). Every block refactors its chunk's A (at n = 36, 15k FMAs per
+// column-major, in dynamic shared memory (41.5 KB at W = 36: four blocks
+// per SM, where the first kernel's 166 KB allowed one; 72 KB at W = 48
+// and 128 KB at W = 64, opted in above 48 KB). Solve: each slot takes
+// right-hand columns in turn, each in registers through the unit-lower
+// forward and the upper back substitution, both right-looking from the
+// shared LU (one shared load per FMA at an immediate offset; the four slots
+// of a warp read the same word). Every block refactors its chunk's A (at n = 36, 15k FMAs per
 // element against 1,260 per right-hand column), so the launcher makes as
 // many column groups as keep the grid within one wave of resident blocks:
 // at the pscan's (36, 1, 36, 1) on F = 2,048, 512 blocks of 8 elements and
-// 37 columns, where the old kernel ran 64 blocks of 32 elements whose 8
+// 37 columns, where the first kernel ran 64 blocks of 32 elements whose 8
 // warps took the 74 columns in 10 passes. The loops are unrolled to W with
 // branches on the runtime n. Not chosen (PERF.md, timed on the H100): the
 // right-hand columns in each row's registers through the elimination
@@ -45,12 +47,11 @@
 // memory by rows, a dependent shared load, FMA and store per update (no
 // faster than the old kernel).
 //
-// plu_scratch_kernel (36 < n <= 64, whose LU would not fit a block's
-// static shared memory): a block owns 32 plane elements, one per lane; its
-// 8 warps copy the lanes' A into lane slots of a global scratch, factor it
-// right-looking (rows over the warps, a barrier a step), then take
-// right-hand columns, one per warp, in registers through both
-// substitutions.
+// Above 36 (W = 48, 64) the same design replaces plu_scratch_kernel,
+// which kept each lane's LU in a global scratch (a
+// dependent global load, FMA and store per update, 64 blocks at F = 2,048);
+// registers set the blocks per SM: two of 384 threads at W = 48 (80
+// registers), one of 512 at W = 64 (128).
 //
 // Each launcher returns cudaGetLastError() right after the launch; the
 // Python wrapper (rslqr_tpu_torch/ops/planes.py) raises on a nonzero code.
@@ -62,24 +63,29 @@ namespace {
 
 constexpr int MAXD = 64;      // largest block dim (matches ops/planes.py)
 constexpr int MAX_RHS = 4;    // right-hand sides per launch
-constexpr int REG_MAX_N = 36;  // widest n plu_kernel takes (ops/planes.py)
-constexpr int LU_LANES = 8;   // plu_kernel: plane elements per block
-constexpr int LANES = 32;     // plu_scratch_kernel: plane elements per block
-constexpr int LU_WARPS = 8;   // plu_scratch_kernel: warps per block
+constexpr int LU_LANES = 8;   // plane elements per block
+
+// Blocks per SM the register cap of plu_kernel<W> aims at.
+template <int W>
+__host__ __device__ constexpr int plu_min_blocks() {
+  return W <= 36 ? 4 : (W <= 48 ? 2 : 1);
+}
+
+// Dynamic shared memory of a plu_kernel<W> block: the column-major LU and
+// 1 / u(k, k), W * W + W words a plane element.
+template <int W>
+constexpr size_t plu_smem() {
+  return (size_t)(W * W + W) * LU_LANES * sizeof(float);
+}
 
 struct LuArgs {
   const float* A;          // [n, n, F]
-  float* scratch;          // [n, n, gridDim.x * LANES] (plu_scratch_kernel)
   const float* B[MAX_RHS];  // [n, w_r, F]
   float* X[MAX_RHS];        // [n, w_r, F]
   int w[MAX_RHS];           // 0 past the last right-hand side in use
   int nrhs, n, F;
   int groups, gw;  // plu_kernel: column groups per chunk, columns per group
 };
-
-__device__ __forceinline__ int clampk(int k, int K) {
-  return k < K ? k : K - 1;
-}
 
 // Stacked right-hand column c: offset of its (row, column) origin in B_r /
 // X_r, its right-hand side r and that side's width.
@@ -123,13 +129,13 @@ __device__ __forceinline__ constexpr int lu_at(int i, int j) {
   return (j * W + i) * LU_LANES;
 }
 
-// W slots of 8 threads (12 at W = 12, 36 at W = 36): factor rows, then
-// right-hand columns.
+// W slots of 8 threads: factor rows, then right-hand columns.
 template <int W>
-__global__ void __launch_bounds__(LU_LANES * W, 4)
+__global__ void __launch_bounds__(LU_LANES * W, plu_min_blocks<W>())
     plu_kernel(const LuArgs a) {
-  __shared__ float lu[W * W * LU_LANES];  // 41.5 KB at W = 36
-  __shared__ float dinv[W * LU_LANES];    // 1 / u(k, k)
+  extern __shared__ float smem[];
+  float* lu = smem;                       // plu_smem<W>(): 41.5 KB at 36
+  float* dinv = smem + W * W * LU_LANES;  // 1 / u(k, k)
   const int lane = threadIdx.x % LU_LANES;
   const int s = threadIdx.x / LU_LANES;  // the thread's slot
   const int chunk = blockIdx.x / a.groups;
@@ -207,106 +213,32 @@ __global__ void __launch_bounds__(LU_LANES * W, 4)
   }
 }
 
-__global__ void __launch_bounds__(LANES * LU_WARPS)
-    plu_scratch_kernel(const LuArgs a) {
-  constexpr int W = MAXD;
-  const int lane = threadIdx.x;
-  const int warp = threadIdx.y;
-  const int f0 = blockIdx.x * LANES + lane;
-  const bool live = f0 < a.F;
-  const size_t F = a.F;
-  const size_t f = live ? f0 : a.F - 1;  // dead lanes load a valid address
-  const int n = a.n;
-  // This lane's slot of the global scratch (indexed by f0, so dead lanes
-  // write apart).
-  float* lu = a.scratch + f0;
-  const size_t ls = (size_t)gridDim.x * LANES;
-  auto at = [&](int i, int j) -> float& {
-    return lu[((size_t)i * n + j) * ls];
-  };
-
-  for (int t = warp; t < n * n; t += LU_WARPS)
-    lu[(size_t)t * ls] = a.A[(size_t)t * F + f];
-  __syncthreads();
-  // Right-looking Doolittle: step k scales column k below the pivot and
-  // updates the trailing rows (each warp its own rows).
-  for (int k = 0; k + 1 < n; ++k) {
-    const float inv = 1.f / at(k, k);
-    for (int i = k + 1 + warp; i < n; i += LU_WARPS) {
-      const float l = at(i, k) * inv;
-      at(i, k) = l;
-#pragma unroll 4
-      for (int j = k + 1; j < n; ++j) at(i, j) = fmaf(-l, at(k, j), at(i, j));
-    }
-    __syncthreads();
-  }
-
-  const int total = a.w[0] + a.w[1] + a.w[2] + a.w[3];
-  for (int c = warp; c < total; c += LU_WARPS) {
-    const RhsCol rc = rhs_col(a, c);
-    const float* B = rhs_in(a, rc.r) + rc.off + f;
-    float x[W];
-#pragma unroll
-    for (int k = 0; k < W; ++k) {
-      const float v = B[(size_t)clampk(k, n) * rc.w * F];
-      x[k] = k < n ? v : 0.f;
-    }
-#pragma unroll
-    for (int i = 1; i < W; ++i) {  // unit-lower forward substitution
-      if (i < n) {
-        float s = x[i];
-#pragma unroll
-        for (int k = 0; k < i; ++k) s = fmaf(-at(i, k), x[k], s);
-        x[i] = s;
-      }
-    }
-#pragma unroll
-    for (int i = W - 1; i >= 0; --i) {  // U back substitution
-      if (i < n) {
-        float s = x[i];
-#pragma unroll
-        for (int k = i + 1; k < W; ++k)  // x[k] = 0 for k >= n
-          s = fmaf(-at(i, clampk(k, n)), x[k], s);
-        x[i] = s * (1.f / at(i, i));
-      }
-    }
-    if (live) {
-      float* X = rhs_out(a, rc.r) + rc.off + f;
-#pragma unroll
-      for (int i = 0; i < W; ++i)
-        if (i < n) X[(size_t)i * rc.w * F] = x[i];
-    }
-  }
-}
-
-// Blocks of plu_kernel the card holds at once: 132 SMs (H100 SXM) x 4 (the
-// register cap; the 41.5 KB shared LU allows 5).
-constexpr int LU_WAVE = 132 * 4;
-
 // Column groups: one per W right-hand columns (a column per slot), but no
-// more than keep the grid within one wave, since each group refactors its
-// chunk's A; past that the slots take several columns in turn. At the
-// pscan's (36, 1, 36, 1) on F = 2,048 that is 2 groups of 37 (0.097 ms
-// chained on the H100, against 0.125 for 3 groups of 25), at (36, 1) on
-// F = 1,792 2 groups of 19 (0.057, against 0.071 for one group).
+// more than keep the grid within one wave of resident blocks (132 SMs
+// (H100 SXM) x plu_min_blocks<W>(), the register cap; at W = 36 the 41.5
+// KB shared LU allows 5), since each group refactors its chunk's A; past
+// that the slots take several columns in turn. At the pscan's
+// (36, 1, 36, 1) on F = 2,048 that is 2 groups of 37 (0.097 ms chained on
+// the H100, against 0.125 for 3 groups of 25), at (36, 1) on F = 1,792 2
+// groups of 19 (0.057, against 0.071 for one group).
 template <int W>
 int launch_plu(LuArgs a, cudaStream_t st) {
   const int total = a.w[0] + a.w[1] + a.w[2] + a.w[3];
   const long long chunks = (a.F + LU_LANES - 1) / LU_LANES;
-  const long long fit = LU_WAVE / chunks;
+  const long long fit = 132LL * plu_min_blocks<W>() / chunks;
   a.groups = (int)(fit < 1 ? 1 : fit < (total + W - 1) / W
                                      ? fit : (total + W - 1) / W);
   a.gw = (total + a.groups - 1) / a.groups;  // even groups
   const long long blocks = chunks * a.groups;
   if (blocks >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
-  plu_kernel<W><<<(unsigned)blocks, LU_LANES * W, 0, st>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int launch_plu_scratch(const LuArgs& a, cudaStream_t st) {
-  if (!a.scratch) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((a.F + LANES - 1) / LANES);
-  plu_scratch_kernel<<<grid, dim3(LANES, LU_WARPS), 0, st>>>(a);
+  constexpr size_t smem = plu_smem<W>();
+  if (smem > 48 * 1024) {  // dynamic shared memory past 48 KB: opt in
+    const cudaError_t err = cudaFuncSetAttribute(
+        plu_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  plu_kernel<W><<<(unsigned)blocks, LU_LANES * W, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -314,17 +246,14 @@ int launch_plu_scratch(const LuArgs& a, cudaStream_t st) {
 
 extern "C" {
 
-// Solve A X_r = B_r for r < nrhs (1..4). ``scratch`` holds n*n*ceil(F/32)*32
-// floats when n > 36 (else it may be null). X_r must not alias A or any B.
-int rslqr_plu_solve_multi(const float* A, float* scratch,
-                          const float* const* Bs, float* const* Xs,
-                          const int* ws, int nrhs, int n, int F,
-                          void* stream) {
+// Solve A X_r = B_r for r < nrhs (1..4). X_r must not alias A or any B.
+int rslqr_plu_solve_multi(const float* A, const float* const* Bs,
+                          float* const* Xs, const int* ws, int nrhs, int n,
+                          int F, void* stream) {
   if (n < 1 || n > MAXD || nrhs < 1 || nrhs > MAX_RHS || F < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   LuArgs a = {};
   a.A = A;
-  a.scratch = scratch;
   for (int r = 0; r < nrhs; ++r) {
     if (ws[r] < 1 || ws[r] > MAXD)
       return static_cast<int>(cudaErrorInvalidValue);
@@ -337,8 +266,9 @@ int rslqr_plu_solve_multi(const float* A, float* scratch,
   a.F = F;
   const auto st = static_cast<cudaStream_t>(stream);
   if (n <= 12) return launch_plu<12>(a, st);
-  if (n <= REG_MAX_N) return launch_plu<36>(a, st);
-  return launch_plu_scratch(a, st);
+  if (n <= 36) return launch_plu<36>(a, st);
+  if (n <= 48) return launch_plu<48>(a, st);
+  return launch_plu<64>(a, st);
 }
 
 }  // extern "C"

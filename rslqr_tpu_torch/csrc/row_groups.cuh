@@ -2,7 +2,8 @@
 // of every upper slab, or two levels in one pass.
 //
 //   row_level_kernel <- rslqr_tpu/ops/schur_pallas.py:schur_update_level_em
-//                       (B1, schur_kernels.cu, every block size) and
+//                       (B1, schur_kernels.cu, every block size; bf16
+//                       slabs: bf16_rows.cuh) and
 //                       rslqr_tpu/ops/schur_planes.py:schur_update_level_flat
 //                       (B10, flat_kernels.cu, the wide blocks)
 //   row_pair_kernel  <- rslqr_tpu/ops/schur_pallas.py:schur_update_pair_em
@@ -81,18 +82,11 @@ __host__ __device__ constexpr int row_level_threads() {
   return TB * LKB * slots_of(K::NP, K::WIDE ? MAX_INPUT_DIM : K::MP);
 }
 
-// Blocks per SM the register cap aims at: 30 warps at (6, 3). B1 at an
-// emitting level with bf16 slabs (``shadow``: it also writes its products'
-// f32 rows) aims at one block fewer where the cap allows three: under the
-// f32 cap its (6, 3) instantiation spilled 112 bytes and ran 1.16x slower
-// at level 3 (20 warps and 88 registers, no spill; the same cap made the
-// pair and leaf kernels slower, so they keep theirs: PERF.md §6).
+// Blocks per SM the register cap aims at: 30 warps at (6, 3).
 template <class K>
-__host__ __device__ constexpr int row_level_min_blocks(bool shadow = false) {
-  return 960 / row_level_threads<K>() > 1
-             ? 960 / row_level_threads<K>() -
-                   (shadow && 960 / row_level_threads<K>() >= 3)
-             : 1;
+__host__ __device__ constexpr int row_level_min_blocks() {
+  return 960 / row_level_threads<K>() > 1 ? 960 / row_level_threads<K>()
+                                          : 1;
 }
 
 // The pair kernel's slots: as the level kernel's, but 8 at the wide tag, so
@@ -149,8 +143,8 @@ __device__ __forceinline__ RowSite row_site(int N, int B, int shift) {
 
 // Rows i0 .. i0 + RPT - 1 of a slab M (n columns) at this knot, zero past
 // the slab's rows (row_ok) and past n.
-template <int NP, class T>
-__device__ __forceinline__ void load_rows(float (&r)[RPT][NP], const T* M,
+template <int NP>
+__device__ __forceinline__ void load_rows(float (&r)[RPT][NP], const float* M,
                                           int i0, const bool (&row_ok)[RPT],
                                           int n, const RowSite& s) {
 #pragma unroll
@@ -158,60 +152,26 @@ __device__ __forceinline__ void load_rows(float (&r)[RPT][NP], const T* M,
 #pragma unroll
     for (int j = 0; j < NP; ++j)
       r[q][j] = row_ok[q] && j < n
-                    ? ldf(M[((i0 + q) * n + j) * s.plane + s.idx])
+                    ? M[((i0 + q) * n + j) * s.plane + s.idx]
                     : 0.0f;
 }
 
-// bf16 slabs at an emitting B1 launch. The products read the f32 values of
-// the rows they use, as the JAX kernels form them before the rounded store
-// (schur_pallas.py:247-257), so the launch writes those values beside the
-// store into a shadow per emitted slab, [2nn + mn, G2, B] f32
-// (ops/schur.py:_shadow; B3 and B4 stage them in shared memory instead,
-// bf16_rows.cuh): the x rows of the next-level separator knot r
-// (elements 0 ..), its u rows (nn ..) and the x rows of r + 1 (nn + mn ..).
-// The lambda rows of r + 1 are left unchanged by the update, so the slab
-// holds them exactly. f32 slabs need no shadow: the products read the slab.
-// The part of the shadow a thread's rows of ``slab`` (0 lambda, 1 x, 2 u)
-// at knot k fill, with next-level groups of 2 span knots; -1 for none.
-__device__ __forceinline__ int shadow_part(int slab, int k, int span, int nn,
-                                           int mn) {
-  const int kr = k & (2 * span - 1);
-  if (kr == span - 1) return slab == 1 ? 0 : (slab == 2 ? nn : -1);
-  if (kr == span) return slab == 1 ? nn + mn : -1;
-  return -1;
-}
-
-__device__ __forceinline__ void shadow_put(float* h, int part, int e, int g2,
-                                           int G2, int B, int b, float v) {
-  h[((size_t)(part + e) * G2 + g2) * B + b] = v;
-}
-
-// Where the products of one slab read the f32 rows of knots r and r + 1:
-// element 0 of x and u at r and of x at r + 1, ``es`` apart.
+// Where the products of one slab read the f32 rows of knots r and r + 1
+// (``e`` the site of r + 1; f32 slabs, which hold them as computed; the
+// bf16 kernels stage them, bf16_rows.cuh): element 0 of x and u at r and
+// of x at r + 1, ``es`` apart.
 struct EmitRows {
   const float *xr, *ur, *x1;
   size_t es;
 };
 
-// ``e`` is the site of knot r + 1; ``h`` the slab's shadow (bf16 slabs).
-template <class T>
-__device__ __forceinline__ EmitRows emit_src(const T* xs, const T* us,
-                                             const float* h, int nn, int mn,
-                                             int g2, int G2, int B,
-                                             const RowSite& e) {
+__device__ __forceinline__ EmitRows emit_src(const float* xs, const float* us,
+                                             int B, const RowSite& e) {
   EmitRows r;
-  if constexpr (kBf16<T>) {
-    r.es = (size_t)G2 * B;
-    const float* base = h + (size_t)g2 * B + e.b;
-    r.xr = base;
-    r.ur = base + nn * r.es;
-    r.x1 = base + (nn + mn) * r.es;
-  } else {
-    r.es = e.plane;
-    r.xr = xs + e.idx - B;
-    r.ur = us + e.idx - B;
-    r.x1 = xs + e.idx;
-  }
+  r.es = e.plane;
+  r.xr = xs + e.idx - B;
+  r.ur = us + e.idx - B;
+  r.x1 = xs + e.idx;
   return r;
 }
 
@@ -236,8 +196,8 @@ __device__ __forceinline__ float row_dot(const float (&r)[RPT][NP], int q,
 }
 
 // Rows i0 .. of the solved separator f (group g) written to ``out``.
-template <int NP, class Lay, class T>
-__device__ __forceinline__ void put_rows(T* out, const float* f, int i0,
+template <int NP, class Lay>
+__device__ __forceinline__ void put_rows(float* out, const float* f, int i0,
                                          const bool (&row_ok)[RPT], int n,
                                          int g, int G, int B,
                                          const RowSite& s) {
@@ -247,19 +207,18 @@ __device__ __forceinline__ void put_rows(T* out, const float* f, int i0,
     for (int c = 0; c < NP; ++c) {
       if (!row_ok[q] || c >= n) continue;
       const int e = (i0 + q) * n + c;
-      out[e * s.plane + s.idx] = stf<T>(f[Lay::at(e, g, n * n, G, B, s.b)]);
+      out[e * s.plane + s.idx] = f[Lay::at(e, g, n * n, G, B, s.b)];
     }
 }
 
 // The products of one emitting knot r + 1 (this thread's site), for the
 // lambda row groups (rows i0 ..) of slabs u0 .. U - 1: S_u -> Sout[u - u0]
 // at group g2 of G2, folded into slab u0's lambda rows. Called after a
-// barrier that made every row of knots r and r + 1 (and, for bf16 slabs,
-// the shadows H[u - u0]) visible.
-template <int NP, class Lay, bool WHOLE, class T>
+// barrier that made every row of knots r and r + 1 visible.
+template <int NP, class Lay, bool WHOLE>
 __device__ __forceinline__ void emit_rows(
-    int rg0, int rgstep, int NL, const PtrsT<T>& Fls, const PtrsT<T>& Fxs,
-    const PtrsT<T>& Fus, const Ptrs& Sout, const Ptrs& H, int u0, int U,
+    int rg0, int rgstep, int NL, const Ptrs& Fls, const Ptrs& Fxs,
+    const Ptrs& Fus, const Ptrs& Sout, int u0, int U,
     const float* __restrict__ Asep, const float* __restrict__ Bsep, int g2,
     int G2, int B, int n, int m, const RowSite& s) {
   const int nn = n * n;
@@ -269,9 +228,8 @@ __device__ __forceinline__ void emit_rows(
 #pragma unroll
     for (int r = 0; r < RPT; ++r) row_ok[r] = WHOLE || i0 + r < n;
     for (int u = u0; u < U; ++u) {
-      const EmitRows src = emit_src<T>(Fxs.p[u], Fus.p[u], H.p[u - u0], nn,
-                                       n * m, g2, G2, B, s);
-      T* ls = Fls.p[u];
+      const EmitRows src = emit_src(Fxs.p[u], Fus.p[u], B, s);
+      float* ls = Fls.p[u];
       float* so = Sout.p[u - u0];
 #pragma unroll 1
       for (int c = 0; c < n; ++c) {
@@ -304,23 +262,24 @@ __device__ __forceinline__ void emit_rows(
           if (!row_ok[r]) continue;
           const int e = (i0 + r) * n + c;
           const float v =
-              acc[r] - src.x1[e * src.es] - ldf(ls[e * s.plane + s.idx]);
+              acc[r] - src.x1[e * src.es] - ls[e * s.plane + s.idx];
           so[Lay::at(e, g2, nn, G2, B, s.b)] = v;
-          if (u == u0) ls[e * s.plane + s.idx] = stf<T>(v);
+          if (u == u0) ls[e * s.plane + s.idx] = v;
         }
       }
     }
   }
 }
 
-template <class K, bool EMIT, class Lay, class T>
+template <class K, bool EMIT, class Lay>
 __global__ void __launch_bounds__(row_level_threads<K>(),
-                                  row_level_min_blocks<K>(kBf16<T> && EMIT))
-    row_level_kernel(const T* __restrict__ FLl, const T* __restrict__ FLx,
-                     const T* __restrict__ FLu, PtrsT<T> Fls, PtrsT<T> Fxs,
-                     PtrsT<T> Fus, CPtrs fsol, const float* __restrict__ Asep,
-                     const float* __restrict__ Bsep, Ptrs Sout, Ptrs H, int U,
-                     int N, int B, int level, int shift, int n_, int m_) {
+                                  row_level_min_blocks<K>())
+    row_level_kernel(const float* __restrict__ FLl,
+                     const float* __restrict__ FLx,
+                     const float* __restrict__ FLu, Ptrs Fls, Ptrs Fxs,
+                     Ptrs Fus, CPtrs fsol, const float* __restrict__ Asep,
+                     const float* __restrict__ Bsep, Ptrs Sout, int U, int N,
+                     int B, int level, int shift, int n_, int m_) {
   constexpr int NP = K::NP;
   const int n = K::EX ? NP : n_, m = K::EX ? K::MP : m_;
   // Every row group whole: nothing to mask.
@@ -347,17 +306,13 @@ __global__ void __launch_bounds__(row_level_threads<K>(),
     const bool lam = slab == 0;
     const bool upd = s.live && !(lam && (sep || !keep));  // reads M's rows
     const bool put = s.live && lam && sep;                // writes f's rows
-    // bf16 at an emitting level: where these rows' f32 values go.
-    const int part = kBf16<T> && EMIT && s.live
-                         ? shadow_part(slab, k, span, n * n, n * m)
-                         : -1;
     float mrow[RPT][NP];
     if (upd)
       load_rows<NP>(mrow, slab == 0 ? FLl : (slab == 1 ? FLx : FLu), i0,
                     row_ok, n, s);
     for (int u = 0; u < U; ++u) {
       const float* fu = fsol.p[u];
-      T* out = slab == 0 ? Fls.p[u] : (slab == 1 ? Fxs.p[u] : Fus.p[u]);
+      float* out = slab == 0 ? Fls.p[u] : (slab == 1 ? Fxs.p[u] : Fus.p[u]);
       if (upd) {
 #pragma unroll
         for (int c = 0; c < NP; ++c) {
@@ -366,16 +321,14 @@ __global__ void __launch_bounds__(row_level_threads<K>(),
           load_fcol<NP, Lay>(fc, fu, c, n, g, G, B, s.b);
 #pragma unroll
           for (int r = 0; r < RPT; ++r)
-            v[r] = row_ok[r] ? ldf(out[((i0 + r) * n + c) * s.plane + s.idx])
+            v[r] = row_ok[r] ? out[((i0 + r) * n + c) * s.plane + s.idx]
                              : 0.0f;
 #pragma unroll
           for (int r = 0; r < RPT; ++r) {
             const float acc = row_dot<NP>(mrow, r, fc);
             if (!row_ok[r]) continue;
             const int e = (i0 + r) * n + c;
-            out[e * s.plane + s.idx] = stf<T>(v[r] - acc);
-            if (part >= 0)
-              shadow_put(H.p[u], part, e, g2, G2, B, s.b, v[r] - acc);
+            out[e * s.plane + s.idx] = v[r] - acc;
           }
         }
       } else if (put) {
@@ -386,9 +339,8 @@ __global__ void __launch_bounds__(row_level_threads<K>(),
   if constexpr (EMIT) {
     __syncthreads();
     if (!s.live || (k & (2 * span - 1)) != span) return;  // knot r + 1 only
-    emit_rows<NP, Lay, WHOLE, T>(threadIdx.y, blockDim.y, NL, Fls, Fxs, Fus,
-                                 Sout, H, 0, U, Asep, Bsep, g2, G2, B, n, m,
-                                 s);
+    emit_rows<NP, Lay, WHOLE>(threadIdx.y, blockDim.y, NL, Fls, Fxs, Fus,
+                              Sout, 0, U, Asep, Bsep, g2, G2, B, n, m, s);
   }
 }
 
@@ -397,12 +349,13 @@ __global__ void __launch_bounds__(row_level_threads<K>(),
 // slabs 1 .. U-1 take both levels, the second with slab 0's new rows (held
 // in m2) as multiplier; at an emitting level the level-(L+2) products of
 // slabs 1 .. U-1 go to Sout[u - 1], folded into slab 1.
-template <class K, bool EMIT, class Lay, class T>
+template <class K, bool EMIT, class Lay>
 __global__ void __launch_bounds__(row_pair_threads<K>(),
                                   row_pair_min_blocks<K>())
-    row_pair_kernel(const T* __restrict__ FLl, const T* __restrict__ FLx,
-                    const T* __restrict__ FLu, PtrsT<T> Fls, PtrsT<T> Fxs,
-                    PtrsT<T> Fus, CPtrs fsol1, const float* __restrict__ Sbar2,
+    row_pair_kernel(const float* __restrict__ FLl,
+                    const float* __restrict__ FLx,
+                    const float* __restrict__ FLu, Ptrs Fls, Ptrs Fxs,
+                    Ptrs Fus, CPtrs fsol1, const float* __restrict__ Sbar2,
                     CPtrs fsol2, const float* __restrict__ Asep3,
                     const float* __restrict__ Bsep3, Ptrs Sout, int U, int N,
                     int B, int level, int shift, int n_, int m_) {
@@ -440,9 +393,8 @@ __global__ void __launch_bounds__(row_pair_threads<K>(),
       load_rows<NP>(mrow, slab == 0 ? FLl : (slab == 1 ? FLx : FLu), i0,
                     row_ok, n, s);
     // Slab 0 (u = L+1): level L, then Sbar2 at sep2. Its new rows are the
-    // level-(L+1) multiplier's as stored (rounded, for bf16 slabs: the JAX
-    // kernel reads them back from its output block).
-    T* o0 = slab == 0 ? Fls.p[0] : (slab == 1 ? Fxs.p[0] : Fus.p[0]);
+    // level-(L+1) multiplier's as stored.
+    float* o0 = slab == 0 ? Fls.p[0] : (slab == 1 ? Fxs.p[0] : Fus.p[0]);
     if (lam && sep2) {
       put_rows<NP, Lay>(o0, Sbar2, i0, row_ok, n, g2, G2, B, s);
     } else if (lam && sep1) {
@@ -460,12 +412,12 @@ __global__ void __launch_bounds__(row_pair_threads<K>(),
         load_fcol<NP, Lay>(fc, fsol1.p[0], c, n, g1, G1, B, s.b);
 #pragma unroll
         for (int r = 0; r < RPT; ++r)
-          v[r] = row_ok[r] ? ldf(o0[((i0 + r) * n + c) * s.plane + s.idx])
+          v[r] = row_ok[r] ? o0[((i0 + r) * n + c) * s.plane + s.idx]
                            : 0.0f;
 #pragma unroll
         for (int r = 0; r < RPT; ++r) {
-          const T nv = stf<T>(v[r] - row_dot<NP>(mrow, r, fc));
-          m2[r][c] = row_ok[r] ? ldf(nv) : 0.0f;
+          const float nv = v[r] - row_dot<NP>(mrow, r, fc);
+          m2[r][c] = row_ok[r] ? nv : 0.0f;
           if (row_ok[r]) o0[((i0 + r) * n + c) * s.plane + s.idx] = nv;
         }
       }
@@ -477,7 +429,7 @@ __global__ void __launch_bounds__(row_pair_threads<K>(),
     for (int u = 1; u < U; ++u) {
       const float* f1 = fsol1.p[u];
       const float* f2 = fsol2.p[u - 1];
-      T* out = slab == 0 ? Fls.p[u] : (slab == 1 ? Fxs.p[u] : Fus.p[u]);
+      float* out = slab == 0 ? Fls.p[u] : (slab == 1 ? Fxs.p[u] : Fus.p[u]);
       if (lam && sep2) {
         put_rows<NP, Lay>(out, f2, i0, row_ok, n, g2, G2, B, s);
       } else if (!lam || keep2) {
@@ -496,9 +448,8 @@ __global__ void __launch_bounds__(row_pair_threads<K>(),
             load_fcol<NP, Lay>(fc1, f1, c, n, g1, G1, B, s.b);
 #pragma unroll
             for (int r = 0; r < RPT; ++r)
-              v[r] = row_ok[r]
-                         ? ldf(out[((i0 + r) * n + c) * s.plane + s.idx])
-                         : 0.0f;
+              v[r] = row_ok[r] ? out[((i0 + r) * n + c) * s.plane + s.idx]
+                               : 0.0f;
 #pragma unroll
             for (int r = 0; r < RPT; ++r) v[r] -= row_dot<NP>(mrow, r, fc1);
           }
@@ -507,7 +458,7 @@ __global__ void __launch_bounds__(row_pair_threads<K>(),
             const float acc2 = row_dot<NP>(m2, r, fc2);
             if (!row_ok[r]) continue;
             const int e = (i0 + r) * n + c;
-            out[e * s.plane + s.idx] = stf<T>(v[r] - acc2);
+            out[e * s.plane + s.idx] = v[r] - acc2;
           }
         }
       }
@@ -518,44 +469,41 @@ __global__ void __launch_bounds__(row_pair_threads<K>(),
   if constexpr (EMIT) {
     __syncthreads();
     if (!s.live || (k & (2 * span2 - 1)) != span2) return;  // knot r + 1
-    emit_rows<NP, Lay, WHOLE, T>(threadIdx.y, blockDim.y, NL, Fls, Fxs, Fus,
-                                 Sout, Ptrs{}, 1, U, Asep3, Bsep3, g3, G3, B,
-                                 n, m, s);
+    emit_rows<NP, Lay, WHOLE>(threadIdx.y, blockDim.y, NL, Fls, Fxs, Fus,
+                              Sout, 1, U, Asep3, Bsep3, g3, G3, B, n, m, s);
   }
 }
 
 // Launch row_level_kernel on the plan's geometry (ops/schur.py:_level_plan):
 // gy rows of LKB knots starting at knot -shift cover every knot; emission
 // needs each (odd r, r + 1) pair in one block, so a shift of one; rgs row
-// groups cover the 2n + m rows, in slots_of(n, m) slots.
-// Slabs in storage T (float or __nv_bfloat16); ``H`` the f32 shadows of an
-// emitting bf16 launch (none otherwise).
-template <class K, class Lay, class T = float>
+// groups cover the 2n + m rows, in slots_of(n, m) slots. f32 slabs; bf16
+// slabs run row_level2_kernel (bf16_rows.cuh).
+template <class K, class Lay>
 int launch_row_level(const void* FLl, const void* FLx, const void* FLu,
                      void* const* Fls, void* const* Fxs, void* const* Fus,
                      void* const* fsol, const float* Asep, const float* Bsep,
                      void* const* S, int U, int N, int B, int level, int emit,
-                     int n, int m, int shift, int gy, cudaStream_t st,
-                     void* const* H = nullptr) {
+                     int n, int m, int shift, int gy, cudaStream_t st) {
   const dim3 grid((B + TB - 1) / TB, gy), block(TB, slots_of(n, m), LKB);
-  const auto ml = static_cast<const T*>(FLl);
-  const auto mx = static_cast<const T*>(FLx);
-  const auto mu = static_cast<const T*>(FLu);
+  const auto ml = static_cast<const float*>(FLl);
+  const auto mx = static_cast<const float*>(FLx);
+  const auto mu = static_cast<const float*>(FLu);
   if (emit)
-    row_level_kernel<K, true, Lay, T><<<grid, block, 0, st>>>(
-        ml, mx, mu, ptrs<T>(Fls), ptrs<T>(Fxs), ptrs<T>(Fus), cptrs(fsol),
-        Asep, Bsep, ptrs(S), ptrs(H), U, N, B, level, shift, n, m);
+    row_level_kernel<K, true, Lay><<<grid, block, 0, st>>>(
+        ml, mx, mu, ptrs(Fls), ptrs(Fxs), ptrs(Fus), cptrs(fsol), Asep, Bsep,
+        ptrs(S), U, N, B, level, shift, n, m);
   else
-    row_level_kernel<K, false, Lay, T><<<grid, block, 0, st>>>(
-        ml, mx, mu, ptrs<T>(Fls), ptrs<T>(Fxs), ptrs<T>(Fus), cptrs(fsol),
-        Asep, Bsep, ptrs(S), ptrs(H), U, N, B, level, shift, n, m);
+    row_level_kernel<K, false, Lay><<<grid, block, 0, st>>>(
+        ml, mx, mu, ptrs(Fls), ptrs(Fxs), ptrs(Fus), cptrs(fsol), Asep, Bsep,
+        ptrs(S), U, N, B, level, shift, n, m);
   return 0;
 }
 
 // Launch row_pair_kernel on the same plan (the pair's slots:
 // pair_slots_of). f32 slabs; bf16 slabs run row_pair2_kernel
 // (bf16_rows.cuh).
-template <class K, class Lay, class T = float>
+template <class K, class Lay>
 int launch_row_pair(const void* FLl, const void* FLx, const void* FLu,
                     void* const* Fls, void* const* Fxs, void* const* Fus,
                     void* const* fsol1, const float* Sbar2,
@@ -565,17 +513,17 @@ int launch_row_pair(const void* FLl, const void* FLx, const void* FLu,
                     cudaStream_t st) {
   const dim3 grid((B + TB - 1) / TB, gy),
       block(TB, pair_slots_of(n, m, K::WIDE), LKB);
-  const auto ml = static_cast<const T*>(FLl);
-  const auto mx = static_cast<const T*>(FLx);
-  const auto mu = static_cast<const T*>(FLu);
+  const auto ml = static_cast<const float*>(FLl);
+  const auto mx = static_cast<const float*>(FLx);
+  const auto mu = static_cast<const float*>(FLu);
   if (emit)
-    row_pair_kernel<K, true, Lay, T><<<grid, block, 0, st>>>(
-        ml, mx, mu, ptrs<T>(Fls), ptrs<T>(Fxs), ptrs<T>(Fus), cptrs(fsol1),
+    row_pair_kernel<K, true, Lay><<<grid, block, 0, st>>>(
+        ml, mx, mu, ptrs(Fls), ptrs(Fxs), ptrs(Fus), cptrs(fsol1),
         Sbar2, cptrs(fsol2), Asep3, Bsep3, ptrs(S), U, N, B, level, shift, n,
         m);
   else
-    row_pair_kernel<K, false, Lay, T><<<grid, block, 0, st>>>(
-        ml, mx, mu, ptrs<T>(Fls), ptrs<T>(Fxs), ptrs<T>(Fus), cptrs(fsol1),
+    row_pair_kernel<K, false, Lay><<<grid, block, 0, st>>>(
+        ml, mx, mu, ptrs(Fls), ptrs(Fxs), ptrs(Fus), cptrs(fsol1),
         Sbar2, cptrs(fsol2), Asep3, Bsep3, ptrs(S), U, N, B, level, shift, n,
         m);
   return 0;

@@ -1,7 +1,7 @@
 // Hand-written Hopper kernels for the element-major rsLQR sweep.
 //
-// Four kernels, one per TPU kernel of rslqr_tpu/ops/schur_pallas.py (B3 and
-// B4 with bf16 slabs: bf16_kernels.cu):
+// Four kernels, one per TPU kernel of rslqr_tpu/ops/schur_pallas.py (B1, B3
+// and B4 with bf16 slabs: bf16_kernels.cu):
 //   row_level_kernel <- schur_update_level_em (one tree level, every upper
 //                       slab; row_groups.cuh, on row groups)
 //   row_pair_kernel  <- schur_update_pair_em  (levels L and L+1 in one pass;
@@ -13,14 +13,12 @@
 // Layout (as in the JAX package): factor slabs are element-major planes
 // [e, N, B] (element e of knot k, batch column b at e*N*B + k*B + b);
 // solved separator blocks and emitted products are group-major [G, e, B].
-// Slabs stored in float32 or bfloat16 (SolveOptions.factor_dtype; the B1
-// and B2 entries take a ``bf16`` flag, B3's and B4's bf16 slabs run their
+// Slabs stored in float32 or bfloat16 (SolveOptions.factor_dtype; the B2
+// entry takes a ``bf16`` flag, B1's, B3's and B4's bf16 slabs run their
 // own kernels, bf16_kernels.cu): every kernel loads a slab element into
 // f32, does all its math in f32 and rounds once at the store, as the JAX
 // kernels do (schur_pallas.py:214-216, 255-257, 563-565); everything else
-// is float32. At an emitting bf16 B1 launch the products read the f32
-// values of their rows from a shadow the launch writes beside the slabs
-// (row_groups.cuh). Block sizes: every 1 <= n <= 8, 1 <= m <= 64, through
+// is float32. Block sizes: every 1 <= n <= 8, 1 <= m <= 64, through
 // the instantiations of small_blocks.cuh (the exact (6, 3), the (4, 4) and
 // (8, 8) capacities with n, m at run time, and the wide tag whose u rows
 // come in chunks of 8).
@@ -168,9 +166,7 @@ const char* rslqr_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Slab pointers are f32 or bf16 as ``bf16`` says; ``H`` (B1) the f32
-// shadows of an emitting bf16 launch (ops/schur.py:_shadow), else a list
-// of null pointers.
+// Slab pointers are f32 or bf16 as ``bf16`` says.
 int rslqr_rhs_update_level(const void* Fl, const void* Fx, const void* Fu,
                            float* zy, float* zx, float* zu, const float* zbar,
                            int N, int B, int level, int n, int m, int bf16,
@@ -188,26 +184,22 @@ int rslqr_rhs_update_level(const void* Fl, const void* Fx, const void* Fu,
 }
 
 // B1 on the plan of ops/schur.py:_level_plan (``shift``, ``gy`` grid rows,
-// ``rgs`` row groups); a plan that does not cover the level is refused.
+// ``rgs`` row groups), f32 slabs; a plan that does not cover the level is
+// refused.
 int rslqr_schur_update_level(const void* FLl, const void* FLx,
                              const void* FLu, void* const* Fls,
                              void* const* Fxs, void* const* Fus,
                              void* const* fsol, const float* Asep,
-                             const float* Bsep, void* const* S,
-                             void* const* H, int U, int N, int B, int level,
-                             int emit, int n, int m, int shift, int gy,
-                             int rgs, int bf16, void* stream) {
+                             const float* Bsep, void* const* S, int U, int N,
+                             int B, int level, int emit, int n, int m,
+                             int shift, int gy, int rgs, void* stream) {
   if (!small_blocks::row_plan_ok(U, N, level, emit, n, m, shift, gy, rgs))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
   return with_block(n, m, [&](auto k) {
-    using K = decltype(k);
-    with_storage(bf16, [&](auto t) {
-      small_blocks::launch_row_level<K, small_blocks::GroupMajor,
-                                     decltype(t)>(
-          FLl, FLx, FLu, Fls, Fxs, Fus, fsol, Asep, Bsep, S, U, N, B, level,
-          emit, n, m, shift, gy, st, H);
-    });
+    small_blocks::launch_row_level<decltype(k), small_blocks::GroupMajor>(
+        FLl, FLx, FLu, Fls, Fxs, Fus, fsol, Asep, Bsep, S, U, N, B, level,
+        emit, n, m, shift, gy, st);
   });
 }
 

@@ -81,21 +81,24 @@ def library_path() -> Path:
     return BUILD_DIR / f"rslqr_kernels_{digest}.so"
 
 
-def _run(procs) -> None:
+def _run(procs, echo: bool = True) -> list:
     """Wait for every ``(cmd, Popen, tmp)``; raise with the compiler's
-    output on the first failure, after all have ended."""
-    failed = []
+    output on the first failure, after all have ended. Returns each
+    compiler's output (printed where ``echo``)."""
+    failed, outs = [], []
     for cmd, proc, tmp in procs:
         out, err = proc.communicate()
+        outs.append(out + err)
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
                           f"\n{out}\n{err}")
             if os.path.exists(tmp):
                 os.unlink(tmp)
-        elif out or err:
+        elif (out or err) and echo:
             print(out + err)
     if failed:
         raise RuntimeError("\n".join(failed))
+    return outs
 
 
 def _tmp(suffix: str) -> str:
@@ -104,10 +107,12 @@ def _tmp(suffix: str) -> str:
     return tmp
 
 
-def build(extra_flags=()) -> Path:
+def build(extra_flags=(), reports: dict = None) -> Path:
     """Compile the kernels unless the library for these sources exists.
     ``extra_flags`` (for example ``("-Xptxas", "-v")``) force a fresh
-    compile whose compiler output is printed."""
+    compile whose compiler output is printed, or, given ``reports``, put
+    in it by source file name (with ``-Xptxas -v``: a :func:`ptxas_report`
+    of each source, from the one compile the library is built from)."""
     out = library_path()
     if out.exists() and not extra_flags:
         return out
@@ -123,7 +128,11 @@ def build(extra_flags=()) -> Path:
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE, text=True)
         jobs.append((cmd, proc, tmp, obj))
-    _run([(cmd, proc, tmp) for cmd, proc, tmp, _ in jobs])
+    outs = _run([(cmd, proc, tmp) for cmd, proc, tmp, _ in jobs],
+                echo=reports is None)
+    if reports is not None:
+        reports.update({Path(cmd[-1]).name: o
+                        for (cmd, *_), o in zip(jobs, outs)})
     for *_, tmp, obj in jobs:
         os.replace(tmp, obj)
     tmp = _tmp(".so")
@@ -174,13 +183,15 @@ _I, _FL, _LL = ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 SIGNATURES = {
     # csrc/schur_kernels.cu
     "rslqr_rhs_update_level": [_P] * 7 + [_I] * 6 + [_P],
-    "rslqr_schur_update_level": [_P] * 3 + [_PP] * 4 + [_P] * 2 + [_PP] * 2
-    + [_I] * 11 + [_P],
+    "rslqr_schur_update_level": [_P] * 3 + [_PP] * 4 + [_P] * 2 + [_PP]
+    + [_I] * 10 + [_P],
     "rslqr_schur_update_pair": [_P] * 3 + [_PP] * 4 + [_P, _PP, _P, _P, _PP]
     + [_I] * 10 + [_P],
     "rslqr_leaf_schur_level0": [_P] * 5 + [_PP] + [_P] * 2 + [_PP] * 4
     + [_I] * 8 + [_P],
     # csrc/bf16_kernels.cu
+    "rslqr_schur_update_level_bf16": [_P] * 3 + [_PP] * 4 + [_P] * 2 + [_PP]
+    + [_I] * 11 + [_LL, _P],
     "rslqr_schur_update_pair_bf16": [_P] * 3 + [_PP] * 4
     + [_P, _PP, _P, _P, _PP] + [_I] * 11 + [_LL, _P],
     "rslqr_leaf_schur_level0_bf16": [_P] * 5 + [_PP] + [_P] * 2 + [_PP] * 4
@@ -194,7 +205,7 @@ SIGNATURES = {
     # csrc/flagged_kernels.cu
     "rslqr_pgemm_flagged": [_P] * 6 + [_I] * 8 + [_FL, _I, _I, _PI, _P],
     # csrc/plu_kernels.cu
-    "rslqr_plu_solve_multi": [_P, _P, _PP, _PP, _PI] + [_I] * 3 + [_P],
+    "rslqr_plu_solve_multi": [_P, _PP, _PP, _PI] + [_I] * 3 + [_P],
     # csrc/flat_kernels.cu
     "rslqr_flat_rhs_update_level": [_P] * 7 + [_I] * 5 + [_P],
     "rslqr_flat_schur_update_level": [_P] * 3 + [_PP] * 4 + [_P] * 2 + [_PP]

@@ -55,11 +55,11 @@ from .schur import _launch, _masks, _ptr, kernel_applies
 
 # Largest block dim the kernels take (their register columns hold 64).
 MAX_BLOCK = 64
-# Right-hand sides per plu_solve_multi launch, and the largest n whose LU
-# ``plu_kernel`` keeps in registers (above it, ``plu_scratch_kernel`` keeps
-# it in a global scratch).
+# Right-hand sides per plu_solve_multi launch, and the narrowest state dim
+# that takes ``plu_kernel``'s wide instantiations (W = 48, 64: the LU in
+# dynamic shared memory past 48 KB).
 MAX_RHS = 4
-LU_SMEM_MAX = 36
+LU_WIDE_MIN = 37
 
 
 # ---------------------------------------------------------------------------
@@ -451,8 +451,11 @@ def plu_solve_multi(A: torch.Tensor, *Bs: torch.Tensor, kernels: str = "auto"):
     such as the parallel scan's ``I + C J``.
 
     Replaces ``rslqr_tpu/ops/planes_pallas.py:plu_solve_multi``. Kernel:
-    ``plu_kernel`` (n <= 36; above, ``plu_scratch_kernel``;
-    ``csrc/plu_kernels.cu``).
+    ``plu_kernel`` (``csrc/plu_kernels.cu``: 8 plane elements a block, A's
+    rows in registers factored into a column-major LU in shared memory,
+    then the right-hand columns one a thread; at the register width 12, 36,
+    48 or 64 that holds n). ``shape_launches`` counts the launches by
+    (n, widths, plane); :func:`wide_launches` those at n >= ``LU_WIDE_MIN``.
     """
     if not 1 <= len(Bs) <= MAX_RHS:
         raise ValueError(f"plu_solve_multi takes 1..{MAX_RHS} right-hand "
@@ -466,15 +469,12 @@ def plu_solve_multi(A: torch.Tensor, *Bs: torch.Tensor, kernels: str = "auto"):
                ((n, n) + plane,) + tuple((n, w) + plane for w in ws),
                (n, *ws))
     Xs = tuple(torch.empty((n, w) + plane, device=A.device) for w in ws)
-    scratch = None
-    if n > LU_SMEM_MAX:  # the LU does not fit shared memory: lane slots
-        scratch = torch.empty(n * n * (-(-F // 32) * 32), device=A.device)
     ptrs = lambda ts: (ctypes.c_void_p * MAX_RHS)(
         *(t.data_ptr() for t in ts))
-    _launch("rslqr_plu_solve_multi", A.device, _ptr(A), _ptr(scratch),
-            ptrs(Bs), ptrs(Xs), (ctypes.c_int * MAX_RHS)(*ws), len(Bs), n, F)
+    _launch("rslqr_plu_solve_multi", A.device, _ptr(A), ptrs(Bs), ptrs(Xs),
+            (ctypes.c_int * MAX_RHS)(*ws), len(Bs), n, F)
     plu_solve_multi.launches += 1
-    plu_solve_multi.shape_launches[(n, tuple(ws))] += 1
+    plu_solve_multi.shape_launches[(n, tuple(ws), plane)] += 1
     return Xs
 
 
@@ -496,11 +496,19 @@ def launch_counts() -> dict:
             "pgemm_flagged": pgemm.flagged_launches}
 
 
+def wide_launches() -> int:
+    """``plu_solve_multi``'s launches at n >= ``LU_WIDE_MIN`` (its W = 48
+    and 64 instantiations) since the last reset."""
+    return sum(v for (n, *_), v in plu_solve_multi.shape_launches.items()
+               if n >= LU_WIDE_MIN)
+
+
 def reset_launch_counts() -> None:
     for w in KERNEL_WRAPPERS:
         w.launches = 0
     pgemm.flagged_launches = 0
-    # plu_solve_multi's launches by (n, widths of the right-hand sides).
+    # plu_solve_multi's launches by (n, widths of the right-hand sides,
+    # plane).
     plu_solve_multi.shape_launches = collections.Counter()
 
 

@@ -58,8 +58,8 @@ next-level products are emitted from the values just computed, so the
 products stage re-reads no slab. B2 runs one thread per (knot, batch
 column); B1, B3 and B4 split each knot's slab rows into groups of three,
 one thread each (:func:`_level_plan`, ``csrc/row_groups.cuh``,
-``csrc/leaf_rows.cuh``); with bf16 slabs, B3 and B4 give each thread two
-batch columns and stage their product emission in shared memory
+``csrc/leaf_rows.cuh``); with bf16 slabs, B1, B3 and B4 give each thread
+two batch columns and stage their product emission in shared memory
 (``csrc/bf16_rows.cuh``, ``csrc/bf16_kernels.cu``).
 """
 
@@ -69,6 +69,8 @@ import ctypes
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
+
+from ..config import storage_dtype
 
 # Maximum number of upper slabs one launch takes (the kernels receive the
 # slab pointers by value); tree depth <= 25.
@@ -123,7 +125,7 @@ def _pair_emits(level: int, N: int, B: int, U: int, n: int, m: int,
 # A block: LEVEL_TB lanes of batch columns by up to LEVEL_SLOTS row groups
 # of LEVEL_RPT slab rows by LEVEL_KB knots (at most 1,024 threads); the
 # pair kernel (B4) takes at most PAIR_WIDE_SLOTS at the wide inputs (m > 8).
-# With bf16 slabs, B3 and B4 give each lane PAIR_COLS adjacent batch
+# With bf16 slabs, B1, B3 and B4 give each lane PAIR_COLS adjacent batch
 # columns (csrc/bf16_rows.cuh).
 LEVEL_TB, LEVEL_KB, LEVEL_RPT, LEVEL_SLOTS = 32, 2, 3, 16
 PAIR_WIDE_SLOTS = 8
@@ -140,7 +142,7 @@ class LevelPlan(NamedTuple):
     that order, takes slab rows ``LEVEL_RPT * (z - first group of its
     slab)`` .. ``+ LEVEL_RPT - 1``, those below the slab's row count);
     ``slots`` the block's threads per knot and lane, which take row groups
-    ``slot, slot + slots, ...``. The bf16 pair and leaf kernels
+    ``slot, slot + slots, ...``. The bf16 level, pair and leaf kernels
     (``cols == 2``) move a lane's two columns as one 4-byte bf16 pair where
     ``vec`` (B even; a wrapper also needs its tensors aligned), and stage
     an emitting launch's products in ``smem`` bytes of shared memory a
@@ -166,12 +168,13 @@ SMEM_MAX = 227 * 1024
 
 
 def _pair2_smem(n: int, m: int, slots: int, pair: bool, emit: bool) -> int:
-    """Shared memory of a bf16 B4 (``pair``) or B3 block of ``slots`` row
-    group slots (``csrc/bf16_rows.cuh``: ``smem2``). Below the wide inputs
-    (m <= ``MAX_STATE``): B4's double buffer of each thread's rows of an
-    upper slab (2 x ``LEVEL_RPT`` x n words a thread, filled a slab ahead)
-    and its level-L multiplier rows (``LEVEL_RPT`` x n words), and, in an
-    emitting launch, the products' stage (the f32 x and u rows of the
+    """Shared memory of a bf16 B4 (``pair``), or B1 or B3, block of
+    ``slots`` row group slots (``csrc/bf16_rows.cuh``: ``smem2``). Below
+    the wide inputs (m <= ``MAX_STATE``): B4's double buffer of each
+    thread's rows of an upper slab (2 x ``LEVEL_RPT`` x n words a thread,
+    filled a slab ahead) and its level-L multiplier rows (``LEVEL_RPT`` x
+    n words), and, in an emitting launch, the products' stage (the f32 x
+    and u rows of the
     separator knot r and the x rows of r + 1, ``2nn + mn`` values a batch
     column) and, where the block can hold them, A_sep and B_sep of its
     group; two stages where that keeps the blocks an SM that the register
@@ -200,23 +203,23 @@ def _level_plan(N: int, B: int, emit: bool, n: int, m: int,
     block; unshifted otherwise. Row groups: ``ceil(n / 3)`` for each of the
     lambda and x slabs, ``ceil(m / 3)`` for u, in at most ``LEVEL_SLOTS``
     slots (``pair``: the pair kernel's, at most ``PAIR_WIDE_SLOTS`` at the
-    wide inputs, m > ``MAX_STATE``). ``pair`` with ``bf16`` slabs (B4, or
-    B3 with ``leaf``): ``PAIR_COLS`` batch columns a lane and
-    :func:`_pair2_smem`."""
+    wide inputs, m > ``MAX_STATE``). ``bf16`` slabs (B1, B4 with ``pair``,
+    or B3 with ``pair`` and ``leaf``): ``PAIR_COLS`` batch columns a lane
+    and :func:`_pair2_smem`."""
     shift = int(emit)
     groups = (_row_groups(n), _row_groups(n), _row_groups(m))
     cap = PAIR_WIDE_SLOTS if pair and m > MAX_STATE else LEVEL_SLOTS
     slots = min(sum(groups), cap)
-    cols = PAIR_COLS if pair and bf16 else 1
+    cols = PAIR_COLS if bf16 else 1
     return LevelPlan(
         shift, (-(-B // (LEVEL_TB * cols)), -(-(N + shift) // LEVEL_KB)),
         groups, slots, cols, cols > 1 and B % 2 == 0,
-        _pair2_smem(n, m, slots, not leaf, emit) if cols > 1 else 0)
+        _pair2_smem(n, m, slots, pair and not leaf, emit) if cols > 1 else 0)
 
 
 def _check_pair2(name: str, tensors: Sequence[torch.Tensor]) -> None:
-    """The bf16 pair and leaf kernels index with 32-bit offsets: every
-    tensor below 2^31 elements."""
+    """The bf16 level, pair and leaf kernels index with 32-bit offsets:
+    every tensor below 2^31 elements."""
     big = [tuple(t.shape) for t in tensors if t.numel() >= 2**31]
     if big:
         raise ValueError(f"{name}: bf16 kernels take tensors below 2^31 "
@@ -224,9 +227,9 @@ def _check_pair2(name: str, tensors: Sequence[torch.Tensor]) -> None:
 
 
 def _vec(plan: LevelPlan, tensors: Sequence[torch.Tensor]) -> int:
-    """Whether a bf16 pair or leaf launch moves column pairs as one access:
-    the plan's ``vec``, and every tensor aligned to its pair (4 bytes for
-    bf16, 8 for f32)."""
+    """Whether a bf16 level, pair or leaf launch moves column pairs as one
+    access: the plan's ``vec``, and every tensor aligned to its pair (4
+    bytes for bf16, 8 for f32)."""
     return int(plan.vec and all(
         t.data_ptr() % (2 * t.element_size()) == 0 for t in tensors))
 
@@ -444,7 +447,7 @@ def leaf_schur_level0_em_plain(
         Fls.append(vl)
         Fxs.append(vx)
         Fus.append(vu)
-    fdt = _storage_dtype(factor_dtype, A.dtype)
+    fdt = storage_dtype(factor_dtype, A.dtype)
     Fls, Fxs, Fus = ([x.to(fdt) for x in F] for F in (Fls, Fxs, Fus))
     return tuple(Fls), tuple(Fxs), tuple(Fus), S_next
 
@@ -454,30 +457,33 @@ def leaf_schur_level0_em_plain(
 # ---------------------------------------------------------------------------
 
 
-def _storage_dtype(factor_dtype: str, dtype) -> torch.dtype:
-    """The slabs' storage dtype: ``SolveOptions.factor_dtype`` ("" = the
-    problem dtype ``dtype``, or "bfloat16")."""
-    return torch.bfloat16 if factor_dtype == "bfloat16" else dtype
+# The slab storages the sweep kernels take (f32 math either way).
+KERNEL_SLABS = (torch.float32, torch.bfloat16)
 
 
-def kernel_applies(kernels: str, device: torch.device,
-                   dtype: torch.dtype) -> bool:
+def kernel_applies(kernels: str, device: torch.device, dtype: torch.dtype,
+                   slabs: Optional[torch.dtype] = None) -> bool:
     """The routing rule of every kernel wrapper of the port: its CUDA
     kernel runs for float32 tensors on a CUDA device under
     ``kernels="auto"``; CPU tensors, ``kernels="off"`` and other dtypes run
-    the plain version. An unknown mode, or a device that is neither CPU nor
-    CUDA, raises. Block sizes do not route here: the solver picks the path
-    by state dim before any launch (``rslqr_em._mid_block``: above
-    ``min(mxu_block_threshold, MAX_STATE)`` the plane kernels), so a kernel
-    that applies takes every block size its path gives it, and raises on
-    any other (a wrapper called directly past its limits)."""
+    the plain version. ``dtype`` is the compute dtype; ``slabs`` the
+    factor slabs' storage, where the wrapper takes slabs: the kernels take
+    f32 and bf16 slabs (``KERNEL_SLABS``), so any other storage
+    (``SolveOptions.factor_dtype`` f16, or f64 on an f32 problem) runs the
+    plain version on every device. An unknown mode, or a device that is
+    neither CPU nor CUDA, raises. Block sizes do not route here: the solver
+    picks the path by state dim before any launch (``rslqr_em._mid_block``:
+    above ``min(mxu_block_threshold, MAX_STATE)`` the plane kernels), so a
+    kernel that applies takes every block size its path gives it, and
+    raises on any other (a wrapper called directly past its limits)."""
     if kernels not in ("auto", "off"):
         raise ValueError(f"unknown kernel mode {kernels!r}")
     if kernels == "off" or device.type == "cpu":
         return False
     if device.type != "cuda":
         raise RuntimeError(f"no kernel for device {device}")
-    return dtype == torch.float32
+    return dtype == torch.float32 and (slabs is None
+                                       or slabs in KERNEL_SLABS)
 
 
 def _check(name: str, tensors: Sequence[torch.Tensor], shapes, n: int,
@@ -529,21 +535,6 @@ def _stacked(device, *shapes, dtype=torch.float32):
                  for s in shapes)
 
 
-def _shadow(bf16: bool, count: int, nn: int, mn: int, G2: int, B: int,
-            device):
-    """The f32 rows an emitting bf16 B1 launch writes beside its rounded
-    slab stores, so that its products read unrounded values as the JAX
-    kernels form them (from the f32 values before the store): per emitted
-    slab the x and u rows of each next-level separator knot r and the x
-    rows of r + 1, ``[2nn + mn, G2, B]`` (``csrc/row_groups.cuh``:
-    ``shadow_part``). None for f32 slabs, which the products read back
-    themselves; B3 and B4 stage those rows in shared memory
-    (:func:`_pair2_smem`)."""
-    if not (bf16 and count):
-        return []
-    return torch.empty((count, 2 * nn + mn, G2, B), device=device).unbind(0)
-
-
 def _launch(fn_name: str, device, *args):
     """Call one C launcher on the device's current stream; raise on any
     CUDA error it reports (cudaGetLastError right after the launch)."""
@@ -585,7 +576,7 @@ def rhs_update_level_em(
     ``rhs_kernel`` (one thread per knot and batch column; reads 90 floats of
     slab and 15 of z, writes 15).
     """
-    if not kernel_applies(kernels, zy.device, zy.dtype):
+    if not kernel_applies(kernels, zy.device, zy.dtype, Fl.dtype):
         return rhs_update_level_em_plain(
             Fl, Fx, Fu, zy, zx, zu, zbar, level=level, n=n, m=m
         )
@@ -632,10 +623,12 @@ def schur_update_level_em(
 
     Replaces ``rslqr_tpu/ops/schur_pallas.py:schur_update_level_em``.
     Kernel: ``row_level_kernel`` (``csrc/row_groups.cuh``: up to three slab
-    rows per thread, on the geometry of :func:`_level_plan`).
+    rows per thread, on the geometry of :func:`_level_plan`). bf16 slabs:
+    ``row_level2_kernel`` (``csrc/bf16_rows.cuh``): two batch columns a
+    thread, the emission's unrounded f32 rows staged in shared memory.
     """
     cdt = fsol[0].dtype if len(fsol) else FLl.dtype
-    if not kernel_applies(kernels, FLl.device, cdt):
+    if not kernel_applies(kernels, FLl.device, cdt, FLl.dtype):
         return schur_update_level_em_plain(
             FLl, FLx, FLu, list(Fls), list(Fxs), list(Fus), fsol, Asep, Bsep,
             level=level, n=n, m=m,
@@ -657,16 +650,19 @@ def schur_update_level_em(
            slabs=3 + 3 * U)
     S = [torch.empty((G2, nn, B), device=FLl.device) for _ in range(U)] \
         if emit else []
-    H = _shadow(bf16 and emit, U, nn, mn, G2, B, FLl.device)
-    plan = _level_plan(N, B, emit, n, m)
-    _launch(
-        "rslqr_schur_update_level", FLl.device,
+    plan = _level_plan(N, B, emit, n, m, bf16=bf16)
+    args = (
         _ptr(FLl), _ptr(FLx), _ptr(FLu), _ptrs(Fls), _ptrs(Fxs), _ptrs(Fus),
         _ptrs(fsol), _ptr(Asep if emit else None),
-        _ptr(Bsep if emit else None), _ptrs(S), _ptrs(H), U, N, B, level,
-        int(emit), n, m, plan.shift, plan.grid[1], sum(plan.groups),
-        int(bf16),
+        _ptr(Bsep if emit else None), _ptrs(S), U, N, B, level, int(emit),
+        n, m, plan.shift, plan.grid[1], sum(plan.groups),
     )
+    if bf16:
+        _check_pair2("schur_update_level_em", ts)
+        _launch("rslqr_schur_update_level_bf16", FLl.device, *args,
+                _vec(plan, ts + S), plan.smem)
+    else:
+        _launch("rslqr_schur_update_level", FLl.device, *args)
     schur_update_level_em.launches += 1
     return tuple(Fls), tuple(Fxs), tuple(Fus), (S if emit else None)
 
@@ -707,7 +703,7 @@ def schur_update_pair_em(
     (``csrc/bf16_rows.cuh``): two batch columns a thread, the multiplier
     rows held packed, the emission's f32 rows staged in shared memory.
     """
-    if not kernel_applies(kernels, FLl.device, Sbar2.dtype):
+    if not kernel_applies(kernels, FLl.device, Sbar2.dtype, FLl.dtype):
         return schur_update_pair_em_plain(
             FLl, FLx, FLu, list(Fls), list(Fxs), list(Fus), fsol1, Sbar2,
             fsol2, Asep3, Bsep3, level=level, n=n, m=m,
@@ -771,9 +767,10 @@ def leaf_schur_level0_em(
 
     Returns ``(Fls, Fxs, Fus, S_next)``: per-level tuples of length
     ``depth`` (new tensors; on the kernel route, views of one allocation
-    per kind), stored in ``factor_dtype`` ("" = the problem dtype, or
-    "bfloat16": every value formed in f32, each element rounded once at its
-    store, the products from the unrounded values), and the list of
+    per kind), stored in ``factor_dtype`` ("" = the problem dtype, else
+    the dtype it names: every value formed in the problem dtype, each
+    element rounded once at its store, the products from the unrounded
+    values; the kernel takes f32 and bf16 slabs), and the list of
     ``depth-1`` level-1 products in the problem dtype.
 
     Replaces ``rslqr_tpu/ops/schur_pallas.py:leaf_schur_level0_em``.
@@ -786,7 +783,8 @@ def leaf_schur_level0_em(
     """
     if depth < 2:
         raise ValueError("the fused leaf needs a tree of depth >= 2")
-    if not kernel_applies(kernels, A.device, A.dtype):
+    fdt = storage_dtype(factor_dtype, A.dtype)
+    if not kernel_applies(kernels, A.device, A.dtype, fdt):
         return leaf_schur_level0_em_plain(
             A, B, qinv, rinv, S0, fsol, Asep, Bsep, depth=depth, n=n, m=m,
             factor_dtype=factor_dtype,
@@ -801,7 +799,6 @@ def leaf_schur_level0_em(
         + [(G0, nn, Bb)] * U + [(G1, nn, Bb), (G1, mn, Bb)],
         n, m, A.device,
     )
-    fdt = _storage_dtype(factor_dtype, A.dtype)
     bf16 = fdt == torch.bfloat16
     Fls, Fxs, Fus = _stacked(A.device, (depth, nn, N, Bb),
                              (depth, nn, N, Bb), (depth, mn, N, Bb),

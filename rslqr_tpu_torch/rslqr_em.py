@@ -48,14 +48,17 @@ plain PyTorch on compact ``[.., G, B]`` data.
 The slabs are updated in place by the kernels, as the TPU kernels alias
 them.
 
-``SolveOptions(factor_dtype="bfloat16")`` stores the slabs in bf16
-(rslqr_em.py:162-167 of the JAX package); the Cholesky factors, separator
-products and solves and the right-hand sides stay in the problem dtype.
-The schedule is decided on the storage dtype (:func:`_kernel_schedule`),
-slab rows are upcast before any product, and the plain stages round each
-updated slab once (``copy_``, round to nearest even, as ``astype``). The
-flat schedule takes f32 slabs only, and mid blocks take the plain update
-(no plane kernel takes a bf16 slab, as in the JAX package).
+``SolveOptions(factor_dtype=...)`` stores the slabs in the dtype it names
+(rslqr_em.py:162-168 of the JAX package: bf16, f16, f32 or f64); the
+Cholesky factors, separator products and solves and the right-hand sides
+stay in the problem dtype. The schedule is decided on the storage dtype
+(:func:`_kernel_schedule`: f32, and bf16 on a knot axis of sixteens, take
+the kernel path's; any other storage the plain leaf and single levels),
+slab rows are taken into the problem dtype before any product, and the
+plain stages round each updated slab once (``copy_``, round to nearest
+even, as ``astype``). The flat schedule takes f32 slabs of an f32 problem
+only, and mid blocks with slabs stored apart from the problem dtype take
+the plain update (no plane kernel takes them, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -67,7 +70,7 @@ import numpy as np
 import torch
 
 from . import linalg as la
-from .config import SolveOptions, resolve_options
+from .config import SolveOptions, resolve_options, storage_dtype
 from .ops import flat, planes, schur
 from .problem import LQRProblem, pack_solution
 from .rslqr import RsLqrSolution, _bf, _no_clock, _to_batch_last
@@ -297,19 +300,24 @@ def _level_cholsolve_em(Lc, Ss, level, opts):
     return {level + 1 + i: s for i, s in enumerate(sols)}
 
 
-def _kernel_schedule(fdt, N: int, n: int, opts: SolveOptions) -> bool:
-    """Whether small-block slabs stored in ``fdt`` take the schedule of the
-    JAX package's kernel path (fused leaf, level pairs, products emitted
-    by the sweep kernels), decided as its ``_pallas_schur_mode`` decides
-    it on the storage dtype (rslqr_em.py:440-446, 876): on every device
-    for f32 and f64 slabs (the port runs that schedule everywhere), and
-    for bf16 slabs where the knot axis tiles by 16 (N >= 16, N % 16 ==
-    0). Elsewhere bf16 slabs take the plain leaf and single levels without
-    emission, each level's updated slabs rounded once (JAX's XLA stages,
-    rslqr_em.py:317-361)."""
+def _kernel_schedule(fdt, N: int, n: int, opts: SolveOptions,
+                     dtype=None) -> bool:
+    """Whether small-block slabs stored in ``fdt`` (on a problem of dtype
+    ``dtype``; None: ``fdt``) take the schedule of the JAX package's kernel
+    path (fused leaf, level pairs, products emitted by the sweep kernels),
+    decided as its ``_pallas_schur_mode`` decides it on the storage dtype
+    (rslqr_em.py:440-453, 876), before any launch: on every device for f32
+    slabs and for f64 slabs on an f64 problem (the port runs that schedule
+    everywhere), and for bf16 slabs where the knot axis tiles by 16
+    (N >= 16, N % 16 == 0). Any other storage (f16; f64 on an f32
+    problem; bf16 on another knot axis), as JAX's ``ok_dtype`` sends it to
+    its XLA stages (rslqr_em.py:317-361), takes the plain leaf and single
+    levels without emission, each level's updated slabs rounded once."""
     if _mid_block(n, opts):
         return False
-    return fdt != torch.bfloat16 or (N >= 16 and N % 16 == 0)
+    if fdt == torch.bfloat16:
+        return N >= 16 and N % 16 == 0
+    return fdt == torch.float32 or fdt == torch.float64 == (dtype or fdt)
 
 
 def _mid_block(n: int, opts: SolveOptions) -> bool:
@@ -382,15 +390,18 @@ def _schur_kernel(A, B_dyn, level, depth, Fls, Fxs, Fus, fsols, n, m, opts,
 
 
 def _flat_path_ok(dtype, nb: int, N: int, b_shape, n: int,
-                  opts: Optional[SolveOptions] = None) -> bool:
+                  opts: Optional[SolveOptions] = None, cdt=None) -> bool:
     """Whether the flat-plane schedule (``ops/flat.py``) runs: JAX's
     ``_flat_path_ok`` (``flat_planes``, one batch axis, ``flat.flat_ok``:
     f32 and ``B % 1024 == 0``) and the conditions under which its Pallas
     Schur kernels run at all (``_pallas_schur_mode``: small blocks, N >= 8,
-    N % 8 == 0)."""
+    N % 8 == 0). ``dtype`` is the slabs' storage, ``cdt`` the problem's
+    (None: the same): the flat kernels and their plain versions take f32
+    slabs of an f32 problem only."""
     opts = resolve_options(opts)
     return (
         opts.flat_planes
+        and (cdt is None or cdt == dtype)
         and not _mid_block(n, opts)
         and nb == 1
         and N >= 8
@@ -427,10 +438,11 @@ def _level_update_planes_em(level, depth, Fls, Fxs, Fus, fsols, opts):
     """Mid-block Schur update stage (ndlqr_UpdateShurFactor,
     nested_dissection.c:154-171): one fused ``schur3_update_planes`` pass
     per upper level, which reads the compact solved separators at each
-    knot's group; updates the slabs in place. bf16 slabs take the plain
-    update (:func:`_level_update_plain_em`), as JAX sends non-f32 slabs
-    past its plane kernels (rslqr_em.py:383)."""
-    if Fls[level].dtype == torch.bfloat16:
+    knot's group; updates the slabs in place. Slabs stored in another
+    dtype than the problem's (``factor_dtype``) take the plain update
+    (:func:`_level_update_plain_em`), as JAX sends non-f32 slabs past its
+    plane kernels (rslqr_em.py:383)."""
+    if Fls[level].dtype != fsols[level + 1].dtype:
         _level_update_plain_em(level, depth, Fls, Fxs, Fus, fsols)
         return
     for u in range(level + 1, depth):
@@ -441,10 +453,11 @@ def _level_update_planes_em(level, depth, Fls, Fxs, Fus, fsols, opts):
 
 
 def _level_update_plain_em(level, depth, Fls, Fxs, Fus, fsols):
-    """The plain Schur update of bf16 mid-block slabs (JAX's
-    ``_level_update_xla_em``, rslqr_em.py:317-361): each upper slab trio
-    updated in the problem dtype on upcast copies, then rounded back once
-    by ``copy_`` (round to nearest even, as ``astype``)."""
+    """The plain Schur update of mid-block slabs stored in another dtype
+    than the problem's (JAX's ``_level_update_xla_em``,
+    rslqr_em.py:317-361): each upper slab trio updated in the problem
+    dtype on converted copies, then rounded back once by ``copy_`` (round
+    to nearest even, as ``astype``)."""
     cdt = fsols[level + 1].dtype
     FL = [schur._up(x, cdt) for x in (Fls[level], Fxs[level], Fus[level])]
     for u in range(level + 1, depth):
@@ -479,12 +492,13 @@ def _sweep_level_em(A, B, level, depth, Fls, Fxs, Fus, n, m, ex, opts,
                                     opts)
             return Lc, None
         fdt = Fls[level].dtype
-        if _flat_path_ok(fdt, NB, A.shape[2], A.shape[3:], n, opts):
+        if _flat_path_ok(fdt, NB, A.shape[2], A.shape[3:], n, opts,
+                         A.dtype):
             return Lc, _schur_flat(A, B, level, depth, Fls, Fxs, Fus, fsols,
                                    n, m, opts)
         return Lc, _schur_kernel(
             A, B, level, depth, Fls, Fxs, Fus, fsols, n, m, opts,
-            emit=_kernel_schedule(fdt, A.shape[2], n, opts))
+            emit=_kernel_schedule(fdt, A.shape[2], n, opts, A.dtype))
 
 
 def _pair_prepass(A, B, level, depth, Fls, Fxs, Fus, fsols1, opts):
@@ -605,9 +619,10 @@ def _rhs_level_em(A, B, level, Fl, Fx, Fu, Lc, zy, zx, zu, opts):
     if _mid_block(n, opts):
         zbar = _pcho_solve(Lc, znew.unsqueeze(1), opts)  # [n, 1, G, B]
         zs = (zy.unsqueeze(1), zx.unsqueeze(1), zu.unsqueeze(1))
-        if Fl.dtype == torch.bfloat16:
-            # No plane kernel takes a bf16 slab (JAX's XLA stage,
-            # rslqr_em.py:750-790): the plain update on upcast copies.
+        if Fl.dtype != zy.dtype:
+            # No plane kernel takes slabs stored apart from the problem
+            # dtype (JAX's XLA stage, rslqr_em.py:750-790): the plain
+            # update on converted copies.
             planes.schur3_update_planes_plain(
                 *(schur._up(F, zy.dtype) for F in (Fl, Fx, Fu)), zbar, *zs,
                 level=level)
@@ -617,7 +632,7 @@ def _rhs_level_em(A, B, level, Fl, Fx, Fu, Lc, zy, zx, zu, opts):
         return zy, zx, zu
     zbar = la.bcho_solve_vec(Lc, znew, nk, opts)  # [n, G, B]
     N, B_ = zy.shape[1], zy.shape[2]
-    if _flat_path_ok(Fl.dtype, NB, N, (B_,), n, opts):
+    if _flat_path_ok(Fl.dtype, NB, N, (B_,), n, opts, zy.dtype):
         flat.rhs_update_level_flat(
             _flat(Fl), _flat(Fx), _flat(Fu), _flatv(zy), _flatv(zx),
             _flatv(zu), _flatv(zbar.contiguous()),  # element-major [n, G, B]
@@ -691,9 +706,9 @@ def factorize_em(
     N, Bb = pbl.A.shape[0], pbl.A.shape[3]
 
     mid = _mid_block(n, opts)
-    fdt = schur._storage_dtype(opts.factor_dtype, pbl.A.dtype)
-    sched = _kernel_schedule(fdt, N, n, opts)
-    use_flat = _flat_path_ok(fdt, NB, N, (Bb,), n, opts)
+    fdt = storage_dtype(opts.factor_dtype, pbl.A.dtype)
+    sched = _kernel_schedule(fdt, N, n, opts, pbl.A.dtype)
+    use_flat = _flat_path_ok(fdt, NB, N, (Bb,), n, opts, pbl.A.dtype)
     if t.depth >= 2 and sched:
         # Fused leaf + level 0: level-0 products from compact gathers, then
         # ONE kernel writes every slab in its post-level-0 state and emits
@@ -734,7 +749,7 @@ def factorize_em(
     else:
         # Plain leaf slabs: the tree is too shallow for the fused leaf
         # kernel, the blocks are mid-size (no fused leaf there in JAX), or
-        # bf16 slabs on a knot axis that does not tile by 16.
+        # the storage takes JAX's XLA stages (_kernel_schedule).
         with clock("leaves"):
             Fls, Fxs, Fus, A, B, zy, zx, zu = _leaf_em(pbl, t.levels,
                                                        t.depth, fdt)

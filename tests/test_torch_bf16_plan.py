@@ -1,8 +1,9 @@
-"""Port tests: the launch plan of B3's and B4's bf16-slab kernels.
+"""Port tests: the launch plan of B1's, B3's and B4's bf16-slab kernels.
 
 ``csrc/bf16_rows.cuh``'s ``row_pair2_kernel`` (B4) and ``leaf_row2_kernel``
 (B3) run on the pair kernel's plan (``ops/schur.py:_level_plan(...,
-pair=True, bf16=True)``) with two batch columns a lane. Walked here the
+pair=True, bf16=True)``), ``row_level2_kernel`` (B1) on the level
+kernel's (``bf16=True``), with two batch columns a lane. Walked here the
 way the kernels walk it, on the CPU:
 
 * every batch column is taken by one lane of one block, a lane's pair
@@ -15,9 +16,10 @@ way the kernels walk it, on the CPU:
   at the wide inputs; the products' elements are each taken by one
   thread of the block;
 * the f32 plans are as they were (one column a lane, no stage);
-* a bf16 B3 or B4 launch goes to its own C entry with the plan's ``vec``
-  and ``smem``, allocates no f32 shadow (``_shadow``), and passes as many
-  arguments as the entry declares (``_build.SIGNATURES``).
+* a bf16 B1, B3 or B4 launch goes to its own C entry with the plan's
+  ``vec`` and ``smem`` (no f32 shadow of the products' rows through device
+  memory), and passes as many arguments as the entry declares
+  (``_build.SIGNATURES``).
 """
 
 import numpy as np
@@ -127,20 +129,14 @@ def test_vec_needs_even_batch_and_aligned_tensors():
 
 def _record_launches(monkeypatch):
     """Run the wrappers' launch path on CPU tensors: the kernel applies,
-    each C call is recorded, and every ``_shadow`` request too."""
-    calls, shadows = [], []
-    real = schur._shadow
+    each C call is recorded. No wrapper keeps an f32 shadow of the bf16
+    slabs (``schur._shadow`` is gone)."""
+    calls = []
     monkeypatch.setattr(schur, "kernel_applies", lambda *a: True)
     monkeypatch.setattr(schur, "_launch",
                         lambda name, dev, *args: calls.append((name, args)))
-
-    def shadow(bf16, count, *rest):
-        out = real(bf16, count, *rest)
-        shadows.append(len(out))
-        return out
-
-    monkeypatch.setattr(schur, "_shadow", shadow)
-    return calls, shadows
+    assert not hasattr(schur, "_shadow")
+    return calls
 
 
 def _pair_args(N, B, level, n, m, slab_dtype):
@@ -171,7 +167,7 @@ def _leaf_args(N, B, n, m):
 @pytest.mark.parametrize("B", [33, 40])
 @pytest.mark.parametrize("bf16", [False, True])
 def test_pair_and_leaf_launches(monkeypatch, bf16, B):
-    calls, shadows = _record_launches(monkeypatch)
+    calls = _record_launches(monkeypatch)
     n, m, N = 6, 3, 64
     dt = torch.bfloat16 if bf16 else torch.float32
     schur.schur_update_pair_em(*_pair_args(N, B, 0, n, m, dt), level=0,
@@ -182,7 +178,6 @@ def test_pair_and_leaf_launches(monkeypatch, bf16, B):
     suffix = "_bf16" if bf16 else ""
     assert [c[0] for c in calls] == [f"rslqr_schur_update_pair{suffix}",
                                      f"rslqr_leaf_schur_level0{suffix}"]
-    assert not shadows  # no f32 shadow asked for
     for name, a in calls:
         # The declared arguments, less the stream that _launch appends.
         assert len(a) == len(_build.SIGNATURES[name]) - 1
@@ -192,20 +187,65 @@ def test_pair_and_leaf_launches(monkeypatch, bf16, B):
                 n, m, 5, name.startswith("rslqr_schur"), True)
 
 
-def test_bf16_level_launch_keeps_its_shadow(monkeypatch):
-    """B1 is not redesigned: an emitting bf16 launch still writes its f32
-    shadow (one per upper slab)."""
-    calls, shadows = _record_launches(monkeypatch)
-    n, m, N, B, level = 6, 3, 32, 8, 1
+@pytest.mark.parametrize("B", [33, 40])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_bf16_level_launch_keeps_its_shadow(monkeypatch, bf16, B):
+    """B1 with bf16 slabs (its own kernel stages its products' f32 rows in
+    shared memory, with no shadow of them in device memory): an emitting
+    launch goes to ``rslqr_schur_update_level_bf16``
+    with the level kernel's bf16 plan, allocates nothing beside its
+    products, and passes the declared arguments; f32 slabs keep their
+    entry and plan."""
+    calls = _record_launches(monkeypatch)
+    n, m, N, level = 6, 3, 32, 1
     g = torch.Generator().manual_seed(5)
-    S = lambda *s: torch.randn(s, generator=g).bfloat16()
+    dt = torch.bfloat16 if bf16 else torch.float32
+    S = lambda *s: torch.randn(s, generator=g).to(dt)
     R = lambda *s: torch.randn(s, generator=g)
     U = N.bit_length() - 1 - level - 1
     G, G2 = N >> (level + 1), N >> (level + 2)
-    schur.schur_update_level_em(
+    *_, out = schur.schur_update_level_em(
         S(36, N, B), S(36, N, B), S(18, N, B), [S(36, N, B)] * U,
         [S(36, N, B)] * U, [S(18, N, B)] * U, [R(G, 36, B)] * U,
         R(G2, 36, B), R(G2, 18, B), level=level, n=n, m=m)
-    assert shadows == [U]
-    assert len(calls[0][1]) == len(
-        _build.SIGNATURES["rslqr_schur_update_level"]) - 1
+    assert len(out) == U
+    name, a = calls[0]
+    assert name == ("rslqr_schur_update_level_bf16" if bf16
+                    else "rslqr_schur_update_level")
+    assert len(a) == len(_build.SIGNATURES[name]) - 1
+    plan = schur._level_plan(N, B, True, n, m, bf16=bf16)
+    assert (plan.cols, plan.slots) == ((2, 5) if bf16 else (1, 5))
+    if bf16:
+        assert a[-2] == int(B % 2 == 0)
+        # One stage and A_sep, B_sep below the wide inputs, two stages
+        # where 640 threads' worth of blocks keep them (as B3's).
+        assert a[-1] == plan.smem == schur._pair2_smem(n, m, 5, False, True)
+        assert plan.smem == 2 * 23040 + 13824
+
+
+@pytest.mark.parametrize("nm", [(6, 3), (4, 4), (2, 1), (8, 8), (5, 7),
+                                (6, 12), (1, 9), (8, 64)])
+def test_level2_plan_fits_every_block(nm):
+    """B1's bf16 plan: the level kernel's slots (16 at most, also at the
+    wide inputs), two columns a lane, and shared memory for the products'
+    stage (``2nn + mn`` f32 values a column) and, below the wide inputs,
+    A_sep and B_sep, twice the stage where 640 threads' worth of blocks
+    keep it; nothing where the launch does not emit."""
+    n, m = nm
+    for emit in (False, True):
+        plan = schur._level_plan(64, 40, emit, n, m, bf16=True)
+        f32 = schur._level_plan(64, 40, emit, n, m)
+        assert plan.cols == 2 and plan.vec and f32.cols == 1
+        assert (plan.slots, plan.groups, plan.shift, plan.grid[1]) == (
+            f32.slots, f32.groups, f32.shift, f32.grid[1])
+        assert plan.grid[0] == 1 and f32.grid[0] == 2
+        assert plan.smem == schur._pair2_smem(n, m, plan.slots, False, emit)
+        assert plan.smem <= schur.SMEM_MAX
+        stage = (2 * n * n + m * n) * 64 * 4
+        if not emit:
+            assert plan.smem == 0
+        elif m > schur.MAX_STATE:
+            assert plan.smem == stage
+        else:
+            sep = (n * n + n * m) * 64 * 4
+            assert plan.smem in (stage + sep, 2 * stage + sep)

@@ -40,8 +40,10 @@ calls, at the quadruped scan's planes (16, 8 and 7 by 256), on wide planes
 (F >= 65,536) and on ragged planes (F = 1, 33, 2049) at block dims 1, 5,
 12, 36, 40 and 64 (all flags at once on a square output, exactly symmetric
 under ``sym``), ``schur_update_planes`` masked and not,
-``plu_solve_multi`` at widths 12, 20, 36 and 64 with 1-4 right-hand sides
-(also at the quadruped scan's three shapes and planes), and
+``plu_solve_multi`` at widths 12, 20, 36, 37, 40, 48 and 64 with 1-4
+right-hand sides of up to 64 columns (also at the quadruped scan's three
+shapes and planes, and above 36, where its LU takes dynamic shared memory
+past 48 KB, on planes that are no multiple of a block's 8 elements), and
 the pscan slice at small sizes. The probe kernels (``ops/probe.py``):
 ``pgemm_ib`` at every ``ib`` and ``t1``, with rows left over past a
 multiple of ``ib``, every column tile (12, 9, 6 and 1 columns) with q not a
@@ -821,14 +823,20 @@ def test_schur_update_planes_kernel(dev, p, n, q, N, B, level, lam):
      (36, (36, 1, 36, 1), (8, 40)), (36, (36, 1), (5, 33)),
      (36, (1,), (1, 1)), (64, (64, 1, 3), (2, 33)), (20, (5, 5), (1, 45)),
      (12, (12,), (16, 256)), (36, (36, 1, 36, 1), (8, 256)),
-     (36, (36, 1), (7, 256)), (36, (36, 1, 36, 1), (32, 256))],
+     (36, (36, 1), (7, 256)), (36, (36, 1, 36, 1), (32, 256)),
+     (37, (37, 1), (3, 7)), (40, (5, 64, 2), (1, 1)),
+     (48, (48, 1), (8, 256)), (48, (48, 1, 48, 1), (5, 33)),
+     (48, (1,), (7, 3)), (64, (64,), (1, 45)), (64, (64, 1, 64, 1), (2, 33)),
+     (64, (64, 1), (8, 256))],
 )
 def test_plu_solve_multi_kernel(dev, n, ws, plane):
     """Well-conditioned ``I + C J`` blocks (C, J PSD), 1-4 right-hand sides,
     ragged planes, and the quadruped pscan's three shapes at their planes
     (the Woodbury solve at 16 x 256, the suffix tree's at 8 and 7 x 256),
     and a plane wide enough (32 x 256) that one block takes all 74 columns,
-    up to three a slot; the operands are left as they are."""
+    up to three a slot; above 36 (W = 48 and 64, the LU in dynamic shared
+    memory) with up to 130 columns and on ragged planes; the operands are
+    left as they are."""
     g = torch.Generator().manual_seed(500 + n + len(ws))
     M = torch.randn(plane + (n, n), generator=g, dtype=torch.float64)
     P = torch.randn(plane + (n, n), generator=g, dtype=torch.float64)
@@ -839,11 +847,11 @@ def test_plu_solve_multi_kernel(dev, n, ws, plane):
     Bs = [_rand(g, dev, n, w, *plane) for w in ws]
     A0, B0 = A.clone(), [b.clone() for b in Bs]
     before = planes.plu_solve_multi.launches
-    shape = planes.plu_solve_multi.shape_launches[(n, ws)]
+    shape = planes.plu_solve_multi.shape_launches[(n, ws, plane)]
     ks = planes.plu_solve_multi(A, *Bs)
     torch.cuda.synchronize()
     assert planes.plu_solve_multi.launches == before + 1
-    assert planes.plu_solve_multi.shape_launches[(n, ws)] == shape + 1
+    assert planes.plu_solve_multi.shape_launches[(n, ws, plane)] == shape + 1
     assert torch.equal(A, A0) and all(torch.equal(b, c) for b, c in zip(Bs, B0))
     ps = planes.plu_solve_multi(A, *Bs, kernels="off")
     _assert_match(list(ks), list(ps))
@@ -971,6 +979,78 @@ def test_level_kernel_bf16(dev, bn, bm, N, B, level, with_sep):
     assert emits == (with_sep and level <= 3)
     _assert_equal_bf16(schur.schur_update_level_em, args,
                        dict(level=level, n=bn, m=bm), 3 * U)
+
+
+def _bf16_key(x):
+    """bf16 bit patterns on one ordered integer line (ulp distances)."""
+    v = x.contiguous().view(torch.int16).to(torch.int32)
+    return torch.where(v >= 0, v, -(v + 32768))
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` that starts one element past an aligned
+    address: the bf16 kernels then move its column pairs as two scalar
+    accesses (``ops/schur.py:_vec``), at any B."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("bn,bm", BF16_BLOCKS + ((4, 4), (8, 64)))
+@pytest.mark.parametrize("N,B,level,aligned",
+                         [(128, 40, 1, True), (128, 33, 3, True),
+                          (32, 40, 0, False), (64, 40, 2, True)])
+def test_level_kernel_bf16_random(dev, bn, bm, N, B, level, aligned):
+    """B1 with bf16 slabs (``row_level2_kernel``) on random inputs, emitting
+    (levels 0-3): the two routes sum in other orders, so a rounding may
+    flip: at most 0.1% of the bf16 elements differ, each within one ulp at
+    its magnitude or the kernel bar, and the f32 products within the
+    kernel bar. Odd B, and a slab off its pair alignment (two scalar
+    accesses a pair at even B), take the scalar-pair instantiation."""
+    g = torch.Generator().manual_seed(2400 + N + level + bn + bm)
+    depth = N.bit_length() - 1
+    U = depth - level - 1
+    G, G2 = N >> (level + 1), N >> (level + 2)
+    xx, ux = bn * bn, bm * bn
+    S = lambda *s: _rand(g, dev, *s).bfloat16()
+    R = lambda *s: 0.1 * _rand(g, dev, *s)
+    args = [S(xx, N, B), S(xx, N, B), S(ux, N, B),
+            [S(xx, N, B) for _ in range(U)], [S(xx, N, B) for _ in range(U)],
+            [S(ux, N, B) for _ in range(U)], [R(G, xx, B) for _ in range(U)],
+            R(G2, xx, B), R(G2, bn * bm, B)]
+
+    def run(**kw):
+        a = [[x.clone() for x in v] if isinstance(v, list) else v.clone()
+             for v in args]
+        if not aligned:
+            a[0] = _misaligned(a[0])
+        plan = schur._level_plan(N, B, True, bn, bm, bf16=True)
+        assert schur._vec(plan, a[:1]) == int(aligned and B % 2 == 0)
+        *slabs, S_next = schur.schur_update_level_em(
+            *a, level=level, n=bn, m=bm, **kw)
+        return [x for t in slabs for x in t] + list(S_next)
+
+    before = schur.schur_update_level_em.launches
+    ks = run()
+    torch.cuda.synchronize()
+    assert schur.schur_update_level_em.launches == before + 1
+    ps = run(kernels="off")
+    assert len(ks) == len(ps) == 4 * U
+    flips = total = 0
+    for a, b in zip(ks, ps):
+        assert a.dtype == b.dtype and bool(torch.isfinite(a).all())
+        if a.dtype == torch.bfloat16:
+            d = (_bf16_key(a) - _bf16_key(b)).abs()
+            flips += int((d > 0).sum())
+            total += d.numel()
+            af, bf = a.float(), b.float()
+            one = torch.ldexp(torch.ones_like(bf), torch.frexp(bf)[1] - 8)
+            bar = torch.maximum(one, 1e-4 * (1.0 + bf.abs().max()))
+            assert bool(((af - bf).abs() <= bar).all())
+        else:
+            _assert_match([a], [b])
+    assert flips <= 1e-3 * total
 
 
 @pytest.mark.parametrize("bn,bm", BF16_BLOCKS)

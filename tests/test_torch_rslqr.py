@@ -93,7 +93,7 @@ def test_options_validation():
     with pytest.raises(ValueError):
         pt.SolveOptions(kernels="on")
     with pytest.raises(ValueError):
-        pt.SolveOptions(factor_dtype="float16")
+        pt.SolveOptions(factor_dtype="float17")
     with pytest.raises(ValueError):
         pt.SolveOptions(layout="planes")
     # Mid blocks (n <= 64) run the planes path; larger blocks the grid

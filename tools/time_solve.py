@@ -5,6 +5,7 @@ kernels) on one GPU, for comparing two versions of the package on one card.
     python3 tools/time_solve.py [--root DIR] [--config small|quad]
                                 [--solver rslqr|pscan] [--reps 20]
                                 [--kernels [--sets sweep,plane,...]]
+                                [--against OTHER]
 
 Imports ``rslqr_tpu_torch`` from ``DIR`` (default: the checkout this script
 lies in), builds its kernels, and prints the card's name and power limit,
@@ -20,13 +21,15 @@ kernel path):
 ``--kernels`` also prints, single (median ms over 10 launches, CUDA
 events) and chained (CUDA-graph replays of 10 back-to-back calls against
 one), chip_smoke.py's phase-2 cases of the small-block sweep kernels at
-(n, m) = (6, 3) (B1 at N=128 levels 1 and 5 and N=256 level 1, B2, B3,
-B4 (levels 1, 3, 5), B11 and B12 at N=256, B=1024), its phase-2b cases
+(n, m) = (6, 3) (B1 at N=128 levels 1 and 5 and N=256 level 1, and with
+bf16 slabs at N=128 levels 1 and 3; B2, B3, B4 (levels 1, 3, 5), B11 and
+B12 at N=256, B=1024), its phase-2b cases
 of B5 (``pgemm``, no flags) and B9 (``schur3_update_planes``), B7
 (``pcho_solve``, n=36: w=36 at each quadruped level's plane, w=1 at levels
 0 and 7; n=w=12 and 16), B6 (``pchol``: n=36 at each quadruped level's
 plane, n=12 at level 0 and at the batched-interior plane), B8
-(``plu_solve_multi`` at the quadruped pscan's three shapes) and phase-2c
+(``plu_solve_multi`` at the quadruped pscan's three shapes, and at n=48
+and 64 past 36) and phase-2c
 cases of B5's ``lam_level`` (``schur_update_planes``), the scan's nine
 flagged B5 products and B10 (``schur_update_level_flat``) at levels 1-6,
 beside the
@@ -35,16 +38,29 @@ same timings of one PyTorch library call where there is one
 every slab row for B1, B2, B9, B10, B12 and ``lam_level``). ``--sets``
 takes some of the case sets: ``sweep`` (the small-block kernels),
 ``plane`` (B5, B9, ``lam_level``), ``pcho`` (B7), ``pchol`` (B6), ``plu``
-(B8), ``flagged``, ``flat`` (B10) and ``leaf`` (B3 and B11 at
+(B8), ``flagged``, ``flat`` (B10), ``leaf`` (B3 and B11 at
 chip_smoke.py's phase-2f blocks, (n, m) = (4, 2), (8, 8), (5, 4), (6, 12)
-and (8, 64), N=256, B=1024); B6's and B8's library calls are timed single
-only. The clock is the timed tree's
+and (8, 64), N=256, B=1024) and ``blocks`` (B1 at those blocks and B10 at
+the wide ones, (6, 12) and (8, 64), where it runs B1's kernel); B6's and
+B8's library calls are timed single only. The clock is the timed tree's
 ``bench_kernels.launch_ms``/``chain_ms``. To compare two trees, unpack the
 other one (``git archive``) into a git-ignored directory and run the
 script on both in one machine, alternating: A, B, B, A.
+
+``--against OTHER`` holds this tree's kernels against OTHER's (such an
+unpacked tree) in one process: it loads OTHER's ``rslqr_tpu_torch`` beside
+this tree's, builds both, and runs each kernel set of ``--sets`` four
+times, OTHER, this, this, OTHER, on the same seeded inputs. For each case
+timed on its own (B1-B4, B8, B10, B11) it prints whether the two trees'
+outputs (the returned tensors and the inputs the kernel updates in place)
+are bit for bit equal, else their largest difference, and the chained
+ms of the four runs; the clock is this tree's. It replaces ``--kernels``
+and the timed solves.
 """
 
 import argparse
+import importlib
+import importlib.util
 import statistics
 import subprocess
 import sys
@@ -53,9 +69,12 @@ from pathlib import Path
 
 CONFIGS = {"small": (256, 6, 3, 1024), "quad": (512, 36, 12, 256)}
 # The --kernels case sets (all by default).
-SETS = ("sweep", "plane", "pcho", "pchol", "plu", "flagged", "flat", "leaf")
+SETS = ("sweep", "plane", "pcho", "pchol", "plu", "flagged", "flat", "leaf",
+        "blocks")
 # The other and wide small blocks of chip_smoke.py's phase 2f.
 LEAF_BLOCKS = ((4, 2), (8, 8), (5, 4), (6, 12), (8, 64))
+# --against: whether _pair also keeps the outputs of one call of its case.
+CAPTURE = False
 
 
 # The quadruped scan's flagged products (chip_smoke.py phase 2c): label,
@@ -143,12 +162,10 @@ def flat_level_times(torch, flat, R):
         sep = ([R(nn, rows(G2), 128), R(n * m, rows(G2), 128)] if emit
                else [None, None])
         kw = dict(level=level, n=n, m=m, N=N)
-        fresh = lambda: ([[x.clone() for x in u] for u in up],)
-        call = lambda u: flat.schur_update_level_flat(*FL, *u, fs, *sep, **kw)
-        work = [[x.clone() for x in u] for u in up]
-        out[f"B10 L{level} U={U}"] = (
-            _med(torch, lambda u: call(u), fresh),
-            _chained(torch, lambda: call(work)))
+        out[f"B10 L{level} U={U}"] = _pair(
+            torch, lambda *u: flat.schur_update_level_flat(*FL, *u, fs, *sep,
+                                                           **kw),
+            lambda: [[x.clone() for x in u] for u in up])
         span = 2 << level
         FLml = torch.cat([x.view(-1, n, N * B) for x in FL]).permute(
             2, 0, 1).contiguous()
@@ -160,16 +177,30 @@ def flat_level_times(torch, flat, R):
         lib = lambda: torch.baddbmm(C, FLml, f, alpha=-1.0)
         out[f"library B10 L{level} U={U}"] = (_med(torch, lib, tuple),
                                               _chained(torch, lib))
-        del FL, up, fs, sep, work, FLml, C, f
+        del FL, up, fs, sep, FLml, C, f
     return out
+
+
+def _tensors(x):
+    """The tensors of a nest of lists and tuples, in order."""
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in _tensors(v)]
+    return [] if x is None else [x]
 
 
 def _pair(torch, call, fresh):
     """(single ms, chained ms) of ``call(*fresh())``: single launches on
     fresh inputs (the kernels update them in place), chained on one
-    working copy."""
+    working copy. Under CAPTURE, a third item: the tensors of one more call
+    on fresh inputs, its results and then its inputs."""
     work = fresh()
-    return _med(torch, call, fresh), _chained(torch, lambda: call(*work))
+    timing = _med(torch, call, fresh), _chained(torch, lambda: call(*work))
+    if not CAPTURE:
+        return timing
+    args = fresh()
+    res = call(*args)
+    torch.cuda.synchronize()
+    return timing + (_tensors([res, list(args)]),)
 
 
 def _trio_lib(torch, FL, up, fs, level, n, N, B, gm=False):
@@ -256,6 +287,66 @@ def sweep_times(torch, schur, flat, R):
         out[f"library B1 N={N} L{level}"] = (_med(torch, lib, tuple),
                                              _chained(torch, lib))
         del FL, up, fs, sep, lib
+    # B1 with bf16 slabs at N=128 levels 1 and 3.
+    N, bf = 128, torch.bfloat16
+    depth = N.bit_length() - 1
+    for level in (1, 3):
+        U = depth - level - 1
+        G, G2 = N >> (level + 1), N >> (level + 2)
+        emit = schur._level_emits(level, N, bf) and level + 2 <= depth
+        FL = [R(nn, N, B).to(bf), R(nn, N, B).to(bf), R(mn, N, B).to(bf)]
+        up = [[R(e, N, B).to(bf) for _ in range(U)] for e in (nn, nn, mn)]
+        fs = [0.1 * R(G, nn, B) for _ in range(U)]
+        sep = [R(G2, nn, B), R(G2, mn, B)] if emit else [None, None]
+        out[f"B1 bf16 N={N} L{level}"] = _pair(
+            torch, lambda *u: schur.schur_update_level_em(
+                *FL, *u, fs, *sep, level=level, n=n, m=m),
+            lambda: [[x.clone() for x in u] for u in up])
+        del FL, up, fs, sep
+    return out
+
+
+def blocks_times(torch, schur, flat, R):
+    """``{case: (single ms, chained ms)}`` of B1 at the other and wide small
+    blocks (N=128 levels 1 and 3, N=256 level 1 at the wide ones, B=1024)
+    and of B10 at the wide blocks (N=256 levels 1 and 3), where B10 runs
+    B1's kernel (``row_level_kernel`` at the wide tag)."""
+    B = 1024
+    out = {}
+    for N, level, n, m in ((128, 1, 4, 2), (128, 1, 8, 8), (128, 3, 5, 4),
+                           (256, 1, 6, 12), (256, 1, 8, 64)):
+        xx, ux = n * n, m * n
+        depth = N.bit_length() - 1
+        U = depth - level - 1
+        G, G2 = N >> (level + 1), N >> (level + 2)
+        emit = schur._level_emits(level, N) and level + 2 <= depth
+        FL = [R(xx, N, B), R(xx, N, B), R(ux, N, B)]
+        up = [[R(e, N, B) for _ in range(U)] for e in (xx, xx, ux)]
+        fs = [0.1 * R(G, xx, B) for _ in range(U)]
+        sep = [R(G2, xx, B), R(G2, ux, B)] if emit else [None, None]
+        out[f"B1 N={N} L{level} n={n} m={m}"] = _pair(
+            torch, lambda *u: schur.schur_update_level_em(
+                *FL, *u, fs, *sep, level=level, n=n, m=m),
+            lambda: [[x.clone() for x in u] for u in up])
+        del FL, up, fs, sep
+    N = 256
+    rows = lambda G: G * B // 128
+    for n, m, level in ((6, 12, 1), (8, 64, 1), (8, 64, 3)):
+        xx, ux = n * n, m * n
+        U = N.bit_length() - 2 - level
+        G, G2 = N >> (level + 1), N >> (level + 2)
+        emit = flat._flat_emits(level, N)
+        FL = [R(xx, rows(N), 128), R(xx, rows(N), 128), R(ux, rows(N), 128)]
+        up = [[R(e, rows(N), 128) for _ in range(U)] for e in (xx, xx, ux)]
+        fs = [0.1 * R(xx, rows(G), 128) for _ in range(U)]
+        sep = ([R(xx, rows(G2), 128), R(n * m, rows(G2), 128)] if emit
+               else [None, None])
+        kw = dict(level=level, n=n, m=m, N=N)
+        out[f"B10 N={N} L{level} n={n} m={m}"] = _pair(
+            torch, lambda *u: flat.schur_update_level_flat(*FL, *u, fs, *sep,
+                                                           **kw),
+            lambda: [[x.clone() for x in u] for u in up])
+        del FL, up, fs, sep
     return out
 
 
@@ -361,11 +452,12 @@ def plu_times(torch, planes, R):
     """``{case: (single ms, chained ms)}`` of B8 (``plu_solve_multi``) at the
     quadruped pscan's three shapes (chip_smoke.py phase 2c): n=12 w=(12,)
     at 16 x 256 (the Woodbury solve), n=36 w=(36, 1, 36, 1) at 8 x 256 and
-    n=36 w=(36, 1) at 7 x 256 (the suffix tree's I + C J solves); beside
-    each, ``lu_factor_ex`` + ``lu_solve`` on mat-last views, single only."""
+    n=36 w=(36, 1) at 7 x 256 (the suffix tree's I + C J solves), and past
+    36, n=48 and 64 w=(n, 1) at 8 x 256; beside each, ``lu_factor_ex`` +
+    ``lu_solve`` on mat-last views, single only."""
     out = {}
     for n, ws, G in ((12, (12,), 16), (36, (36, 1, 36, 1), 8),
-                     (36, (36, 1), 7)):
+                     (36, (36, 1), 7), (48, (48, 1), 8), (64, (64, 1), 8)):
         M = R(G, 256, n, n) * n ** -0.5
         P = R(G, 256, n, n) * n ** -0.5
         IC = torch.eye(n, device="cuda") + (M @ M.transpose(-1, -2)) @ (
@@ -422,6 +514,69 @@ def leaf_times(torch, schur, flat, R):
     return out
 
 
+def _runs(torch, mods, R):
+    """Each kernel case set of the package modules ``mods`` (``schur``,
+    ``flat``, ``planes``), as a call returning its ``{case: times}``."""
+    schur, flat, planes = mods
+    return {"sweep": lambda: sweep_times(torch, schur, flat, R),
+            "plane": lambda: plane_times(torch, planes, R),
+            "pcho": lambda: pcho_times(torch, planes, R),
+            "pchol": lambda: pchol_times(torch, planes, R),
+            "plu": lambda: plu_times(torch, planes, R),
+            "flagged": lambda: flagged_times(torch, planes, R),
+            "flat": lambda: flat_level_times(torch, flat, R),
+            "leaf": lambda: leaf_times(torch, schur, flat, R),
+            "blocks": lambda: blocks_times(torch, schur, flat, R)}
+
+
+def _load_as(name: str, root: Path):
+    """``root``'s ``rslqr_tpu_torch`` imported as the package ``name`` (its
+    imports of itself are relative), beside the one on ``sys.path``."""
+    pkg = root / "rslqr_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def against(torch, sets, this, other, label):
+    """``--against``: each set run OTHER, this, this, OTHER on the same
+    seeded inputs; per case, the outputs of the first two runs compared and
+    the four chained times."""
+    global CAPTURE
+    gen = torch.Generator(device="cuda")
+    R = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    for name in sets:
+        res = []
+        for mods, cap in ((other, True), (this, True), (this, False),
+                          (other, False)):
+            gen.manual_seed(1)
+            torch.manual_seed(1)  # the leaf's torch.rand
+            CAPTURE = cap
+            res.append(_runs(torch, mods, R)[name]())
+        CAPTURE = False
+        o0, t0, t1, o1 = res
+        for case, got in t0.items():
+            if len(got) < 3:
+                continue
+            ref = o0[case][2]
+            eq = len(ref) == len(got[2]) and all(
+                a.dtype == b.dtype and torch.equal(a, b)
+                for a, b in zip(got[2], ref))
+            d = "" if eq else " (max |this - other| {:.3e})".format(max(
+                float((a.float() - b.float()).abs().max())
+                for a, b in zip(got[2], ref)))
+            ch = [o0[case][1], t0[case][1], t1[case][1], o1[case][1]]
+            print(f"time_solve against={label} kernel {case}: bit for bit "
+                  f"{eq}{d}; chained ms in turns other {ch[0]:.4f}, this "
+                  f"{ch[1]:.4f}, this {ch[2]:.4f}, other {ch[3]:.4f}; "
+                  f"this/other {min(ch[1:3]) / min(ch[0], ch[3]):.4f}",
+                  flush=True)
+        del res, o0, t0, t1, o1
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
@@ -432,6 +587,8 @@ def main() -> int:
     ap.add_argument("--sets", default=",".join(SETS),
                     help="kernel case sets for --kernels, of "
                     + ", ".join(SETS))
+    ap.add_argument("--against", help="another tree to hold the kernels "
+                    "against, in one process")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -456,6 +613,17 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.load()
     build_s = time.perf_counter() - t0
+    if args.against:
+        other_root = Path(args.against).resolve()
+        o = _load_as("against_rslqr_tpu_torch", other_root)
+        importlib.import_module(o.__name__ + ".ops._build").load()
+        mods = lambda pkg: tuple(importlib.import_module(
+            f"{pkg}.ops.{m}") for m in ("schur", "flat", "planes"))
+        print(f"time_solve root={root.name} against={other_root.name}: "
+              f"both built (this tree {build_s:.1f} s)", flush=True)
+        against(torch, args.sets.split(","), (schur, flat, planes),
+                mods(o.__name__), other_root.name)
+        return 0
     N, nx, nu, B = CONFIGS[args.config]
     if args.config == "small":
         prob = pt.double_integrator_problem(N, dtype=torch.float32,
@@ -484,14 +652,7 @@ def main() -> int:
     if args.kernels:
         gen = torch.Generator(device="cuda").manual_seed(1)
         R = lambda *s: torch.randn(s, generator=gen, device="cuda")
-        runs = {"sweep": lambda: sweep_times(torch, schur, flat, R),
-                "plane": lambda: plane_times(torch, planes, R),
-                "pcho": lambda: pcho_times(torch, planes, R),
-                "pchol": lambda: pchol_times(torch, planes, R),
-                "plu": lambda: plu_times(torch, planes, R),
-                "flagged": lambda: flagged_times(torch, planes, R),
-                "flat": lambda: flat_level_times(torch, flat, R),
-                "leaf": lambda: leaf_times(torch, schur, flat, R)}
+        runs = _runs(torch, (schur, flat, planes), R)
         times = {}
         for name in args.sets.split(","):
             times.update(runs[name]())
