@@ -179,11 +179,12 @@ Phases, each printing one line of numbers:
    solve, one refined solve, one bf16-slab solve and one quadruped grid
    solve) traced with
    ``torch.profiler``: device time by kernel (the top kernels and every
-   hand kernel), device kernel launches, and the device's busy share of
-   the solve's wall time (and the grid re-solve and large-block rsLQR
-   and pscan); 5b ``profile_solve`` (per-phase device and host
-   ms) on the quadruped grid batch and the small em batch, with
-   ``print_solve_summary``;
+   hand kernel) and device kernel launches beside the profiled wall (and
+   the grid re-solve and large-block rsLQR and pscan; the device's busy
+   and idle time of a solve is the benchmark's, ``lqrbench/trace.py``);
+   5b ``profile_solve`` (per-phase device and host ms, read through the
+   solve's stage spans) on the quadruped grid batch and the small em
+   batch, with ``print_solve_summary``;
 6. the kernel-measurement entry points: ``bench_kernels``' six sections
    (update, leaf, rhs, sep, prod, planes) at their defaults, one JSON row
    per stage and level (chained, graph-replayed times with the card's name),
@@ -2756,7 +2757,7 @@ class Smoke:
     # -- phase 5 ---------------------------------------------------------
     def profile(self, b, label, solve=None, top=14):
         """Device kernel time of one batched solve by kernel name
-        (``torch.profiler``, CUDA activity), against its wall time."""
+        (``torch.profiler``, CUDA activity), beside its profiled wall."""
         t, pt = self.torch, self.pt
         from torch.profiler import ProfilerActivity, profile
 
@@ -2769,12 +2770,15 @@ class Smoke:
             solve(b)
             t.cuda.synchronize()
             wall = 1e3 * (time.perf_counter() - t0)
+        # The solve's stage spans have device copies on the card's
+        # timeline: ranges, not kernels.
         dev = [e for e in prof.key_averages()
                if str(e.device_type).endswith("CUDA")
-               and e.self_device_time_total > 0]
-        busy = sum(e.self_device_time_total for e in dev) / 1e3
+               and e.self_device_time_total > 0
+               and not e.key.startswith("rslqr_tpu_torch.")]
+        kernel_ms = sum(e.self_device_time_total for e in dev) / 1e3
         print(f"phase5 {label}: wall {wall:.3f} ms (profiled), device "
-              f"kernel time {busy:.3f} ms, busy share {busy / wall:.3f}, "
+              f"kernel time {kernel_ms:.3f} ms summed over kernels, "
               f"{sum(e.count for e in dev)} device kernel launches",
               flush=True)
         ranked = sorted(dev, key=lambda e: -e.self_device_time_total)

@@ -9,7 +9,8 @@ multi-RHS front door (``factorize`` / ``solve_rhs`` / ``leaf_solve_rhs``),
 mixed-precision refinement (``refine``: f32 factorization, f64 accuracy),
 the parallel-scan solver (``solve_pscan``) at any block size, the Riccati
 oracle, JSON problem I/O (``io``, ``native``), diagnostics
-(``diagnostics``), the per-phase profiler (``profile``) and the problem
+(``diagnostics``), the per-phase profiler (``profile``) on the solve's stage
+spans (``spans``, which ``torch.profiler`` shows too) and the problem
 helpers (which build on the card unless asked for ``device="cpu"``). The
 hand-written kernels (``ops/schur.py`` with ``csrc/schur_kernels.cu`` and
 ``ops/flat.py`` with ``csrc/flat_kernels.cu`` for small blocks,

@@ -152,8 +152,9 @@ class _RsLqrSolve(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, opts: SolveOptions, tables, box: list, *fields):
-        # Grad is off here, so this is the plain solve on its own route.
-        sol = rslqr.solve(LQRProblem(*fields), tables, opts)
+        # Grad is off here, so this is the plain solve on its own route,
+        # inside the front door's ``solve`` span.
+        sol = rslqr._solve(LQRProblem(*fields), tables, opts)
         box.append(sol.fact)
         ctx.fact, ctx.opts = sol.fact, opts
         ctx.save_for_backward(*fields, sol.Y, sol.X, sol.U)

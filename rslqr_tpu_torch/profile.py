@@ -3,11 +3,22 @@
 Counterpart of ``rslqr_tpu.profile`` (the reference's phase profiler,
 ``NdLqrProfile`` with OMP_TICK/OMP_TOC, solve.c:15-25, solver.h:31-74, and
 its linalg time accumulator). The port runs eagerly, so the phases are timed
-inside one real factorization: the solve's stages take a ``clock``
-(``rslqr._no_clock`` when not profiling) and :func:`profile_solve` passes one
-that brackets each stage, on the layout ``solve`` would take (the
+inside one real factorization: the solve's stages run in the spans of
+:mod:`rslqr_tpu_torch.spans`, and :func:`profile_solve` listens to them with
+a clock that brackets each stage, on the layout ``solve`` would take (the
 element-major stages of ``rslqr_em.factorize_em``, or the knot-major
-stages of ``rslqr._factorize_bl``).
+stages of ``rslqr._factorize_bl``), summed by phase over the tree levels.
+
+The same spans need no call of this module: any ``torch.profiler`` run over
+a caller's own solves shows the ``rslqr_tpu_torch.*`` stages (``solve``,
+``factor``, ``sweep``, ``pack``, each tree level's phases, the scan's
+stages, ``h2d``) as ``user_annotation`` ranges on the timeline of the
+kernels they launch::
+
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        pt.solve_kkt(batch)
+    prof.export_chrome_trace("solve.json")
 
 Each phase reports two times:
 
@@ -37,10 +48,13 @@ from typing import Optional
 import torch
 
 from . import riccati as _riccati
-from . import rslqr, rslqr_em
+from . import rslqr, rslqr_em, spans
 from .config import SolveOptions, resolve_options
 from .problem import LQRProblem
 from .tree import build_tree_tables
+
+
+PHASES = ("leaves", "products", "cholesky", "cholsolve", "shur")
 
 
 @dataclasses.dataclass
@@ -123,7 +137,8 @@ class RiccatiProfile:
 class _Clock:
     """Brackets named stages: CUDA events on a CUDA device, the host clock
     on the CPU; the events are read once, after one synchronize
-    (:meth:`times`)."""
+    (:meth:`times`). Installed as the spans' listener
+    (``spans.listening``), it gets every stage's name."""
 
     def __init__(self, device: torch.device):
         self.cuda = device.type == "cuda"
@@ -145,14 +160,16 @@ class _Clock:
         self.marks.append((name, host, e0, self._event()))
 
     def times(self):
-        """``{name: (device_ms, host_ms)}``, summed over the marks."""
+        """``{phase: (device_ms, host_ms)}``, summed over the marks by the
+        phase part of each name (``products`` of ``products.L3``)."""
         if self.cuda:
             torch.cuda.synchronize()
         out = {}
         for name, host, e0, e1 in self.marks:
             dev = e0.elapsed_time(e1) if self.cuda else host
-            d, h = out.get(name, (0.0, 0.0))
-            out[name] = (d + dev, h + host)
+            phase = name.split(".")[0]
+            d, h = out.get(phase, (0.0, 0.0))
+            out[phase] = (d + dev, h + host)
         return out
 
 
@@ -173,24 +190,26 @@ def profile_solve(prob: LQRProblem, repeats: int = 3,
     if rslqr._use_em_layout(prob, opts):
         one, _ = rslqr._one_batch_axis(prob)
 
-        def factor(clock):
-            rslqr_em.factorize_em(one, t, options=opts, clock=clock)
+        def factor():
+            rslqr_em.factorize_em(one, t, options=opts)
     else:
         nb = rslqr._num_batch_axes(prob)
         pbl = rslqr._to_batch_last(prob, nb)
         rslqr._no_tf32()
 
-        def factor(clock):
-            rslqr._factorize_bl(pbl, t, nb, opts, clock)
+        def factor():
+            rslqr._factorize_bl(pbl, t, nb, opts)
 
     def total():
         rslqr.solve_kkt(prob, options=opts)
 
     def run() -> SolveProfile:
         p = SolveProfile(num_devices=_num_devices(dev))
-        clock = _Clock(dev)
-        factor(clock)
-        for name, (d, h) in clock.times().items():
+        with spans.listening(_Clock(dev)) as clock:
+            factor()
+        tm = clock.times()
+        for name in PHASES:
+            d, h = tm.get(name, (0.0, 0.0))
             setattr(p, f"t_{name}_ms", d)
             setattr(p, f"host_{name}_ms", h)
         if dev.type == "cuda":

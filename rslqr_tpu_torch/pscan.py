@@ -48,6 +48,7 @@ from .ops.planes import MAX_BLOCK
 from .problem import LQRProblem, pack_solution
 from .riccati import RiccatiSolution
 from .rslqr import _bf, _one_batch_axis, _to_batch_last
+from .spans import entry, span
 
 
 def _eye_like(S: torch.Tensor, nb: int) -> torch.Tensor:
@@ -501,9 +502,9 @@ def _value_scan_chunked_em(pem, nb: int, opts: SolveOptions, s: int,
     return ``(P, p, K, d)`` from its Woodbury intermediates; with
     ``batched`` the interior cost-to-gos come instead from ONE reduced
     combine of the fold's emitted composites at ``C*(s-1)*B`` width, and
-    the gains from one full-width gains pass."""
-    leaf = _leaf_em(pem, nb, opts)
-    N = leaf[0].shape[-2]
+    the gains from one full-width gains pass. Stages in their spans:
+    ``leaf``, ``fold``, ``scan`` (across chunks) and ``down``."""
+    N = pem["A"].shape[-2]
     C = N // s
 
     def chunkify(x):  # [.., N, B] -> [s, .., C, B], contiguous
@@ -514,81 +515,88 @@ def _value_scan_chunked_em(pem, nb: int, opts: SolveOptions, s: int,
         y = y.movedim(0, -2)
         return y.reshape(y.shape[:-3] + (N, y.shape[-1]))
 
-    lc = tuple(chunkify(x) for x in leaf)
+    with span("leaf"):
+        lc = tuple(chunkify(x) for x in _leaf_em(pem, nb, opts))
     lj = lambda j: tuple(x[j] for x in lc)
     emit = gains and batched
 
     # Serial fold, in-chunk positions s-3 .. 0: comp covers j .. s-1.
-    comp0 = _combine_leaf_pair(lj(s - 2), lj(s - 1), nb, opts)
-    comp = comp0
-    suffix_comps = [comp0]  # emit: the composites of positions s-2 .. 0
-    for j in reversed(range(s - 2)):
-        comp = _combine_leaf_full(lj(j), comp, nb, opts)
+    with span("fold"):
+        comp0 = _combine_leaf_pair(lj(s - 2), lj(s - 1), nb, opts)
+        comp = comp0
+        suffix_comps = [comp0]  # emit: the composites of positions s-2 .. 0
+        for j in reversed(range(s - 2)):
+            comp = _combine_leaf_full(lj(j), comp, nb, opts)
+            if emit:
+                suffix_comps.append(comp)
+
+    with span("scan"):
+        eta_s, J_s = _suffix_pj(comp, nb, opts, em=True)  # at chunk starts
+    with span("down"):
+        # Interior seeds: the NEXT chunk's boundary suffix; zeros for the
+        # last chunk (annihilated by the terminal leaf's zeroed dynamics).
+        shift = lambda x: torch.cat(
+            [x[..., 1:, :], torch.zeros_like(x[..., :1, :])], dim=-2)
+        eta_v, J_v = shift(eta_s), shift(J_s)
+
         if emit:
-            suffix_comps.append(comp)
+            sm1 = s - 1
+            # [s-1, .., C, B] composites of positions 0 .. s-2 ->
+            # [.., C*(s-1), B], chunk-major, position-minor.
+            comps = tuple(torch.stack([c[i] for c in reversed(suffix_comps)])
+                          for i in range(5))
 
-    eta_s, J_s = _suffix_pj(comp, nb, opts, em=True)  # at chunk starts
-    # Interior seeds: the NEXT chunk's boundary suffix; zeros for the last
-    # chunk (annihilated by the terminal leaf's zeroed dynamics).
-    shift = lambda x: torch.cat(
-        [x[..., 1:, :], torch.zeros_like(x[..., :1, :])], dim=-2)
-    eta_v, J_v = shift(eta_s), shift(J_s)
+            def flat_j(y):
+                y = y.movedim(0, -2)
+                return y.reshape(y.shape[:-3] + (C * sm1, y.shape[-1]))
 
-    if emit:
-        sm1 = s - 1
-        # [s-1, .., C, B] composites of positions 0 .. s-2 -> [.., C*(s-1),
-        # B], chunk-major, position-minor.
-        comps = tuple(torch.stack([c[i] for c in reversed(suffix_comps)])
-                      for i in range(5))
+            rep = lambda x: x.repeat_interleave(sm1, dim=-2)
+            eta_i, J_i = _combine_reduced(
+                tuple(flat_j(x) for x in comps), (rep(eta_v), rep(J_v)), nb,
+                opts
+            )
+            eta_l, J_l = _combine_reduced_leaf(lj(s - 1), (eta_v, J_v), nb,
+                                               opts)
 
-        def flat_j(y):
-            y = y.movedim(0, -2)
-            return y.reshape(y.shape[:-3] + (C * sm1, y.shape[-1]))
+            def fin(yi, yl):
+                yi = yi.reshape(yi.shape[:-2] + (C, sm1, yi.shape[-1]))
+                y = torch.cat([yi, yl.unsqueeze(-2)], dim=-2)
+                return y.reshape(y.shape[:-3] + (N, y.shape[-1]))
 
-        rep = lambda x: x.repeat_interleave(sm1, dim=-2)
-        eta_i, J_i = _combine_reduced(
-            tuple(flat_j(x) for x in comps), (rep(eta_v), rep(J_v)), nb, opts
-        )
-        eta_l, J_l = _combine_reduced_leaf(lj(s - 1), (eta_v, J_v), nb, opts)
+            P_all, p_all = fin(J_i, J_l), -fin(eta_i, eta_l)
+            S = lambda x: x[..., :N - 1, :]
+            Sn = lambda x: x[..., 1:, :]
+            K, d = _gains_from(
+                S(pem["A"]), S(pem["B"]), S(pem["Rdiag"]), S(pem["r"]),
+                S(pem["f"]), Sn(P_all), Sn(p_all), nb, opts,
+            )
+            return P_all, p_all, K, d
 
-        def fin(yi, yl):
-            yi = yi.reshape(yi.shape[:-2] + (C, sm1, yi.shape[-1]))
-            y = torch.cat([yi, yl.unsqueeze(-2)], dim=-2)
-            return y.reshape(y.shape[:-3] + (N, y.shape[-1]))
+        if not gains:
+            # Down-sweep over in-chunk positions s-1 .. 1 (position 0 is the
+            # scanned chunk-start suffix).
+            carry = (eta_v, J_v)
+            outs = [(eta_s, J_s)] + [None] * (s - 1)
+            for j in reversed(range(1, s)):
+                carry = _combine_reduced_leaf(lj(j), carry, nb, opts)
+                outs[j] = carry
+            return (unchunk_s(torch.stack([o[1] for o in outs])),
+                    -unchunk_s(torch.stack([o[0] for o in outs])))
 
-        P_all, p_all = fin(J_i, J_l), -fin(eta_i, eta_l)
-        S = lambda x: x[..., :N - 1, :]
-        Sn = lambda x: x[..., 1:, :]
-        K, d = _gains_from(
-            S(pem["A"]), S(pem["B"]), S(pem["Rdiag"]), S(pem["r"]),
-            S(pem["f"]), Sn(P_all), Sn(p_all), nb, opts,
-        )
-        return P_all, p_all, K, d
-
-    if not gains:
-        # Down-sweep over in-chunk positions s-1 .. 1 (position 0 is the
-        # scanned chunk-start suffix).
+        # Fused gains: the down-sweep at EVERY in-chunk position (position
+        # 0 recomputes the chunk-start suffix: C cheap extra steps) emits
+        # (K, d).
+        rinv_c = chunkify(1.0 / pem["Rdiag"])
+        r_c = chunkify(pem["r"])
         carry = (eta_v, J_v)
-        outs = [(eta_s, J_s)] + [None] * (s - 1)
-        for j in reversed(range(1, s)):
-            carry = _combine_reduced_leaf(lj(j), carry, nb, opts)
-            outs[j] = carry
-        return (unchunk_s(torch.stack([o[1] for o in outs])),
-                -unchunk_s(torch.stack([o[0] for o in outs])))
-
-    # Fused gains: the down-sweep at EVERY in-chunk position (position 0
-    # recomputes the chunk-start suffix: C cheap extra steps) emits (K, d).
-    rinv_c = chunkify(1.0 / pem["Rdiag"])
-    r_c = chunkify(pem["r"])
-    carry = (eta_v, J_v)
-    outs = [None] * s
-    for j in reversed(range(s)):
-        outs[j] = _combine_reduced_leaf(lj(j), carry, nb, opts,
-                                        gains=(rinv_c[j], r_c[j]))
-        carry = outs[j][:2]
-    st = lambda i: unchunk_s(torch.stack([o[i] for o in outs]))
-    Sl = lambda x: x[..., :N - 1, :]
-    return st(1), -st(0), Sl(st(2)), Sl(st(3))
+        outs = [None] * s
+        for j in reversed(range(s)):
+            outs[j] = _combine_reduced_leaf(lj(j), carry, nb, opts,
+                                            gains=(rinv_c[j], r_c[j]))
+            carry = outs[j][:2]
+        st = lambda i: unchunk_s(torch.stack([o[i] for o in outs]))
+        Sl = lambda x: x[..., :N - 1, :]
+        return st(1), -st(0), Sl(st(2)), Sl(st(3))
 
 
 def _auto_chunk(N: int, chunk: int) -> int:
@@ -740,30 +748,39 @@ def _solve_pscan_em(prob: LQRProblem, opts: SolveOptions) -> RiccatiSolution:
     head = slice(0, N - 1)
 
     s = _auto_chunk(N, opts.pscan_chunk) if (N >= 4 and N % 2 == 0) else 1
-    if s >= 2:
-        # Chunked scan with the gains fused into its down-sweep.
-        P, p, K, d = _value_scan_chunked_em(
-            pem, nb, opts, s, gains=True,
-            batched=opts.pscan_batched_interior,
-        )
-    else:
-        P, p = _value_scan_em(pem, nb, opts, 1)
-        K, d = _gains_from(
-            S(pem["A"], head), S(pem["B"], head), S(pem["Rdiag"], head),
-            S(pem["r"], head), S(pem["f"], head), S(P, slice(1, N)),
-            S(p, slice(1, N)), nb, opts,
-        )
-    Phi = S(pem["A"], head) + la.bgemm(S(pem["B"], head), K, nb, opts)
-    tvec = la.bgemv(S(pem["B"], head), d, nb) + S(pem["f"], head)
-    x0e = pbl.x0[:, None, :]  # [n, 1, B]
-    if s >= 2:
-        xs = _prefix_action_chunked_em(Phi, tvec, x0e, nb, opts, s,
-                                       batched=opts.pscan_batched_interior)
-    else:
-        xs = _prefix_action_em(Phi, tvec, x0e, nb, opts)
-    X = _cat([x0e, xs], em=True)  # [n, N, B]
-    U = la.bgemv(K, S(X, head), nb) + d
-    Y = la.bgemv(P, X, nb) + p
+    with span("factor"):
+        if s >= 2:
+            # Chunked scan with the gains fused into its down-sweep.
+            P, p, K, d = _value_scan_chunked_em(
+                pem, nb, opts, s, gains=True,
+                batched=opts.pscan_batched_interior,
+            )
+        else:
+            with span("scan"):
+                P, p = _value_scan_em(pem, nb, opts, 1)
+            with span("gains"):
+                K, d = _gains_from(
+                    S(pem["A"], head), S(pem["B"], head),
+                    S(pem["Rdiag"], head), S(pem["r"], head),
+                    S(pem["f"], head), S(P, slice(1, N)), S(p, slice(1, N)),
+                    nb, opts,
+                )
+    with span("sweep"):
+        with span("prefix"):
+            Phi = S(pem["A"], head) + la.bgemm(S(pem["B"], head), K, nb,
+                                               opts)
+            tvec = la.bgemv(S(pem["B"], head), d, nb) + S(pem["f"], head)
+            x0e = pbl.x0[:, None, :]  # [n, 1, B]
+            if s >= 2:
+                xs = _prefix_action_chunked_em(
+                    Phi, tvec, x0e, nb, opts, s,
+                    batched=opts.pscan_batched_interior)
+            else:
+                xs = _prefix_action_em(Phi, tvec, x0e, nb, opts)
+        with span("outputs"):
+            X = _cat([x0e, xs], em=True)  # [n, N, B]
+            U = la.bgemv(K, S(X, head), nb) + d
+            Y = la.bgemv(P, X, nb) + p
 
     # [p(, q), N, B] -> [B, N, p(, q)].
     out = lambda x: x.movedim(-2, 0).movedim(-1, 0)
@@ -780,11 +797,17 @@ def _solve_pscan_impl(prob: LQRProblem, opts: SolveOptions) -> RiccatiSolution:
             and opts.layout != "grid"):
         return _solve_pscan_em(prob, opts)
     pbl = _to_batch_last(prob, 1)
-    P, p = _value_scan(pbl, 1, opts)
-    K, d = _gains(pbl, P, p, 1, opts)
-    X = _forward_scan(pbl, K, d, 1, opts)
-    U = la.bgemv(K, X[:-1], 1) + d
-    Y = la.bgemv(P, X, 1) + p
+    with span("factor"):
+        with span("scan"):
+            P, p = _value_scan(pbl, 1, opts)
+        with span("gains"):
+            K, d = _gains(pbl, P, p, 1, opts)
+    with span("sweep"):
+        with span("prefix"):
+            X = _forward_scan(pbl, K, d, 1, opts)
+        with span("outputs"):
+            U = la.bgemv(K, X[:-1], 1) + d
+            Y = la.bgemv(P, X, 1) + p
     return RiccatiSolution(K=_bf(K, 1), d=_bf(d, 1), P=_bf(P, 1),
                            p=_bf(p, 1), X=_bf(X, 1), U=_bf(U, 1),
                            Y=_bf(Y, 1))
@@ -806,6 +829,13 @@ def solve_pscan(prob: LQRProblem,
     field requires grad (:mod:`rslqr_tpu_torch.autodiff`: the backward
     scans the shadow problem); the gains then come back detached.
     """
+    with entry():
+        return _solve_pscan(prob, options)
+
+
+def _solve_pscan(prob: LQRProblem,
+                 options: Optional[SolveOptions] = None) -> RiccatiSolution:
+    """:func:`solve_pscan` inside its ``solve`` span."""
     from . import autodiff
 
     if autodiff.wants_grad(prob):
@@ -822,5 +852,7 @@ def solve_pscan(prob: LQRProblem,
 def solve_pscan_kkt(prob: LQRProblem,
                     options: Optional[SolveOptions] = None) -> torch.Tensor:
     """Solve and return the flat KKT vector(s) ``[*b, nvars]``."""
-    sol = solve_pscan(prob, options=options)
-    return pack_solution(sol.Y, sol.X, sol.U)
+    with entry():
+        sol = _solve_pscan(prob, options)
+        with span("pack"):
+            return pack_solution(sol.Y, sol.X, sol.U)

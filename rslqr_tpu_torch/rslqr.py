@@ -25,7 +25,6 @@ for a new ``x0``, ``q``, ``r`` or ``f``).
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Optional, Tuple
 
@@ -37,13 +36,8 @@ from .config import SolveOptions, resolve_options
 from .problem import LQRProblem, pack_solution
 from .ops.planes import MAX_BLOCK
 from .ops.schur import _masks
+from .spans import entry, host_copy, span
 from .tree import TreeTables, build_tree_tables
-
-
-def _no_clock(name: str):
-    """The stage clock of an unprofiled run (``profile.py`` passes one that
-    times each stage)."""
-    return contextlib.nullcontext()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,7 +151,7 @@ def _leaf_solve(prob: LQRProblem, levels: np.ndarray, depth: int,
     zy = torch.cat([-prob.x0[None], -prob.f[:-1]])
     zy, zx, zu = _leaf_rhs_transform(prob, (zy, -prob.q, -prob.r))
 
-    idx = lambda a: torch.as_tensor(a, device=dev)
+    idx = lambda a: host_copy(a, dev)
     # F[level(k), k] <- {Q_k^{-1} A_k', R_k^{-1} B_k'} for 1 <= k < N-1
     # (ref nested_dissection.c:81-86).
     ks = np.arange(1, N - 1)
@@ -271,22 +265,20 @@ def _stage_schur(level: int, depth: int, Fls, Fxs, Fus, Ss, fsols, nb: int,
 
 
 def _sweep_level_core(prob, level: int, depth: int, Fls, Fxs, Fus, chols,
-                      nb: int, opts: Optional[SolveOptions] = None,
-                      clock=_no_clock):
+                      nb: int, opts: Optional[SolveOptions] = None):
     """One level of the factorization sweep (body of the loop in
     solve.c:68-134) on per-level factor lists ``F*s[u]`` of shape
     ``[N, r, n, *b]``, updated in place, composed of the four reference
-    phases so the profiler times each from the same source (``clock``).
-    Appends this level's separator Cholesky factors ``[G, n, n, *b]`` to
-    ``chols``."""
-    with clock("products"):
+    phases, each in its span (:mod:`rslqr_tpu_torch.spans`). Appends this
+    level's separator Cholesky factors ``[G, n, n, *b]`` to ``chols``."""
+    with span("products", level):
         Ss = _stage_products(prob, level, depth, Fls, Fxs, Fus, nb, opts)
-    with clock("cholesky"):
+    with span("cholesky", level):
         Lc = _stage_cholesky(Ss, nb, opts)
     chols.append(Lc)
-    with clock("cholsolve"):
+    with span("cholsolve", level):
         fsols = _stage_cholsolve(Lc, Ss, nb, opts)
-    with clock("shur"):
+    with span("shur", level):
         _stage_schur(level, depth, Fls, Fxs, Fus, Ss, fsols, nb, opts)
 
 
@@ -323,20 +315,24 @@ def _sweep_level(prob: LQRProblem, t: TreeTables, level: int,
 
 def _factorize_bl(
     prob: LQRProblem, t: TreeTables, nb: int,
-    opts: Optional[SolveOptions] = None, clock=_no_clock,
+    opts: Optional[SolveOptions] = None,
 ) -> Tuple[RsLqrFactorization, Tuple[torch.Tensor, ...]]:
-    """Phases 1-2 on batch-last problem arrays (ref solve.c:50-134)."""
-    with clock("leaves"):
-        Flambda, Fstate, Finput, zy, zx, zu = _leaf_solve(
-            prob, t.levels, t.depth, nb)
-    Fls, Fxs, Fus = (list(F.unbind(0)) for F in (Flambda, Fstate, Finput))
-    chols: list = []
-    for level in range(t.depth):
-        _sweep_level_core(prob, level, t.depth, Fls, Fxs, Fus, chols, nb,
-                          opts, clock)
-    chol = Flambda.new_zeros((Flambda.shape[1] - 1,) + Flambda.shape[2:])
-    for level in range(t.depth):
-        _chol_cache_set(chol, level, chols[level])
+    """Phases 1-2 on batch-last problem arrays (ref solve.c:50-134), in the
+    ``factor`` span."""
+    with span("factor"):
+        with span("leaves"):
+            Flambda, Fstate, Finput, zy, zx, zu = _leaf_solve(
+                prob, t.levels, t.depth, nb)
+        Fls, Fxs, Fus = (list(F.unbind(0))
+                         for F in (Flambda, Fstate, Finput))
+        chols: list = []
+        for level in range(t.depth):
+            _sweep_level_core(prob, level, t.depth, Fls, Fxs, Fus, chols,
+                              nb, opts)
+        chol = Flambda.new_zeros((Flambda.shape[1] - 1,)
+                                 + Flambda.shape[2:])
+        for level in range(t.depth):
+            _chol_cache_set(chol, level, chols[level])
     fact = RsLqrFactorization(Flambda=Flambda, Fstate=Fstate, Finput=Finput,
                               chol=chol, nbatch=nb)
     return fact, (zy, zx, zu)
@@ -378,14 +374,17 @@ def _rhs_level_core(prob, level: int, Fl, Fx, Fu, Lc, zy, zx, zu, nb: int,
 
 def _solve_rhs_bl(prob: LQRProblem, fact: RsLqrFactorization, rhs,
                   t: TreeTables, opts: Optional[SolveOptions] = None):
-    """Phase 3 on batch-last arrays (ref solve.c:137-182)."""
+    """Phase 3 on batch-last arrays (ref solve.c:137-182), in the ``sweep``
+    span."""
     zy, zx, zu = rhs
-    for level in range(t.depth):
-        zy, zx, zu = _rhs_level_core(
-            prob, level, fact.Flambda[level], fact.Fstate[level],
-            fact.Finput[level], _chol_cache_get(fact.chol, level), zy, zx,
-            zu, fact.nbatch, opts,
-        )
+    with span("sweep"):
+        for level in range(t.depth):
+            with span("rhs", level):
+                zy, zx, zu = _rhs_level_core(
+                    prob, level, fact.Flambda[level], fact.Fstate[level],
+                    fact.Finput[level], _chol_cache_get(fact.chol, level),
+                    zy, zx, zu, fact.nbatch, opts,
+                )
     return zy, zx, zu
 
 
@@ -474,6 +473,13 @@ def solve(
     route; its backward re-solves through the cached factorization).
     Otherwise no graph is built.
     """
+    with entry():
+        return _solve(prob, tables, options)
+
+
+def _solve(prob: LQRProblem, tables: Optional[TreeTables] = None,
+           options: Optional[SolveOptions] = None) -> RsLqrSolution:
+    """:func:`solve` inside its ``solve`` span: the route."""
     opts = resolve_options(options)
     from . import autodiff
 
@@ -496,4 +502,7 @@ def solve_kkt(
     prob: LQRProblem, options: Optional[SolveOptions] = None
 ) -> torch.Tensor:
     """Solve and return the flat KKT vector(s) ``[*b, nvars]``."""
-    return solve(prob, options=options).kkt_vector()
+    with entry():
+        sol = _solve(prob, options=options)
+        with span("pack"):
+            return sol.kkt_vector()

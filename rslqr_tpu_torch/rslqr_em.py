@@ -73,7 +73,8 @@ from . import linalg as la
 from .config import SolveOptions, resolve_options, storage_dtype
 from .ops import flat, planes, schur
 from .problem import LQRProblem, pack_solution
-from .rslqr import RsLqrSolution, _bf, _no_clock, _to_batch_last
+from .rslqr import RsLqrSolution, _bf, _to_batch_last
+from .spans import host_copy, span
 from .tree import TreeTables, build_tree_tables
 
 NB = 1  # trailing batch axes of every element-major array
@@ -122,9 +123,7 @@ def _sel(x: torch.Tensor, idx: int) -> torch.Tensor:
 def _kmask(sel: np.ndarray, lead: int, device) -> torch.Tensor:
     """Static bool over knots -> broadcastable with ``lead`` leading block
     axes and the trailing batch axis."""
-    return torch.as_tensor(
-        sel.reshape((1,) * lead + sel.shape + (1,)), device=device
-    )
+    return host_copy(sel.reshape((1,) * lead + sel.shape + (1,)), device)
 
 
 def _leaf_masks(levels: np.ndarray, N: int, depth: int):
@@ -165,7 +164,7 @@ def _leaf_em(pbl: LQRProblem, levels: np.ndarray, depth: int, fdt=None):
         ``values(idx)`` gives the blocks at knots ``idx``."""
         out = torch.zeros((p, n, N, Bb), dtype=fdt, device=dev)
         for mask, values in parts:
-            idx = torch.as_tensor(np.nonzero(mask)[0], device=dev)
+            idx = host_copy(np.nonzero(mask)[0], dev)
             if len(idx):
                 out[:, :, idx] = values(idx).to(fdt)
         return out
@@ -468,25 +467,24 @@ def _level_update_plain_em(level, depth, Fls, Fxs, Fus, fsols):
             d.copy_(c)
 
 
-def _sweep_level_em(A, B, level, depth, Fls, Fxs, Fus, n, m, ex, opts,
-                    clock=_no_clock):
+def _sweep_level_em(A, B, level, depth, Fls, Fxs, Fus, n, m, ex, opts):
     """One level of the factorization sweep (ref solve.c:68-134); updates
     the slabs in place, returns the level's Cholesky factors
-    ``[n, n, G, B]`` and the next level's products (or None). ``clock``
-    times each reference phase (``profile.py``)."""
-    with clock("products"):
+    ``[n, n, G, B]`` and the next level's products (or None). Each
+    reference phase runs in its span, tagged with ``level``."""
+    with span("products", level):
         Ss = _level_products_em(A, B, level, depth, Fls, Fxs, Fus, ex, n,
                                 opts)
-    with clock("cholesky"):
+    with span("cholesky", level):
         Lc = la.bcholesky(Ss[0], NB + 1, opts)
     if ex is None:
-        with clock("shur"):
+        with span("shur", level):
             _level_writeback_em(Fls, level, Ss[0])
-    with clock("cholsolve"):
+    with span("cholsolve", level):
         fsols = _level_cholsolve_em(Lc, Ss, level, opts)
     if level + 1 >= depth:
         return Lc, None
-    with clock("shur"):
+    with span("shur", level):
         if _mid_block(n, opts):
             _level_update_planes_em(level, depth, Fls, Fxs, Fus, fsols,
                                     opts)
@@ -562,32 +560,33 @@ def _schur_kernel_pair(
     return S_next
 
 
-def _sweep_pair_em(A, B, level, depth, Fls, Fxs, Fus, n, m, ex, opts,
-                   clock=_no_clock):
+def _sweep_pair_em(A, B, level, depth, Fls, Fxs, Fus, n, m, ex, opts):
     """TWO levels of the factorization sweep (ref solve.c:68-134, two
     iterations) with a single slab pass: compact stages for both levels'
     Cholesky factors and separator solves, then the paired kernel.
-    Returns ``(Lc1, Lc2, ex_next)``."""
-    with clock("products"):
+    Returns ``(Lc1, Lc2, ex_next)``. Each compact stage's span is tagged
+    with the level it computes, the paired kernel's ``shur`` with
+    ``level``."""
+    with span("products", level):
         Ss = _level_products_em(A, B, level, depth, Fls, Fxs, Fus, ex, n,
                                 opts)
-    with clock("cholesky"):
+    with span("cholesky", level):
         Lc1 = la.bcholesky(Ss[0], NB + 1, opts)
     if ex is None:
-        with clock("shur"):
+        with span("shur", level):
             _level_writeback_em(Fls, level, Ss[0])
-    with clock("cholsolve"):
+    with span("cholsolve", level):
         fsols1 = _level_cholsolve_em(Lc1, Ss, level, opts)
-    with clock("products"):
+    with span("products", level + 1):
         S2 = _pair_prepass(A, B, level, depth, Fls, Fxs, Fus, fsols1, opts)
-    with clock("cholesky"):
+    with span("cholesky", level + 1):
         Lc2 = la.bcholesky(S2[0], NB + 1, opts)
-    with clock("cholsolve"):
+    with span("cholsolve", level + 1):
         fsols2 = {
             level + 2 + i: s
             for i, s in enumerate(_cholsolve_stacked(Lc2, S2[1:], opts))
         }
-    with clock("shur"):
+    with span("shur", level):
         ex_next = _schur_kernel_pair(
             A, B, level, depth, Fls, Fxs, Fus, fsols1, S2[0], fsols2, n, m,
             opts
@@ -692,13 +691,13 @@ def _leaf_products0(pbl: LQRProblem, t: TreeTables, n: int, m: int, opts):
 
 def factorize_em(
     prob: LQRProblem, tables: Optional[TreeTables] = None,
-    options: Optional[SolveOptions] = None, clock=_no_clock,
+    options: Optional[SolveOptions] = None,
 ):
-    """Leaf solves + level sweep (ref solve.c:50-134). ``prob`` carries ONE
-    leading batch axis. Returns the factorization and the leaf-solved
-    element-major RHS ``(zy, zx, zu)``. ``clock`` times each reference
-    phase (``profile.py``): the fused leaf kernel counts as leaves, the
-    compact products from which it starts as products."""
+    """Leaf solves + level sweep (ref solve.c:50-134), in the ``factor``
+    span. ``prob`` carries ONE leading batch axis. Returns the
+    factorization and the leaf-solved element-major RHS ``(zy, zx, zu)``.
+    The fused leaf kernel runs in the ``leaves`` span, the level-0 compact
+    stages from which it starts in level 0's."""
     pbl = _to_batch_last(prob, 1)
     t = tables or build_tree_tables(pbl.A.shape[0])
     n, m = pbl.A.shape[1], pbl.B.shape[2]
@@ -709,71 +708,72 @@ def factorize_em(
     fdt = storage_dtype(opts.factor_dtype, pbl.A.dtype)
     sched = _kernel_schedule(fdt, N, n, opts, pbl.A.dtype)
     use_flat = _flat_path_ok(fdt, NB, N, (Bb,), n, opts, pbl.A.dtype)
-    if t.depth >= 2 and sched:
-        # Fused leaf + level 0: level-0 products from compact gathers, then
-        # ONE kernel writes every slab in its post-level-0 state and emits
-        # the level-1 products.
-        with clock("products"):
-            A, B, qinv, rinv, Ss = _leaf_products0(pbl, t, n, m, opts)
-        with clock("cholesky"):
-            Lc0 = la.bcholesky(Ss[0], NB + 1, opts)
-        with clock("cholsolve"):
-            fsols0 = _cholsolve_stacked(Lc0, Ss[1:], opts)
-        with clock("leaves"):
-            A = A.contiguous()
-            B = B.contiguous()
-            if use_flat:
-                Fls, Fxs, Fus, ex = flat.leaf_schur_level0_flat(
-                    _flat(A), _flat(B), _flatv(qinv.contiguous()),
-                    _flatv(rinv.contiguous()), _flat(Ss[0].contiguous()),
-                    [_flat(f.contiguous()) for f in fsols0],
-                    _sep_flat(A, 1), _sep_flat(B, 1),
-                    depth=t.depth, n=n, m=m, N=N, kernels=opts.kernels,
-                )
-                ex = [S.view(n, n, N // 4, Bb) for S in ex]
-            else:
-                Fls, Fxs, Fus, ex = schur.leaf_schur_level0_em(
-                    A.view(n * n, N, Bb), B.view(n * m, N, Bb),
-                    qinv.contiguous(), rinv.contiguous(),
-                    _gm(Ss[0]), [_gm(f) for f in fsols0],
-                    _sep_gm(A, 1), _sep_gm(B, 1),
-                    depth=t.depth, n=n, m=m, kernels=opts.kernels,
-                    factor_dtype=opts.factor_dtype,
-                )
-            Fls = [x.view(n, n, N, Bb) for x in Fls]
-            Fxs = [x.view(n, n, N, Bb) for x in Fxs]
-            Fus = [x.view(m, n, N, Bb) for x in Fus]
-            zy, zx, zu = _leaf_z(pbl)
-        chols = [Lc0]
-        level = 1
-    else:
-        # Plain leaf slabs: the tree is too shallow for the fused leaf
-        # kernel, the blocks are mid-size (no fused leaf there in JAX), or
-        # the storage takes JAX's XLA stages (_kernel_schedule).
-        with clock("leaves"):
-            Fls, Fxs, Fus, A, B, zy, zx, zu = _leaf_em(pbl, t.levels,
-                                                       t.depth, fdt)
-        chols = []
-        ex = None
-        level = 0
-    while level < t.depth:
-        # Level pairing: two sweep levels per slab pass, whenever level+1
-        # still has upper levels to update (small blocks only: the pair
-        # kernel is a small-block kernel; the flat path never pairs, as in
-        # JAX, rslqr_em.py:943-952).
-        if (level <= t.depth - 3 and opts.level_pairing and sched
-                and not use_flat):
-            Lc1, Lc2, ex = _sweep_pair_em(
-                A, B, level, t.depth, Fls, Fxs, Fus, n, m, ex, opts, clock
-            )
-            chols.extend([Lc1, Lc2])
-            level += 2
+    with span("factor"):
+        if t.depth >= 2 and sched:
+            # Fused leaf + level 0: level-0 products from compact gathers, then
+            # ONE kernel writes every slab in its post-level-0 state and emits
+            # the level-1 products.
+            with span("products", 0):
+                A, B, qinv, rinv, Ss = _leaf_products0(pbl, t, n, m, opts)
+            with span("cholesky", 0):
+                Lc0 = la.bcholesky(Ss[0], NB + 1, opts)
+            with span("cholsolve", 0):
+                fsols0 = _cholsolve_stacked(Lc0, Ss[1:], opts)
+            with span("leaves"):
+                A = A.contiguous()
+                B = B.contiguous()
+                if use_flat:
+                    Fls, Fxs, Fus, ex = flat.leaf_schur_level0_flat(
+                        _flat(A), _flat(B), _flatv(qinv.contiguous()),
+                        _flatv(rinv.contiguous()), _flat(Ss[0].contiguous()),
+                        [_flat(f.contiguous()) for f in fsols0],
+                        _sep_flat(A, 1), _sep_flat(B, 1),
+                        depth=t.depth, n=n, m=m, N=N, kernels=opts.kernels,
+                    )
+                    ex = [S.view(n, n, N // 4, Bb) for S in ex]
+                else:
+                    Fls, Fxs, Fus, ex = schur.leaf_schur_level0_em(
+                        A.view(n * n, N, Bb), B.view(n * m, N, Bb),
+                        qinv.contiguous(), rinv.contiguous(),
+                        _gm(Ss[0]), [_gm(f) for f in fsols0],
+                        _sep_gm(A, 1), _sep_gm(B, 1),
+                        depth=t.depth, n=n, m=m, kernels=opts.kernels,
+                        factor_dtype=opts.factor_dtype,
+                    )
+                Fls = [x.view(n, n, N, Bb) for x in Fls]
+                Fxs = [x.view(n, n, N, Bb) for x in Fxs]
+                Fus = [x.view(m, n, N, Bb) for x in Fus]
+                zy, zx, zu = _leaf_z(pbl)
+            chols = [Lc0]
+            level = 1
         else:
-            Lc, ex = _sweep_level_em(
-                A, B, level, t.depth, Fls, Fxs, Fus, n, m, ex, opts, clock
-            )
-            chols.append(Lc)
-            level += 1
+            # Plain leaf slabs: the tree is too shallow for the fused leaf
+            # kernel, the blocks are mid-size (no fused leaf there in JAX), or
+            # the storage takes JAX's XLA stages (_kernel_schedule).
+            with span("leaves"):
+                Fls, Fxs, Fus, A, B, zy, zx, zu = _leaf_em(pbl, t.levels,
+                                                           t.depth, fdt)
+            chols = []
+            ex = None
+            level = 0
+        while level < t.depth:
+            # Level pairing: two sweep levels per slab pass, whenever level+1
+            # still has upper levels to update (small blocks only: the pair
+            # kernel is a small-block kernel; the flat path never pairs, as in
+            # JAX, rslqr_em.py:943-952).
+            if (level <= t.depth - 3 and opts.level_pairing and sched
+                    and not use_flat):
+                Lc1, Lc2, ex = _sweep_pair_em(
+                    A, B, level, t.depth, Fls, Fxs, Fus, n, m, ex, opts
+                )
+                chols.extend([Lc1, Lc2])
+                level += 2
+            else:
+                Lc, ex = _sweep_level_em(
+                    A, B, level, t.depth, Fls, Fxs, Fus, n, m, ex, opts
+                )
+                chols.append(Lc)
+                level += 1
     fact = EmFactorization(
         Fls=tuple(Fls), Fxs=tuple(Fxs), Fus=tuple(Fus), chols=tuple(chols)
     )
@@ -807,12 +807,14 @@ def rhs_sweep_em(A, B, fact: EmFactorization, rhs: Tuple,
     leaf-solved RHS (made contiguous, then updated in place). Returns
     ``(zy, zx, zu)``."""
     opts = _plane_options(A.shape[0], B.shape[1], opts)
-    zy, zx, zu = (z.contiguous() for z in rhs)
-    for level in range(len(fact.chols)):
-        zy, zx, zu = _rhs_level_em(
-            A, B, level, fact.Fls[level], fact.Fxs[level], fact.Fus[level],
-            fact.chols[level], zy, zx, zu, opts,
-        )
+    with span("sweep"):
+        zy, zx, zu = (z.contiguous() for z in rhs)
+        for level in range(len(fact.chols)):
+            with span("rhs", level):
+                zy, zx, zu = _rhs_level_em(
+                    A, B, level, fact.Fls[level], fact.Fxs[level],
+                    fact.Fus[level], fact.chols[level], zy, zx, zu, opts,
+                )
     return zy, zx, zu
 
 
