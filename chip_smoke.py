@@ -11,8 +11,9 @@ Phases, each printing one line of numbers:
    stack and spills of every instantiation of the fused leaf kernel (B3 and
    B11, ``csrc/leaf_rows.cuh``), of every bf16-slab instantiation of B1-B4
    (B2's in ``schur_kernels.cu``; B1's, B3's and B4's own kernels in
-   ``csrc/bf16_rows.cuh``), of B8 at every width (``csrc/plu_kernels.cu``)
-   and of the probe kernels (P1 at every ib, column tile and t1; P2);
+   ``csrc/bf16_rows.cuh``), of B8 at every width (``csrc/plu_kernels.cu``),
+   of ``rows_kernel`` and ``levels::rows_kernel`` (B5, B9) and of the
+   probe kernels (P1 at every ib, column tile and t1; P2);
 2. each of the four small-block sweep kernels (B1-B4) against its plain
    PyTorch version on clones of the same random f32 inputs, at the small
    path's shapes (N=256, B=1024; B1 at N=128 and with level pairing off),
@@ -92,6 +93,14 @@ Phases, each printing one line of numbers:
    quadruped f32 solve
    with each of the four wrappers alone run plain, and alone run as a
    kernel, each against the f64 Riccati solve of 4 instances;
+2h. B9 across the upper levels (``schur3_update_levels``,
+   ``levels::rows_kernel``) at the quadruped rsLQR's shapes (n=36, m=12,
+   q=36, N=512, B=256), every level 0-7 with all its upper levels: bit for
+   bit the per-level kernel (``schur3_update_planes``, ``rows_kernel``, once
+   per upper level), within the kernel bar of the plain version, and both
+   chained in turns (fused, per-level, per-level, fused) against the bound
+   (2U + 1) X + R bytes at 3.35 TB/s (X one slab trio, R the U solved
+   separators); then the standard comparison line at level 0;
 3e. default-option f32 solves at those block sizes, em (N=256, and N=128
    where B1 launches) and flat schedule, with their launch counts and
    agreement with ``kernels="off"``; then a state dim past 8 under
@@ -260,6 +269,7 @@ REPLACES = {
     "pchol": "rslqr_tpu/ops/planes_pallas.py:377",
     "pcho_solve": "rslqr_tpu/ops/planes_pallas.py:400",
     "schur3_update_planes": "rslqr_tpu/ops/planes_pallas.py:503",
+    "schur3_update_levels": "rslqr_tpu/ops/planes_pallas.py:503",
     "schur_update_planes": "rslqr_tpu/ops/planes_pallas.py:270",
     "plu_solve_multi": "rslqr_tpu/ops/planes_pallas.py:425",
     "plu_wide": "rslqr_tpu/ops/planes_pallas.py:425",
@@ -284,7 +294,8 @@ SOURCES["leaf_schur_level0_flat"] = "rslqr_tpu_torch/csrc/leaf_rows.cuh"
 BF16_SOURCES = {k: "rslqr_tpu_torch/csrc/bf16_rows.cuh" for k in (
     "schur_update_level_em", "schur_update_pair_em", "leaf_schur_level0_em")}
 # The kernels of each mid-block path (the others launch no time there).
-RSLQR_MID = ("pgemm", "pchol", "pcho_solve", "schur3_update_planes")
+RSLQR_MID = ("pgemm", "pchol", "pcho_solve", "schur3_update_planes",
+             "schur3_update_levels")
 PSCAN_MID = ("pgemm", "pgemm_flagged", "plu_solve_multi")
 # The solve each kernel's JSON ``launches`` count comes from (counts set to
 # 0 just before it, read just after).
@@ -403,6 +414,21 @@ def plu_ptxas(build, report: str):
             lines.append(f"phase1 ptxas plu_kernel W={w[1]}: {regs} "
                          f"registers, {stack} bytes stack, {st}/{ld} bytes "
                          f"spill stores/loads")
+    return lines
+
+
+def rows_ptxas(build, report: str):
+    """One line per column tile of ``rows_kernel`` (B5, B9) and of
+    ``levels::rows_kernel`` (B9 across the upper levels) in a ``-Xptxas -v``
+    report of ``csrc/planes_kernels.cu``: registers, stack and spills."""
+    lines = []
+    for name, (regs, stack, st, ld) in sorted(
+            build.ptxas_kernels(report).items()):
+        m = re.search(r"(6levels)?11rows_kernelILi(\d+)E", name)
+        if m:
+            lines.append(f"phase1 ptxas {'levels::' if m[1] else ''}"
+                         f"rows_kernel TC={m[2]}: {regs} registers, {stack} "
+                         f"bytes stack, {st}/{ld} bytes spill stores/loads")
     return lines
 
 
@@ -996,6 +1022,93 @@ class Smoke:
             print(f"phase2g quadruped {name}: only it plain {e1:.3e} "
                   f"(ratio to plain {e1 / e_off:.2f}); only it on "
                   f"{e2:.3e} (ratio {e2 / e_off:.2f})", flush=True)
+
+    # -- phase 2h --------------------------------------------------------
+    def levels_cases(self):
+        """B9 across the upper levels at the quadruped rsLQR's shapes, every
+        level with all its upper levels (U = 8 - L at N = 512): the fused
+        kernel against the per-level kernel bit for bit and against the
+        plain version within KERNEL_BAR, then both chained in turns against
+        the bound (2U + 1) X + R bytes (X: one slab trio; R: the U compact
+        solved separators) at PEAK_BYTES."""
+        t, pl = self.torch, self.planes
+        nx, nu, N, Bb = QX, QU, QN, QB
+        depth = N.bit_length() - 1
+        X = 4 * (2 * nx + nu) * nx * N * Bb
+
+        def rand(gen, *shape, scale=1.0):
+            return scale * t.randn(shape, generator=gen, device=self.dev)
+
+        for level in range(depth - 1):
+            U = depth - 1 - level
+            G = N >> (level + 1)
+            g = t.Generator(device=self.dev).manual_seed(level)
+            FL = [rand(g, nx, nx, N, Bb), rand(g, nx, nx, N, Bb),
+                  rand(g, nu, nx, N, Bb)]
+            fs = [rand(g, nx, nx, G, Bb, scale=0.1) for _ in range(U)]
+
+            def fresh():
+                """The upper slabs, the same numbers at each call."""
+                gc = t.Generator(device=self.dev).manual_seed(100 + level)
+                return [[rand(gc, r, nx, N, Bb) for _ in range(U)]
+                        for r in (nx, nx, nu)]
+
+            def per_level(C):
+                for u in range(U):
+                    pl.schur3_update_planes(*FL, fs[u], C[0][u], C[1][u],
+                                            C[2][u], level=level)
+
+            want = fresh()
+            per_level(want)
+            got = fresh()
+            pl.schur3_update_levels(*FL, fs, *got, level=level)
+            t.cuda.synchronize()
+            same = all(t.equal(a, b) for ga, wa in zip(got, want)
+                       for a, b in zip(ga, wa))
+            del want
+            plain = fresh()
+            pl.schur3_update_levels(*FL, fs, *plain, level=level,
+                                    kernels="off")
+            err = scale = 0.0
+            for ga, pa in zip(got, plain):
+                for a, b in zip(ga, pa):
+                    err = max(err, float((a - b).abs().max()))
+                    scale = max(scale, 1.0 + float(b.abs().max()))
+            del got, plain
+            self.check(same, f"schur3_update_levels level={level}: not bit "
+                             f"for bit the per-level kernel")
+            self.check(err <= KERNEL_BAR * scale,
+                       f"schur3_update_levels level={level}: vs plain "
+                       f"{err:.3e} > {KERNEL_BAR} * {scale:.3e}")
+            C = fresh()
+            fused = lambda: pl.schur3_update_levels(*FL, fs, *C, level=level)
+            turns = [self.chained(f) for f in (
+                fused, lambda: per_level(C), lambda: per_level(C), fused)]
+            moved = (2 * U + 1) * X + 4 * U * nx * nx * G * Bb
+            bound_ms = 1e3 * moved / PEAK_BYTES
+            f_ms = min(turns[0], turns[3])
+            p_ms = min(turns[1], turns[2])
+            print(f"phase2h schur3_update_levels n={nx} m={nu} q={nx} N={N} "
+                  f"B={Bb} level={level} U={U}: bit_for_bit={same} "
+                  f"rel_diff_vs_plain={err / scale:.3e} (bar {KERNEL_BAR}) "
+                  f"chained_ms fused={f_ms:.4f} per_level={p_ms:.4f} "
+                  f"(turns {', '.join(f'{x:.4f}' for x in turns)}) "
+                  f"bound_ms={bound_ms:.4f} ({moved / 1e9:.3f} GB) "
+                  f"x_bound fused={f_ms / bound_ms:.2f} "
+                  f"per_level={p_ms / bound_ms:.2f} "
+                  f"fused_TBps={moved / f_ms / 1e9:.3f}", flush=True)
+            del C, FL, fs
+        args, kw, ops, _, _ = self.schur3_case(nx, nu, nx, 0)
+        FL, C = args[:3], args[4:]
+        U = depth - 1
+        fs = [args[3]] + [self.drand(nx, nx, N >> 1, Bb, scale=0.1)
+                          for _ in range(U - 1)]
+        Cs = [[c] + [c.clone() for _ in range(U - 1)] for c in C]
+        self.compare(
+            "schur3_update_levels", f"n={nx} m={nu} q={nx} N={N} B={Bb} "
+            f"level=0 U={U}", pl.schur3_update_levels, [*FL, fs, *Cs], kw,
+            ops * U, moved=(2 * U + 1) * X + 4 * U * nx * nx * (N >> 1) * Bb,
+            phase="phase2h")
 
     # -- phase 2b --------------------------------------------------------
     def spd(self, d, *plane):
@@ -2309,6 +2422,7 @@ class Smoke:
         want = {"pchol": QN.bit_length() - 1,
                 "pcho_solve": self.launches.get("pcho_solve", 45)}
         self.check(counts.get("schur3_update_planes", 0) == 0
+                   and counts.get("schur3_update_levels", 0) == 0
                    and all(counts.get(k, 0) == v for k, v in want.items())
                    and bool(t.isfinite(got).all()),
                    f"bf16 quadruped: launches {counts} (want no B9 and "
@@ -2934,6 +3048,7 @@ def main() -> int:
                                "bf16_kernels.cu")
              for line in small_ptxas(_build, reports[name])]
     ptxas += plu_ptxas(_build, reports["plu_kernels.cu"])
+    ptxas += rows_ptxas(_build, reports["planes_kernels.cu"])
     ptxas += probe_ptxas(_build, reports["probe_kernels.cu"])
     _build.load()
     print(f"phase1 device={torch.cuda.get_device_name(0)} "
@@ -2951,6 +3066,7 @@ def main() -> int:
         ("phase2e", smoke.probe_cases),
         ("phase2f", smoke.block_cases),
         ("phase2g", smoke.c8_cases),
+        ("phase2h", smoke.levels_cases),
         ("phase3", smoke.slice_checks),
         ("phase3b", smoke.quad_checks),
         ("phase3c", smoke.pscan_checks),

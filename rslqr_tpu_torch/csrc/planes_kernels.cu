@@ -492,6 +492,270 @@ int launch_solve(const float* L, float* X, int n, int w, int F,
 
 bool dims_ok(int a) { return a >= 1 && a <= MAXD; }
 
+// B9 across the upper levels: levels::rows_kernel.
+//
+// Replaces rslqr_tpu/ops/planes_pallas.py:503 schur3_update_planes as the
+// factor sweep calls it, once per (level l, upper level u): one launch
+// updates every upper level u = l+1 .. of level l, with the masks, the
+// compact fsol reads and the arithmetic of rows_kernel's Schur mode.
+//
+// What bounds it: bytes. A level moves its multiplier trio FL (X bytes:
+// (2n + m) x n floats a plane element) once, each upper trio read and
+// written (2U X) and the U compact separator solves (R): (2U + 1) X + R.
+// At the quadruped's n = 36, m = 12, N = 512, B = 256, X = 1.59 GB; the
+// update does ~3 FLOP a byte against the H100's ~20. Called once per
+// upper level, rows_kernel reads FL from HBM U times a level (36 times
+// where 8 do at N = 512).
+//
+// Mapping. A block owns 32 plane elements (one a lane: coalesced lines),
+// one upper level u and one column tile of TC columns (12 at K <= 38: 3
+// tiles at q = 36), and every stacked output row (lambda, x, u), IB = 3
+// rows a warp pass (7 warps: 4 passes of 21 rows at the quadruped's 84).
+// Every operand reaches shared memory by cp.async, each lane copying and
+// reading only its own plane element's values, so the copies need no
+// barrier but the block's one.
+//  1. FL from HBM once a level: the 1-D grid runs the (upper level x
+//     column tile) blocks of one plane chunk next to each other (3 U of
+//     them), so the chunk's FL rows (387 KB at the quadruped) come from
+//     HBM once and then from L2. A block that copied its rows of FL into
+//     shared memory once and walked every upper level and tile (FL into
+//     the SM once) ran 1.5x slower at the quadruped: 212 KB of shared
+//     memory a block left 7 warps an SM to hide its shared-memory latency.
+//  2. Each upper trio read and written once, its loads issued ahead: a
+//     warp copies its pass's C tile (IB x TC x 32 floats) into its slot of
+//     shared memory before the pass's K loop, so the loads are in flight
+//     under the FMAs (rows_kernel issues them after its K loop).
+//  3. No FL re-read from HBM per tile (point 1); from L2, FL's terms pass
+//     through a ring of S = 8 stages a warp: the pass's first S terms are
+//     copied before the K loop, and term k + S as term k is consumed, so
+//     eight terms' loads are in flight while the FMAs run (rows_kernel
+//     loads A's rows in its K loop and waits out each miss; at the
+//     quadruped's level 0 this kernel without the ring ran 17.3 ms, with
+//     it 13.6, the per-level kernels 17.0). The block's fsol tile and the
+//     first pass's C tile and terms are all issued before the one
+//     barrier. Per term, IB + TC shared loads feed IB x TC FMAs (0.42 an
+//     FMA; rows_kernel 0.61, half of them from device memory). Registers
+//     capped at 128 (rows_kernel: 64), no spill; two blocks an SM (109 KB
+//     of shared memory each at K = 36). Tiles of 9 and 18 columns, 4 rows
+//     a pass, 4 or 6 ring stages, 8 warps, or one stream of FL's terms
+//     over all passes ran 1-100% slower (PERF.md, section 6).
+// Of rows_kernel's costs, this removes the C loads after the K loop and the
+// 64-register cap, and cuts its re-reads of FL from L2 per column tile from
+// four to three at q = 36.
+// Same arithmetic as rows_kernel: each output's sum starts at 0 and takes
+// fmaf over k = 0..K-1 in order, then c - sum (or the separator row), so
+// the result is rows_kernel's bit for bit.
+namespace levels {
+
+constexpr int UG = 16;    // upper levels a launch (ops/planes.py UPPER_GROUP)
+constexpr int IB = 3;     // output rows per warp and pass
+constexpr int WARPS = 7;  // warps per block
+constexpr int S = 8;      // FL terms in flight per warp
+constexpr int SMEM_MAX = 110 * 1024;  // two blocks per SM
+
+struct Args {
+  const float* A[3];   // level l's FLl, FLx, FLu: [rows_g, K, F]
+  const float* R[UG];  // upper level u's compact fsol: [K, q, G, B]
+  float* C[UG][3];     // upper level u's Cl, Cx, Cu: [rows_g, q, F]
+  int rows[3];
+  int K, q, F, N, B, level;
+  int count;   // upper levels in this launch
+  int ctiles;  // column tiles of TC columns
+};
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Every group of this thread's copies but the newest PENDING has landed.
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING));
+}
+
+// Shared floats of a block: the fsol tile [K][TC][LANES], then each warp's
+// C slot [IB][TC][LANES] and FL ring [S][IB][LANES].
+__host__ __device__ constexpr int smem_floats(int K, int TC) {
+  return (K * TC + WARPS * IB * (TC + S)) * LANES;
+}
+
+template <int TC>
+__global__ void __launch_bounds__(LANES * WARPS, 2)
+    rows_kernel(const Args a) {
+  extern __shared__ float sm[];
+  const int lane = threadIdx.x;
+  const int warp = threadIdx.y;
+  float* Rs = sm;                                         // [K][TC][LANES]
+  float* Cs = sm + (a.K * TC + warp * IB * (TC + S)) * LANES;
+  float* As = Cs + IB * TC * LANES;                       // [S][IB][LANES]
+  // (upper level, column tile) fastest: the blocks of one chunk together.
+  const int per_chunk = a.count * a.ctiles;
+  const int chunk = blockIdx.x / per_chunk;
+  const int u = (blockIdx.x % per_chunk) / a.ctiles;
+  const int c0 = (blockIdx.x % a.ctiles) * TC;
+  const float* R = a.R[0];
+  float *C0 = a.C[0][0], *C1 = a.C[0][1], *C2 = a.C[0][2];
+#pragma unroll
+  for (int i = 1; i < UG; ++i) {  // static indices: no local copy
+    if (i == u) {
+      R = a.R[i];
+      C0 = a.C[i][0];
+      C1 = a.C[i][1];
+      C2 = a.C[i][2];
+    }
+  }
+  const int f0 = chunk * LANES + lane;
+  const bool live = f0 < a.F;
+  const size_t F = a.F;
+  const size_t f = live ? f0 : a.F - 1;  // dead lanes load a valid address
+  // The lane's knot: masks and the compact R offset (rows_kernel's).
+  const int knot = (int)(f / a.B);
+  const int half = 1 << a.level;
+  const bool keep = (knot & (half - 1)) != 0 || knot == 0;
+  const bool sep = (knot & (2 * half - 1)) == half;
+  const size_t rs = (size_t)(a.N >> (a.level + 1)) * a.B;
+  const size_t roff =
+      (size_t)(knot >> (a.level + 1)) * a.B + (f - (size_t)knot * a.B);
+  // Stage R[:, c0:c0+TC] (zero past q): warp w takes terms w, w + WARPS, ..
+  for (int k = warp; k < a.K; k += WARPS) {
+#pragma unroll
+    for (int j = 0; j < TC; ++j) {
+      float* dst = Rs + (k * TC + j) * LANES + lane;
+      if (c0 + j < a.q)
+        cp_async4(dst, R + ((size_t)k * a.q + c0 + j) * rs + roff);
+      else
+        *dst = 0.f;
+    }
+  }
+  cp_async_commit();
+  const int r1 = a.rows[0], r2 = r1 + a.rows[1], total = r2 + a.rows[2];
+  // Lambda rows that no lane's knot keeps need no product.
+  const bool any_keep = __any_sync(0xffffffffu, live && keep);
+  const int passes = (total + IB * WARPS - 1) / (IB * WARPS);
+  for (int p = 0; p < passes; ++p) {
+    const int i0 = (p * WARPS + warp) * IB;
+    const float* arow[IB];
+    float* crow[IB];
+    int irow[IB];
+    bool on[IB], lam[IB], need = false;
+#pragma unroll
+    for (int ii = 0; ii < IB; ++ii) {
+      on[ii] = i0 + ii < total;
+      const int r = on[ii] ? i0 + ii : total - 1;  // dead rows repeat
+      const int g = (r >= r1) + (r >= r2);
+      const int i = r - (g == 0 ? 0 : (g == 1 ? r1 : r2));
+      irow[ii] = i;
+      lam[ii] = g == 0;
+      arow[ii] = (g == 0 ? a.A[0] : (g == 1 ? a.A[1] : a.A[2])) +
+                 (size_t)i * a.K * F + f;
+      crow[ii] = (g == 0 ? C0 : (g == 1 ? C1 : C2)) +
+                 ((size_t)i * a.q + c0) * F + f;
+      need = need || (on[ii] && (!lam[ii] || any_keep));
+    }
+    // The ring's first S terms (one group each; the C tile joins the
+    // last), then one group a term: term k's group always has S - 1 newer.
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      if (need && s < a.K) {
+#pragma unroll
+        for (int ii = 0; ii < IB; ++ii)
+          cp_async4(As + (s * IB + ii) * LANES + lane,
+                    arow[ii] + (size_t)s * F);
+      }
+      if (s == S - 1) {
+#pragma unroll
+        for (int ii = 0; ii < IB; ++ii)
+#pragma unroll
+          for (int j = 0; j < TC; ++j)
+            if (live && on[ii] && c0 + j < a.q && (!lam[ii] || keep))
+              cp_async4(Cs + (ii * TC + j) * LANES + lane,
+                        crow[ii] + (size_t)j * F);
+      }
+      cp_async_commit();
+    }
+    if (p == 0) {  // the fsol tile has landed, for every warp
+      cp_async_wait<S>();
+      __syncthreads();
+    }
+    float acc[IB][TC];
+#pragma unroll
+    for (int ii = 0; ii < IB; ++ii)
+#pragma unroll
+      for (int j = 0; j < TC; ++j) acc[ii][j] = 0.f;
+    if (need) {
+#pragma unroll 2
+      for (int k = 0; k < a.K; ++k) {
+        cp_async_wait<S - 1>();  // term k has landed
+        float* ak = As + (k % S) * IB * LANES + lane;
+        float av[IB];
+#pragma unroll
+        for (int ii = 0; ii < IB; ++ii) av[ii] = ak[ii * LANES];
+        const float* rk = Rs + k * TC * LANES + lane;
+#pragma unroll
+        for (int j = 0; j < TC; ++j) {
+          const float b = rk[j * LANES];
+#pragma unroll
+          for (int ii = 0; ii < IB; ++ii)
+            acc[ii][j] = fmaf(av[ii], b, acc[ii][j]);
+        }
+        if (k + S < a.K) {  // term k + S into the slot term k left
+#pragma unroll
+          for (int ii = 0; ii < IB; ++ii)
+            cp_async4(ak + ii * LANES, arow[ii] + (size_t)(k + S) * F);
+        }
+        cp_async_commit();
+      }
+    }
+    cp_async_wait<0>();  // this thread's C copies (it reads only its own)
+    if (!live) continue;
+#pragma unroll
+    for (int ii = 0; ii < IB; ++ii) {
+      if (!on[ii]) continue;
+#pragma unroll
+      for (int j = 0; j < TC; ++j) {
+        if (c0 + j >= a.q) continue;
+        float* c = crow[ii] + (size_t)j * F;
+        const float old = Cs[(ii * TC + j) * LANES + lane];
+        if (!lam[ii])
+          *c = old - acc[ii][j];
+        else if (sep)
+          *c = Rs[(irow[ii] * TC + j) * LANES + lane];  // R's row i
+        else if (keep)
+          *c = old - acc[ii][j];
+      }
+    }
+  }
+}
+
+// 12 columns a tile where two blocks still fit an SM (K <= 38), else 6.
+int tile_for(int K) {
+  return smem_floats(K, 12) * (int)sizeof(float) <= SMEM_MAX ? 12 : 6;
+}
+
+template <int TC>
+int launch_tc(Args a, cudaStream_t st) {
+  a.ctiles = (a.q + TC - 1) / TC;
+  const long long blocks =
+      (long long)a.count * a.ctiles * ((a.F + LANES - 1) / LANES);
+  if (blocks >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = smem_floats(a.K, TC) * (int)sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      rows_kernel<TC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(rows_kernel<TC>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  rows_kernel<TC><<<(unsigned)blocks, dim3(LANES, WARPS), smem, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch(const Args& a, cudaStream_t st) {
+  return tile_for(a.K) == 12 ? launch_tc<12>(a, st) : launch_tc<6>(a, st);
+}
+
+}  // namespace levels
+
 }  // namespace
 
 extern "C" {
@@ -586,6 +850,42 @@ int rslqr_schur3_update_planes(const float* FLl, const float* FLx,
   a.B = B;
   a.level = level;
   return launch_rows(a, static_cast<cudaStream_t>(stream));
+}
+
+// B9 for ``count`` upper levels of one level (levels::rows_kernel): the
+// slab trio of upper level u (Cls[u], Cxs[u], Cus[u]) updated in place
+// with its compact fsols[u], as rslqr_schur3_update_planes would, one
+// launch for all of them.
+int rslqr_schur3_update_levels(const float* FLl, const float* FLx,
+                               const float* FLu, const float* const* fsols,
+                               float* const* Cls, float* const* Cxs,
+                               float* const* Cus, int count, int n, int m,
+                               int q, int N, int B, int level, void* stream) {
+  if (!dims_ok(n) || !dims_ok(m) || !dims_ok(q) || count < 1 ||
+      count > levels::UG || N < 2 || B < 1 || level < 0 ||
+      (N >> (level + 1)) < 1 || (long long)N * B >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  levels::Args a = {};
+  a.A[0] = FLl;
+  a.A[1] = FLx;
+  a.A[2] = FLu;
+  for (int u = 0; u < count; ++u) {
+    a.R[u] = fsols[u];
+    a.C[u][0] = Cls[u];
+    a.C[u][1] = Cxs[u];
+    a.C[u][2] = Cus[u];
+  }
+  a.rows[0] = n;
+  a.rows[1] = n;
+  a.rows[2] = m;
+  a.K = n;
+  a.q = q;
+  a.F = N * B;
+  a.N = N;
+  a.B = B;
+  a.level = level;
+  a.count = count;
+  return levels::launch(a, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

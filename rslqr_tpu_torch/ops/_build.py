@@ -202,6 +202,7 @@ SIGNATURES = {
     "rslqr_pchol": [_P] * 2 + [_I] * 2 + [_P],
     "rslqr_pcho_solve": [_P] * 2 + [_I] * 3 + [_P],
     "rslqr_schur3_update_planes": [_P] * 7 + [_I] * 6 + [_P],
+    "rslqr_schur3_update_levels": [_P] * 3 + [_PP] * 4 + [_I] * 7 + [_P],
     # csrc/flagged_kernels.cu
     "rslqr_pgemm_flagged": [_P] * 6 + [_I] * 8 + [_FL, _I, _I, _PI, _P],
     # csrc/plu_kernels.cu

@@ -19,9 +19,10 @@ applies launches or raises (block dims outside 1..``MAX_BLOCK``,
 contiguity, shapes); there is no fallback. Each wrapper counts its
 launches in its ``launches`` attribute (:func:`launch_counts`).
 
-``pcho_solve``, ``schur3_update_planes`` and ``schur_update_planes`` update
-their right-hand side / slab operands IN PLACE on both routes, as the TPU
-kernels alias them (``input_output_aliases``), and return them. ``pgemm``
+``pcho_solve``, ``schur3_update_planes``, ``schur3_update_levels`` and
+``schur_update_planes`` update their right-hand side / slab operands IN
+PLACE on both routes, as the TPU kernels alias them
+(``input_output_aliases``), and return them. ``pgemm``
 with ``Cin`` and ``plu_solve_multi`` return new tensors and leave every
 operand as it is: their callers (the parallel-scan combines) pass views and
 operands they read again, which the TPU kernels' aliasing (an XLA hint
@@ -36,9 +37,11 @@ coalesced 128-byte line; the products and the Schur update stage a column
 slice of the right-hand operand of those plane elements in shared memory
 and give every output row, two per warp, of that slice to the block
 (column slices of one plane chunk run together, so the left operand comes
-from HBM once and from L2 after); the Cholesky solve keeps the factor in
-shared memory; the Cholesky and the LU give each thread one row of one
-plane element's block, eight elements per block, in registers.
+from HBM once and from L2 after); the factor sweep's Schur update takes
+every upper level of a level in one launch (``schur3_update_levels``), so
+the level's multiplier slabs come from HBM once; the Cholesky solve keeps
+the factor in shared memory; the Cholesky and the LU give each thread one
+row of one plane element's block, eight elements per block, in registers.
 """
 
 from __future__ import annotations
@@ -60,6 +63,9 @@ MAX_BLOCK = 64
 # dynamic shared memory past 48 KB).
 MAX_RHS = 4
 LU_WIDE_MIN = 37
+# Upper levels per schur3_update_levels launch (the pointers its C entry
+# takes, ``levels::UG`` in csrc/planes_kernels.cu); more take more launches.
+UPPER_GROUP = 16
 
 
 # ---------------------------------------------------------------------------
@@ -156,6 +162,15 @@ def schur3_update_planes_plain(FLl, FLx, FLu, fsol, Cl, Cx, Cu, *, level):
     for FL, C, lam in ((FLl, Cl, True), (FLx, Cx, False), (FLu, Cu, False)):
         schur_update_planes_plain(FL, fsol, C, level=level, lam=lam)
     return Cl, Cx, Cu
+
+
+def schur3_update_levels_plain(FLl, FLx, FLu, fsols, Cls, Cxs, Cus, *,
+                               level):
+    """Plain version of :func:`schur3_update_levels`: the plain B9 of each
+    upper level in turn."""
+    for fs, Cl, Cx, Cu in zip(fsols, Cls, Cxs, Cus):
+        schur3_update_planes_plain(FLl, FLx, FLu, fs, Cl, Cx, Cu, level=level)
+    return Cls, Cxs, Cus
 
 
 def plu_solve_multi_plain(A: torch.Tensor, *Bs: torch.Tensor):
@@ -401,6 +416,65 @@ def schur3_update_planes(
     return Cl, Cx, Cu
 
 
+def schur3_update_levels(
+    FLl: torch.Tensor,             # [n, n, N, B] level-L lambda multipliers
+    FLx: torch.Tensor,             # [n, n, N, B]
+    FLu: torch.Tensor,             # [m, n, N, B]
+    fsols: Sequence[torch.Tensor],  # U x [n, q, G, B], G = N / 2^(L+1)
+    Cls: Sequence[torch.Tensor],   # U x [n, q, N, B] (updated in place)
+    Cxs: Sequence[torch.Tensor],   # U x [n, q, N, B]
+    Cus: Sequence[torch.Tensor],   # U x [m, q, N, B]
+    *,
+    level: int,
+    kernels: str = "auto",
+):
+    """:func:`schur3_update_planes` of every upper level of level ``L`` at
+    once: for each ``u``, ``(Cls[u], Cxs[u], Cus[u])`` updated in place
+    with ``fsols[u]`` and this level's multiplier slabs. Returns the three
+    lists.
+
+    Replaces ``rslqr_tpu/ops/planes_pallas.py:schur3_update_planes`` as the
+    factor sweep calls it, once per upper level (JAX rslqr_em.py's level
+    update). Kernel: ``levels::rows_kernel`` (``csrc/planes_kernels.cu``),
+    one launch per ``UPPER_GROUP`` upper levels, so the level's multiplier
+    slabs come from device memory once; each output is ``rows_kernel``'s
+    bit for bit. ``launches`` counts its launches,
+    ``upper_updates`` the (level, upper level) pairs they covered.
+    """
+    U = len(fsols)
+    if not U == len(Cls) == len(Cxs) == len(Cus):
+        raise ValueError(f"schur3_update_levels: {U} fsols for "
+                         f"{len(Cls)}/{len(Cxs)}/{len(Cus)} slabs")
+    if not kernel_applies(kernels, FLl.device, FLl.dtype):
+        return schur3_update_levels_plain(FLl, FLx, FLu, fsols, Cls, Cxs,
+                                          Cus, level=level)
+    n, _, N, Bb = FLl.shape
+    m = FLu.shape[0]
+    q = fsols[0].shape[1] if U else n
+    G = N >> (level + 1)
+    if G < 1 or N % (2 << level):
+        raise ValueError(f"schur3_update_levels: level {level} for N={N}")
+    _check(
+        "schur3_update_levels", (FLl, FLx, FLu, *fsols, *Cls, *Cxs, *Cus),
+        ((n, n, N, Bb), (n, n, N, Bb), (m, n, N, Bb))
+        + ((n, q, G, Bb),) * U + ((n, q, N, Bb),) * (2 * U)
+        + ((m, q, N, Bb),) * U, (n, m, q),
+    )
+    ptrs = lambda ts: (ctypes.c_void_p * len(ts))(
+        *(t.data_ptr() for t in ts))
+    for s in range(0, U, UPPER_GROUP):
+        sl = slice(s, s + UPPER_GROUP)
+        _launch(
+            "rslqr_schur3_update_levels", FLl.device,
+            _ptr(FLl), _ptr(FLx), _ptr(FLu), ptrs(fsols[sl]), ptrs(Cls[sl]),
+            ptrs(Cxs[sl]), ptrs(Cus[sl]), len(fsols[sl]), n, m, q, N, Bb,
+            level,
+        )
+        schur3_update_levels.launches += 1
+    schur3_update_levels.upper_updates += U
+    return Cls, Cxs, Cus
+
+
 def schur_update_planes(
     FL: torch.Tensor,    # [p, n, N, B] level-L multiplier slab
     fsol: torch.Tensor,  # [n, q, G, B] solved separators, G = N / 2^(L+1)
@@ -485,15 +559,18 @@ def plu_solve(A: torch.Tensor, B: torch.Tensor, *, kernels: str = "auto"):
 
 
 KERNEL_WRAPPERS = (pgemm, pchol, pcho_solve, schur3_update_planes,
-                   schur_update_planes, plu_solve_multi)
+                   schur3_update_levels, schur_update_planes,
+                   plu_solve_multi)
 
 
 def launch_counts() -> dict:
     """Kernel launches per wrapper since the last reset: ``pgemm`` counts
     both its kernels, ``pgemm_flagged`` those of ``flagged_kernel``
-    alone."""
+    alone; beside them ``schur3_update_levels_pairs``, the (level, upper
+    level) pairs that ``schur3_update_levels``' launches covered."""
     return {**{w.__name__: w.launches for w in KERNEL_WRAPPERS},
-            "pgemm_flagged": pgemm.flagged_launches}
+            "pgemm_flagged": pgemm.flagged_launches,
+            "schur3_update_levels_pairs": schur3_update_levels.upper_updates}
 
 
 def wide_launches() -> int:
@@ -507,6 +584,7 @@ def reset_launch_counts() -> None:
     for w in KERNEL_WRAPPERS:
         w.launches = 0
     pgemm.flagged_launches = 0
+    schur3_update_levels.upper_updates = 0
     # plu_solve_multi's launches by (n, widths of the right-hand sides,
     # plane).
     plu_solve_multi.shape_launches = collections.Counter()

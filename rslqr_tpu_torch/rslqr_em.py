@@ -25,8 +25,9 @@ Pallas Schur kernels do not apply (rslqr_em.py:202-242,
 388-421, 751-774, 935-963): the plain leaf (``_leaf_em``), then single
 levels only, each with its products (``planes.pgemm`` through
 ``linalg.bgemm``), Cholesky (``planes.pchol``), one separator solve per
-upper level (``planes.pcho_solve``) and one fused Schur update per upper
-level (``planes.schur3_update_planes``); the RHS sweep solves its
+upper level (``planes.pcho_solve``) and one fused Schur update of every
+upper level (``planes.schur3_update_levels``; JAX: one
+``schur3_update_planes`` per upper level); the RHS sweep solves its
 separators with ``pcho_solve`` (one column) and applies them with
 ``schur3_update_planes`` (one column).
 
@@ -435,20 +436,22 @@ def _schur_flat(A, B_dyn, level, depth, Fls, Fxs, Fus, fsols, n, m, opts):
 
 def _level_update_planes_em(level, depth, Fls, Fxs, Fus, fsols, opts):
     """Mid-block Schur update stage (ndlqr_UpdateShurFactor,
-    nested_dissection.c:154-171): one fused ``schur3_update_planes`` pass
-    per upper level, which reads the compact solved separators at each
-    knot's group; updates the slabs in place. Slabs stored in another
-    dtype than the problem's (``factor_dtype``) take the plain update
+    nested_dissection.c:154-171): one ``schur3_update_levels`` call for
+    every upper level (JAX: one ``schur3_update_planes`` pass per upper
+    level), which reads the compact solved separators at each knot's
+    group; updates the slabs in place. Slabs stored in another dtype than
+    the problem's (``factor_dtype``) take the plain update
     (:func:`_level_update_plain_em`), as JAX sends non-f32 slabs past its
     plane kernels (rslqr_em.py:383)."""
     if Fls[level].dtype != fsols[level + 1].dtype:
         _level_update_plain_em(level, depth, Fls, Fxs, Fus, fsols)
         return
-    for u in range(level + 1, depth):
-        planes.schur3_update_planes(
-            Fls[level], Fxs[level], Fus[level], fsols[u],
-            Fls[u], Fxs[u], Fus[u], level=level, kernels=opts.kernels,
-        )
+    us = range(level + 1, depth)
+    planes.schur3_update_levels(
+        Fls[level], Fxs[level], Fus[level], [fsols[u] for u in us],
+        [Fls[u] for u in us], [Fxs[u] for u in us], [Fus[u] for u in us],
+        level=level, kernels=opts.kernels,
+    )
 
 
 def _level_update_plain_em(level, depth, Fls, Fxs, Fus, fsols):

@@ -627,9 +627,46 @@ def test_schur3_update_planes_kernel(dev, n, m, q, N, B, level):
     _assert_match(ks, ps)
 
 
+@pytest.mark.parametrize(
+    "n,m,N,B,level,group",
+    [(12, 4, 16, 40, 0, 16), (12, 4, 16, 33, 1, 16), (36, 12, 32, 40, 0, 16),
+     (36, 12, 32, 40, 0, 3), (36, 12, 32, 40, 2, 1), (64, 64, 8, 33, 0, 16),
+     (13, 40, 16, 33, 0, 2), (9, 3, 64, 7, 3, 16), (40, 8, 8, 65, 1, 16)],
+)
+def test_schur3_update_levels_kernel(dev, monkeypatch, n, m, N, B, level,
+                                     group):
+    """Every upper level of ``level`` in ``ceil(U / group)`` launches
+    (``planes.UPPER_GROUP`` set to ``group``): bit for bit the per-level
+    kernel (``rows_kernel``) on each, and within the kernel bar of the
+    plain version."""
+    monkeypatch.setattr(planes, "UPPER_GROUP", group)
+    g = torch.Generator().manual_seed(400 + n + level)
+    U = N.bit_length() - 2 - level
+    G = N >> (level + 1)
+    R = lambda *s: _rand(g, dev, *s)
+    FL = [R(n, n, N, B), R(n, n, N, B), R(m, n, N, B)]
+    fs = [R(n, n, G, B) for _ in range(U)]
+    C = [[R(r, n, N, B) for _ in range(U)] for r in (n, n, m)]
+    before = (planes.schur3_update_levels.launches,
+              planes.schur3_update_levels.upper_updates)
+    ks, ps, *_ = _both(planes.schur3_update_levels, [*FL, fs, *C],
+                       dict(level=level))
+    assert (planes.schur3_update_levels.launches,
+            planes.schur3_update_levels.upper_updates) == (
+        before[0] + -(-U // group), before[1] + U)
+    _assert_match(ks, ps)
+    per_u = [[c.clone() for c in Cs] for Cs in C]
+    for u in range(U):
+        planes.schur3_update_planes(*FL, fs[u], per_u[0][u], per_u[1][u],
+                                    per_u[2][u], level=level)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(ks, sum(per_u, [])))
+
+
 # The plane kernels of the mid-block rsLQR path (the scan's own kernels,
 # schur_update_planes and plu_solve_multi, do not run there).
-RSLQR_MID_KERNELS = ("pgemm", "pchol", "pcho_solve", "schur3_update_planes")
+RSLQR_MID_KERNELS = ("pgemm", "pchol", "pcho_solve", "schur3_update_planes",
+                     "schur3_update_levels")
 
 
 def test_midblock_solve_kernel_path_matches_plain(dev):

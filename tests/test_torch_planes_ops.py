@@ -118,6 +118,47 @@ def test_schur3_update_planes_plain_matches_pallas(level, q):
         assert rel_err(g.numpy().reshape(w.shape), w) < BAR
 
 
+# schur3_update_levels: N knots x B batch columns = 256 plane elements,
+# JAX's (2, 128) tile; every level that has an upper level.
+LEVEL_CASES = [(n_, lv) for n_ in (16, 32)
+               for lv in range(n_.bit_length() - 2)]
+
+
+@pytest.mark.parametrize("Nk,level", LEVEL_CASES)
+@pytest.mark.parametrize("n,m", [(36, 12), (9, 3), (64, 64), (13, 40)])
+def test_schur3_update_levels_plain_matches_pallas(n, m, Nk, level):
+    """The fused update of every upper level of ``level`` (its plain
+    version: the plain B9 of each upper level in turn) against the JAX
+    kernel applied per upper level, lambda masks and the separator
+    write-back included, at N = 16 and 32 (B = 16 and 8)."""
+    Bb = 256 // Nk
+    depth = Nk.bit_length() - 1
+    U = depth - 1 - level
+    G = Nk >> (level + 1)
+    rng = np.random.default_rng(1000 * n + 10 * Nk + level)
+    R = lambda *s: rng.standard_normal(s)
+    FLl, FLx, FLu = R(n, n, Nk, Bb), R(n, n, Nk, Bb), R(m, n, Nk, Bb)
+    fsols = [R(n, n, G, Bb) for _ in range(U)]
+    Cs = [(R(n, n, Nk, Bb), R(n, n, Nk, Bb), R(m, n, Nk, Bb))
+          for _ in range(U)]
+    jf = lambda x: jnp.asarray(x.reshape(x.shape[0], x.shape[1], 2, 128))
+    t = lambda x: torch.as_tensor(x.copy())
+    tC = [tuple(t(c) for c in trio) for trio in Cs]
+    got = planes.schur3_update_levels(
+        t(FLl), t(FLx), t(FLu), [t(f) for f in fsols],
+        [c[0] for c in tC], [c[1] for c in tC], [c[2] for c in tC],
+        level=level)
+    assert [list(g) for g in got] == [[c[i] for c in tC] for i in range(3)]
+    for fs, trio, mine in zip(fsols, Cs, tC):
+        fs_full = np.repeat(fs, Nk // G, axis=2)  # each group's knots
+        want = jp.schur3_update_planes(
+            jf(FLl), jf(FLx), jf(FLu), jf(fs_full), *(jf(c) for c in trio),
+            level=level, logb=Bb.bit_length() - 1, interpret=True, t1=2)
+        for g, w in zip(mine, want):
+            w = np.asarray(w)
+            assert rel_err(g.numpy().reshape(w.shape), w) < BAR
+
+
 def test_linalg_mid_block_dispatch():
     """``linalg`` sends contractions / factors above the threshold to the
     planes wrappers and keeps small contractions on the broadcast route;
@@ -174,10 +215,98 @@ def test_wrappers_dispatch_by_device():
     planes.pgemm(A, A, kernels="off")
     assert planes.launch_counts() == {
         "pgemm": 0, "pchol": 0, "pcho_solve": 0, "schur3_update_planes": 0,
-        "schur_update_planes": 0, "plu_solve_multi": 0, "pgemm_flagged": 0,
+        "schur3_update_levels": 0, "schur_update_planes": 0,
+        "plu_solve_multi": 0, "pgemm_flagged": 0,
+        "schur3_update_levels_pairs": 0,
     }
     meta = torch.empty(A.shape, device="meta")
     with pytest.raises(RuntimeError, match="no kernel"):
         planes.pgemm(meta, meta)
     with pytest.raises(ValueError, match="kernel mode"):
         planes.pchol(A, kernels="on")
+
+
+def _spy(monkeypatch, name, calls):
+    """Record each call of ``planes.<name>`` (its level, its number of
+    upper levels and its columns q), then run it."""
+    fn = getattr(planes, name)
+
+    def spied(FLl, FLx, FLu, fs, *rest, level, **kw):
+        fss = fs if isinstance(fs, (list, tuple)) else [fs]
+        calls.append((level, len(fss), fss[0].shape[1]))
+        return fn(FLl, FLx, FLu, fs, *rest, level=level, **kw)
+
+    monkeypatch.setattr(planes, name, spied)
+
+
+def test_midblock_factor_takes_fused_update(monkeypatch):
+    """A mid-block solve (nx=12, nu=4, N=16, f32 on the CPU): the factor
+    sweep calls ``schur3_update_levels`` once per level that has an upper
+    level, with all of them (3, 2, 1 at depth 4); ``schur3_update_planes``
+    runs only in the RHS sweep, once per level, with one column."""
+    import rslqr_tpu_torch as pt
+
+    fused, per_u = [], []
+    _spy(monkeypatch, "schur3_update_levels", fused)
+    _spy(monkeypatch, "schur3_update_planes", per_u)
+    prob = pt.random_problem(torch.Generator().manual_seed(3), 16, 12, 4,
+                             device="cpu")
+    got = pt.solve_kkt(prob)
+    assert bool(torch.isfinite(got).all())
+    assert fused == [(0, 3, 12), (1, 2, 12), (2, 1, 12)]
+    assert sorted(per_u) == [(lv, 1, 1) for lv in range(4)]
+
+
+def test_schur3_update_levels_groups(monkeypatch):
+    """The kernel route's launch plan (``_launch`` recorded, no card): one
+    launch per ``UPPER_GROUP`` upper levels, each naming its own slabs, and
+    the counters."""
+    launched = []
+    monkeypatch.setattr(planes, "kernel_applies", lambda k, *a, **kw: True)
+    monkeypatch.setattr(planes, "_launch",
+                        lambda name, dev, *args: launched.append(args))
+    monkeypatch.setattr(planes, "UPPER_GROUP", 2)
+    planes.reset_launch_counts()
+    n, m, Nk, Bb, U = 9, 3, 32, 2, 5
+    f32 = lambda *s: torch.zeros(s, dtype=torch.float32)
+    fs = [f32(n, n, Nk // 2, Bb) for _ in range(U)]
+    Cl, Cx, Cu = ([f32(r, n, Nk, Bb) for _ in range(U)] for r in (n, n, m))
+    planes.schur3_update_levels(f32(n, n, Nk, Bb), f32(n, n, Nk, Bb),
+                                f32(m, n, Nk, Bb), fs, Cl, Cx, Cu, level=0)
+    assert [a[7] for a in launched] == [2, 2, 1]
+    assert [p for a in launched for p in a[4]] == [c.data_ptr() for c in Cl]
+    assert [p for a in launched for p in a[3]] == [f.data_ptr() for f in fs]
+    counts = planes.launch_counts()
+    assert counts["schur3_update_levels"] == 3
+    assert counts["schur3_update_levels_pairs"] == U
+    with pytest.raises(ValueError, match="fsols"):
+        planes.schur3_update_levels(f32(n, n, Nk, Bb), f32(n, n, Nk, Bb),
+                                    f32(m, n, Nk, Bb), fs, Cl[:-1], Cx, Cu,
+                                    level=0)
+    planes.reset_launch_counts()
+
+
+def test_quadruped_depth_launch_counts(monkeypatch):
+    """The closed form of ``launch_counts()`` for one mid-block solve at
+    N = 512 (depth 9), the quadruped's horizon, on the kernel route with
+    the launches recorded and not run (f32 CPU tensors, nx=9, nu=1, B=1;
+    the values are not looked at): 8 fused launches covering the 36 (level,
+    upper level) pairs, and 9 per-level B9 launches, all in the RHS sweep;
+    B6 once a level, B7 for every upper level and once a level in the RHS
+    sweep."""
+    import rslqr_tpu_torch as pt
+
+    monkeypatch.setattr(planes, "kernel_applies",
+                        lambda k, *a, **kw: k == "auto")
+    monkeypatch.setattr(planes, "_launch", lambda *a: None)
+    prob = pt.random_problem(torch.Generator().manual_seed(4), 512, 9, 1,
+                             device="cpu")
+    planes.reset_launch_counts()
+    pt.solve_kkt(prob)
+    counts = planes.launch_counts()
+    planes.reset_launch_counts()
+    assert counts["schur3_update_levels"] == 8
+    assert counts["schur3_update_levels_pairs"] == 36
+    assert counts["schur3_update_planes"] == 9
+    assert counts["pchol"] == 9
+    assert counts["pcho_solve"] == 36 + 9
