@@ -14,7 +14,8 @@ Phases, each printing one line of numbers:
    ``csrc/bf16_rows.cuh``), of B8 at every width (``csrc/plu_kernels.cu``),
    of ``rows_kernel`` and ``levels::rows_kernel`` (B5, B9), of B6's and
    B7's ``pchol_kernel`` and ``pcho_solve_kernel`` at every register width
-   (W = 80 for the wide blocks 65..80) and of the probe kernels (P1 at
+   (W = 80 for the wide blocks 65..80; with each one's SASS instructions,
+   from ``cuobjdump -sass``) and of the probe kernels (P1 at
    every ib, column tile and t1; P2);
 2. each of the four small-block sweep kernels (B1-B4) against its plain
    PyTorch version on clones of the same random f32 inputs, at the small
@@ -453,10 +454,11 @@ def rows_ptxas(build, report: str):
     return lines
 
 
-def chol_ptxas(build, report: str):
+def chol_ptxas(build, report: str, sass: dict = None):
     """One line per register width of B6's ``pchol_kernel`` and B7's
     ``pcho_solve_kernel`` (staged or direct) in a ``-Xptxas -v`` report of
-    ``csrc/planes_kernels.cu``: registers, stack and spills."""
+    ``csrc/planes_kernels.cu``: registers, stack and spills, and the SASS
+    instructions of each kernel in ``sass`` (``build.sass_counts``)."""
     lines = []
     for name, (regs, stack, st, ld) in sorted(
             build.ptxas_kernels(report).items()):
@@ -467,7 +469,9 @@ def chol_ptxas(build, report: str):
                     {"1": " staged", "0": " direct"}.get(m[4], ""))
             lines.append(f"phase1 ptxas {m[2]}_kernel W={m[3]}{mode}: {regs} "
                          f"registers, {stack} bytes stack, {st}/{ld} bytes "
-                         f"spill stores/loads")
+                         f"spill stores/loads"
+                         + (f", {sass[name]} SASS instructions"
+                            if sass and name in sass else ""))
     return lines
 
 
@@ -3226,7 +3230,8 @@ def main() -> int:
              for line in small_ptxas(_build, reports[name])]
     ptxas += plu_ptxas(_build, reports["plu_kernels.cu"])
     ptxas += rows_ptxas(_build, reports["planes_kernels.cu"])
-    ptxas += chol_ptxas(_build, reports["planes_kernels.cu"])
+    ptxas += chol_ptxas(_build, reports["planes_kernels.cu"],
+                        _build.sass_counts(lib))
     ptxas += probe_ptxas(_build, reports["probe_kernels.cu"])
     _build.load()
     print(f"phase1 device={torch.cuda.get_device_name(0)} "

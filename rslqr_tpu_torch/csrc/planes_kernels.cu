@@ -47,7 +47,13 @@
 // knot keeps skip the product and only write the separator rows.
 //
 // pcho_solve_kernel: one right-hand column per thread in registers, L's
-// triangle staged in shared memory per block (see the kernel). pchol_kernel:
+// triangle staged in shared memory per block (see the kernel). Past 64 with
+// several columns, wide::pcho_solve_kernel: bytes and FMAs would allow 0.48
+// ms at the G1's n = w = 70, F = 32,768, but the substitutions' dependent
+// chain sets the pace, so it keeps a 5 x 6 tile of X a thread and walks
+// panels of 5 rows, one warp a row tile, each shared load feeding 5 or 6
+// FMAs: 6.6x that bound (the column-a-thread kernel it replaced, 18.9x; see
+// the kernel). pchol_kernel:
 // one row of one plane element's block per thread in registers, eight
 // elements per block, right-looking over a shared column (see the kernel).
 // Both are instantiated for register widths of 12, 16, 36, 64 and 80 floats
@@ -406,6 +412,11 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
                "l"(src));
 }
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
 }
@@ -528,90 +539,249 @@ int launch_solve_mode(const float* L, float* X, int n, int w, int F,
 //
 // What bounds it: at n = w = 70 a plane element moves L's triangle (2,485
 // floats) and X twice (9,800), 49 KB, for n^2 w = 343,000 FMAs: 14 FLOP a
-// byte, near the card's f32 ridge (~20), so the shared-memory loads that
-// feed the FMAs matter as much as the bytes.
+// byte, near the card's f32 ridge (~20); 0.481 ms at the G1's level 0 (F =
+// 32,768). In practice the substitutions' dependent chain sets the pace: a
+// panel's divisions and the barrier after it, hidden only by other warps.
 //
 // Mapping. A block owns E = 8 plane elements (8 floats: one 32-byte
-// sector) and up to MAX_COLS = 24 right-hand columns: thread (e, c) keeps
-// column c of element e in registers (80 floats; a cap of 170 registers,
-// two blocks of 192 threads an SM: at 256 threads and 128 registers the
-// column spilled 2 KB and the solve ran 23x its bound at n = w = 70). A
-// warp is 8 elements by 4 columns, so each of its shared loads
-// of l_ik reads 8 banks and broadcasts each to 4 columns. The block copies
-// its elements' lower triangles into shared memory by cp.async (tri(n, 0) x
-// 8 floats: 79.5 KB at n = 70, 104 KB at n = 80: two blocks an SM), then
-// runs the staged mode's substitutions, each x_i's terms in the same order
-// with the same divisions. The grid runs (plane chunk of 8 x column
-// group), the groups of one chunk next to each other (L from HBM once,
-// then from L2); w splits into the fewest groups of at most 24 columns,
-// rounded up to whole warps (3 x 24 at w = 70, 4 x 20 at w = 80).
+// sector) and COLS = 24 right-hand columns, and stages its elements' lower
+// triangles in shared memory by cp.async (79.5 KB at n = 70: two blocks an
+// SM). Thread (e, column tile, row tile) keeps an R x S = 5 x 6 tile of X
+// of element e in registers: R rows of one row tile, S columns of one of
+// four column tiles. A warp is one row tile: 8 elements by 4 column tiles,
+// so each shared load of l(i, k) reads 8 banks and broadcasts to 4 threads,
+// and the block has one warp per row tile (14 at n = 70, 16 at 80). The
+// substitutions run by panels of R rows: in the forward pass, row tile p
+// solves its panel's R x R triangle on its own tile, writes the solved rows
+// to a panel buffer, and after one barrier every row tile below applies the
+// rank-R update x_ic -= l_ik x_kc; the back pass is the mirror image with
+// L'. Per term of an update, R loads of l and S loads of x feed R x S FMAs
+// (0.37 shared loads an FMA; the column-a-thread kernel it replaces took
+// one, and unrolled both 80 x 80 triangles into 31,312 SASS instructions,
+// against 4,248 here). The panel loops are rolled; the panel step and the
+// panel's triangle are unrolled, so the tile stays in registers. Two panel
+// buffers let row tile p + 1 solve its panel while the others still read
+// panel p. Rows past n (the last row tile where 5 does not divide n) read
+// l from a row of zeros, so their terms are exact no-ops (x stays +0
+// there), and their divisions are skipped. Registers are capped at 64 (two
+// blocks of 512 threads an SM): 28 bytes spill (136 bytes reloaded). Measured
+// (H100, PERF.md): 3.17 ms chained at n = w = 70, F = 32,768, 6.6x its
+// bound (the kernel it replaces: 9.09 ms, 18.9x). Tiles of 7, 8, 10 or 14
+// rows ran 6-80% slower (fewer warps to hide the chain; 10 rows, with no
+// spill, 19%), panels solved in shared memory by rolled loops 20%.
+//
+// Numerics: each x_i takes its terms one fmaf at a time in ascending k, then
+// the division by l_ii, in the forward pass; in the back pass, descending i.
+// That is the column-a-thread kernel's order, so the result is bit for bit
+// that kernel's.
 namespace wide {
 
-constexpr int E = 8;          // plane elements per block
-constexpr int MAX_COLS = 24;  // right-hand columns per block (threadIdx.y)
+constexpr int E = 8;            // plane elements per block
+constexpr int R = 5;            // rows of a thread's tile and of a panel
+constexpr int S = 6;            // columns of a thread's tile
+constexpr int SUBS = 4;         // column tiles a row tile (a warp: 8 x 4)
+constexpr int COLS = S * SUBS;  // right-hand columns per block
+constexpr int PANEL = R * COLS * E;  // floats of one panel buffer
+
+__host__ __device__ constexpr int tiles(int n) { return (n + R - 1) / R; }
 
 // Offset of l(i, k), k <= i, in the staged triangles [i(i+1)/2 + k][E].
 __host__ __device__ constexpr int tri(int i, int k) {
   return (i * (i + 1) / 2 + k) * E;
 }
 
+// Copies the block's lower triangles into Ls, V floats a copy: E / V
+// threads a term (i, k), walking the terms in row order; ``src`` is the
+// plane offset of the thread's first float.
+template <int V>
+__device__ __forceinline__ void stage(float* Ls, const float* L, int n,
+                                      size_t Fs, size_t src, int tid,
+                                      int threads) {
+  constexpr int P = E / V;
+  const int part = tid % P * V;
+  int i = 0, k = tid / P;
+  while (k > i) k -= ++i;
+  while (i < n) {
+    float* const dst = Ls + tri(i, k) + part;
+    const float* const from = L + ((size_t)i * n + k) * Fs + src;
+    if constexpr (V == 4)
+      cp_async16(dst, from);
+    else
+      cp_async4(dst, from);
+    k += threads / P;
+    while (k > i) k -= ++i;
+  }
+}
+
+// Shared floats of a block at block dim n: the triangles, the row of zeros
+// for the rows past n, two panel buffers [R][S][SUBS][E].
 template <int W>
-__global__ void __launch_bounds__(E * MAX_COLS, 2)
+__host__ __device__ constexpr int smem_floats(int n) {
+  return tri(n, 0) + tiles(W) * R * E + 2 * PANEL;
+}
+
+// Forward: row tile p's panel, its terms from rows above already applied.
+__device__ __forceinline__ void panel_forward(float (&x)[R][S],
+                                              const float* Ls,
+                                              const int (&row)[R], int i0,
+                                              int n) {
+#pragma unroll
+  for (int a = 0; a < R; ++a) {
+#pragma unroll
+    for (int b = 0; b < a; ++b) {
+      const float l = Ls[row[a] + (i0 + b) * E];
+#pragma unroll
+      for (int j = 0; j < S; ++j) x[a][j] = fmaf(-l, x[b][j], x[a][j]);
+    }
+    if (i0 + a < n) {
+      const float d = Ls[row[a] + (i0 + a) * E];
+#pragma unroll
+      for (int j = 0; j < S; ++j) x[a][j] = x[a][j] / d;
+    }
+  }
+}
+
+// Back: row tile p's panel, its terms from rows below already applied.
+__device__ __forceinline__ void panel_back(float (&x)[R][S], const float* Ls,
+                                           const int (&row)[R], int i0,
+                                           int n) {
+#pragma unroll
+  for (int a = R - 1; a >= 0; --a) {
+    if (i0 + a < n) {
+      const float d = Ls[row[a] + (i0 + a) * E];
+#pragma unroll
+      for (int j = 0; j < S; ++j) x[a][j] = x[a][j] / d;
+    }
+#pragma unroll
+    for (int b = 0; b < a; ++b) {
+      const float l = Ls[row[a] + (i0 + b) * E];
+#pragma unroll
+      for (int j = 0; j < S; ++j) x[b][j] = fmaf(-l, x[a][j], x[b][j]);
+    }
+  }
+}
+
+// The thread's tile into its slot of a panel buffer ([k][j] at SUBS x E).
+__device__ __forceinline__ void put(float* slot, const float (&x)[R][S]) {
+#pragma unroll
+  for (int a = 0; a < R; ++a)
+#pragma unroll
+    for (int j = 0; j < S; ++j) slot[(a * S + j) * SUBS * E] = x[a][j];
+}
+
+template <int W>
+__global__ void __launch_bounds__(E * SUBS * tiles(W), 2)
     pcho_solve_kernel(const float* __restrict__ L, float* __restrict__ X,
                       int n, int w, int F, int groups) {
-  extern __shared__ float Ls[];  // [tri(i, k) + e]
-  const int e = threadIdx.x;
+  extern __shared__ float Ls[];  // [tri(i, k) + e], zeros, panel buffers
+  const int e = threadIdx.x % E;
+  const int sub = threadIdx.x / E;
+  const int t = threadIdx.y;  // the thread's row tile
+  const int T = blockDim.y;   // tiles(n)
+  const int threads = blockDim.x * blockDim.y;
+  const int tid = threadIdx.x + blockDim.x * t;
+  const int zero = tri(n, 0);
   const int chunk = blockIdx.x / groups;
-  const int c = (blockIdx.x % groups) * blockDim.y + threadIdx.y;
-  const bool col = c < w;
+  const int c0 = (blockIdx.x % groups) * COLS + sub * S;
   const int f0 = chunk * E + e;
   const bool live = f0 < F;
   const size_t Fs = F;
   const size_t f = live ? f0 : F - 1;  // dead lanes read a valid address
-  for (int i = 0; i < n; ++i)
-    for (int k = threadIdx.y; k <= i; k += blockDim.y)
-      cp_async4(Ls + tri(i, k) + e, L + ((size_t)i * n + k) * Fs + f);
-  // The thread's column (a dead one repeats the last), loaded while the
-  // triangles' copies are in flight.
-  const int cc = col ? c : w - 1;
-  float x[W];
+  // Whole sectors (16 bytes a copy) where the chunk is whole and aligned.
+  if (F % 4 == 0 && (chunk + 1) * E <= F && (size_t)L % 16 == 0)
+    stage<4>(Ls, L, n, Fs, (size_t)chunk * E + tid % 2 * 4, tid, threads);
+  else
+    stage<1>(Ls, L, n, Fs, f, tid, threads);
+  for (int q = tid; q < tiles(W) * R * E; q += threads) Ls[zero + q] = 0.f;
+  // The thread's tile (a dead column repeats the last), loaded while the
+  // triangles' copies are in flight; row[a]: row i0 + a's offset.
+  const int i0 = t * R;
+  int row[R];
+  float x[R][S];
 #pragma unroll
-  for (int k = 0; k < W; ++k)
-    x[k] = k < n ? X[((size_t)k * w + cc) * Fs + f] : 0.f;
+  for (int a = 0; a < R; ++a) {
+    const int i = i0 + a;
+    row[a] = (i < n ? tri(i, 0) : zero) + e;
+#pragma unroll
+    for (int j = 0; j < S; ++j)
+      x[a][j] = i < n ? X[((size_t)i * w + min(c0 + j, w - 1)) * Fs + f]
+                      : 0.f;
+  }
   cp_async_wait_all();
   __syncthreads();
-  const float* Ll = Ls + e;
+  float* const slot = Ls + zero + tiles(W) * R * E + sub * E + e;
+  int step = 0;  // panel steps so far: the buffer of step s is s & 1
+  // Forward, one panel a step: rank-R updates of the tiles below, in
+  // ascending k.
+#pragma unroll 1
+  for (int p = 0; p < T - 1; ++p, ++step) {
+    float* const y = slot + (step & 1) * PANEL;
+    if (t == p) {
+      panel_forward(x, Ls, row, i0, n);
+      put(y, x);
+    }
+    __syncthreads();
+    if (t > p) {
+      const int k0 = p * R;
 #pragma unroll
-  for (int k = 0; k < W; ++k) {
-    if (k < n) {
-      x[k] = x[k] / Ll[tri(k, k)];
+      for (int k = 0; k < R; ++k) {
+        float yk[S];
 #pragma unroll
-      for (int i = k + 1; i < W; ++i)
-        if (i < n) x[i] = fmaf(-Ll[tri(i, k)], x[k], x[i]);
+        for (int j = 0; j < S; ++j) yk[j] = y[(k * S + j) * SUBS * E];
+#pragma unroll
+        for (int a = 0; a < R; ++a) {
+          const float l = Ls[row[a] + (k0 + k) * E];
+#pragma unroll
+          for (int j = 0; j < S; ++j) x[a][j] = fmaf(-l, yk[j], x[a][j]);
+        }
+      }
     }
   }
+  if (t == T - 1) panel_forward(x, Ls, row, i0, n);
+  // Back, one panel a step from the last: rank-R updates of the tiles
+  // above, in descending i.
+#pragma unroll 1
+  for (int p = T - 1; p > 0; --p, ++step) {
+    float* const y = slot + (step & 1) * PANEL;
+    if (t == p) {
+      panel_back(x, Ls, row, i0, n);
+      put(y, x);
+    }
+    __syncthreads();
+    if (t < p) {
 #pragma unroll
-  for (int i = W - 1; i >= 0; --i) {
-    if (i < n) {
-      x[i] = x[i] / Ll[tri(i, i)];
+      for (int k = R - 1; k >= 0; --k) {
+        const int i = p * R + k;
+        const float* const li = Ls + (i < n ? tri(i, i0) : zero + i0 * E) + e;
+        float yk[S];
 #pragma unroll
-      for (int k = 0; k < i; ++k) x[k] = fmaf(-Ll[tri(i, k)], x[i], x[k]);
+        for (int j = 0; j < S; ++j) yk[j] = y[(k * S + j) * SUBS * E];
+#pragma unroll
+        for (int a = 0; a < R; ++a) {
+          const float l = li[a * E];
+#pragma unroll
+          for (int j = 0; j < S; ++j) x[a][j] = fmaf(-l, yk[j], x[a][j]);
+        }
+      }
     }
   }
-  if (!live || !col) return;
+  if (t == 0) panel_back(x, Ls, row, i0, n);
+  if (!live) return;
 #pragma unroll
-  for (int k = 0; k < W; ++k)
-    if (k < n) X[((size_t)k * w + c) * Fs + f] = x[k];
+  for (int a = 0; a < R; ++a)
+#pragma unroll
+    for (int j = 0; j < S; ++j)
+      if (i0 + a < n && c0 + j < w)
+        X[((size_t)(i0 + a) * w + c0 + j) * Fs + f] = x[a][j];
 }
 
 template <int W>
 int launch(const float* L, float* X, int n, int w, int F, cudaStream_t st) {
   const int chunks = (F + E - 1) / E;
-  const int groups = (w + MAX_COLS - 1) / MAX_COLS;
-  const int cols = ((w + groups - 1) / groups + 3) / 4 * 4;  // whole warps
+  const int groups = (w + COLS - 1) / COLS;
   const long long blocks = (long long)chunks * groups;
   if (blocks >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = tri(n, 0) * (int)sizeof(float);
+  const int smem = smem_floats<W>(n) * (int)sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
       pcho_solve_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
@@ -620,8 +790,9 @@ int launch(const float* L, float* X, int n, int w, int F, cudaStream_t st) {
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return static_cast<int>(e);
-  pcho_solve_kernel<W><<<(unsigned)blocks, dim3(E, cols), smem, st>>>(
-      L, X, n, w, F, groups);
+  pcho_solve_kernel<W>
+      <<<(unsigned)blocks, dim3(E * SUBS, tiles(n)), smem, st>>>(
+          L, X, n, w, F, groups);
   return static_cast<int>(cudaGetLastError());
 }
 

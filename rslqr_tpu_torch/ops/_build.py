@@ -175,6 +175,23 @@ def ptxas_kernels(report: str) -> dict:
     return out
 
 
+def sass_counts(library: Path) -> dict:
+    """``{mangled kernel name: SASS instructions}`` of a built library, from
+    ``cuobjdump -sass`` (the toolkit's, beside ``nvcc``)."""
+    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                          text=True, check=True).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m[1]
+            out[name] = 0
+        elif name and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
+            out[name] += 1
+    return out
+
+
 _P, _PP, _PI = (ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
                ctypes.POINTER(ctypes.c_int))
 _I, _FL, _LL = ctypes.c_int, ctypes.c_float, ctypes.c_longlong

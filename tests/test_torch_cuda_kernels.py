@@ -609,7 +609,13 @@ PCHO_CASES = sorted(
     # Wide (W = 80): one column, a few, all n, on small and larger grids.
     | {(d, w, plane) for d in WIDE_DIMS for w in (1, 3, d)
        for plane in ((1, 5), (16, 40))}
-    | {(70, 70, (64, 64)), (70, 1, (64, 64))})
+    | {(70, 70, (64, 64)), (70, 1, (64, 64))}
+    # wide::pcho_solve_kernel's edges: the row tiles' last (n = 65, 70, 79,
+    # 80 end a tile part way or on its edge), w on both sides of a
+    # thread's 6 columns and of a block's 24, on a plane that ends part way
+    # through a block's 8 elements (F = 231).
+    | {(d, w, (7, 33)) for d in (65, 70, 79, 80)
+       for w in (2, 5, 6, 7, 23, 24, 25, 48, 49, d)})
 
 
 @pytest.mark.parametrize("n,w,plane", PCHO_CASES)

@@ -13,6 +13,8 @@ both: a plane of ``F = 1024`` elements is ``(8, 128)`` on the JAX side.
 in the port and their broadcast over each group's knots on the JAX side.
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -67,20 +69,37 @@ def test_pchol_plain_matches_pallas():
     assert not got[iu].any() and not want[iu].any()
 
 
-@pytest.mark.parametrize("w", [12, 1])
-def test_pcho_solve_plain_matches_pallas(w):
-    """w = n (the factor sweep's separator solves) and w = 1 (the RHS
-    sweep's)."""
-    n = 12
+@functools.cache
+def _pallas_solve(n: int, w: int):
+    """``L``, ``B`` and the JAX kernel's solve of ``(L L') X = B``. At n =
+    12 ``L`` is the JAX kernel's Cholesky; past it numpy's, since each
+    interpret-mode compile of the unrolled kernels at n = 70 takes minutes
+    (so one solve of n columns serves every w there: the columns are
+    independent)."""
     rng = np.random.default_rng(2 + w)
-    L = np.asarray(jp.pchol(_jflat(_spd(rng, n, (N, B))), interpret=True))
-    L = L.reshape(n, n, N, B).copy()
+    if n == 12:
+        L = np.asarray(jp.pchol(_jflat(_spd(rng, n, (N, B))), interpret=True))
+        L = L.reshape(n, n, N, B).copy()
+    else:
+        S = np.moveaxis(_spd(rng, n, (N, B)), (0, 1), (-2, -1))
+        L = np.moveaxis(np.linalg.cholesky(S), (-2, -1), (0, 1)).copy()
     Bm = rng.standard_normal((n, w, N, B))
     want = np.asarray(jp.pcho_solve(_jflat(L), _jflat(Bm), interpret=True))
-    Bt = torch.as_tensor(Bm.copy())
+    return L, Bm, want.reshape(Bm.shape)
+
+
+@pytest.mark.parametrize("n,w", [(12, 12), (12, 1), (70, 70), (70, 1)],
+                         ids=["12", "1", "70-70", "70-1"])
+def test_pcho_solve_plain_matches_pallas(n, w):
+    """w = n (the factor sweep's separator solves) and w = 1 (the RHS
+    sweep's), at n = 12 and at the Unitree G1's n = 70, whose several
+    columns the card runs in ``wide::pcho_solve_kernel`` (the CUDA tests
+    hold that kernel to this plain version)."""
+    L, Bm, want = _pallas_solve(n, w if n == 12 else n)
+    Bt = torch.as_tensor(Bm[:, :w].copy())  # the cached B stays as it is
     got = planes.pcho_solve(torch.as_tensor(L), Bt)
     assert got is Bt  # solved in place
-    assert rel_err(got.numpy().reshape(want.shape), want) < BAR
+    assert rel_err(got.numpy(), want[:, :w]) < BAR
 
 
 @pytest.mark.parametrize("q", [12, 1])
